@@ -4,8 +4,8 @@
     python3 chip_smoke.py
 
 Phases, in order; any failure exits non-zero and nothing is caught:
-  1. build    — compile every CUDA kernel of the mapping path from csrc/
-                with nvcc for sm_90a (one process per source, in parallel);
+  1. build    — compile the four CUDA kernels from csrc/ with nvcc for
+                sm_90a (one process per source, in parallel);
   2. kernels  — for the scatter, smear and window-score kernels, at the
                 sequential matcher's (G = 2051) and the loop matcher's
                 (G = 561) geometry, hold each kernel against its plain
@@ -13,13 +13,26 @@ Phases, in order; any failure exits non-zero and nothing is caught:
                 (the sequential ring; a loop chain as pose_graph builds
                 one) plus out-of-grid, -1e9 and non-finite beams
                 (bit-equal required), and time both with CUDA events;
+                then the window-score ceiling (score_ceiling), the
+                roofline measurement: its device time (CUDA graph
+                replays) beside score_windows' on the same raster at the
+                bench geometry, and held bit-equal to its plain version
+                and to score_windows on the table that tiles its offsets;
   3. parity   — a 40-scan session at a reduced geometry on the card and on
-                the CPU (plain versions): trajectories within 4 cm;
-  4. mapping  — the bench workload (bench.py's configuration, seed 42) cut
+                the CPU (plain versions), classic and streaming:
+                trajectories within 4 cm;
+  4. classic  — the bench workload (bench.py's configuration, seed 42) cut
                 to 2 laps (about 260 scans, one revisit) through
                 SlamSession(device="cuda"): ATE below half of odometry's,
-                at least one loop closure, every kernel launched;
-  5. the kernels line (JSON), the card's name and power limit, and the
+                at least one loop closure, every path kernel launched;
+  5. no sync  — one drain's batch loop (256 scans) on the card under
+                torch.cuda.set_sync_debug_mode("error");
+  6. streaming — bench.py's full workload (16 laps, about 2,030 scans)
+                through SlamSession(streaming=True, drain_every=256,
+                device="cuda"), the main path: ATE below half of
+                odometry's, at least one loop closure and one fused verify,
+                every path kernel launched;
+  7. the kernels line (JSON), the card's name and power limit, and the
      last line {"ok": true, "device": {...}}.
 
 It exits non-zero with no result when no CUDA device is present. It imports
@@ -34,6 +47,15 @@ import time
 
 MEM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3
 SCALAR_OPS_PER_S = 67e12       # H100 SXM f32 outside the tensor cores
+# the kernels every mapping path launches; score_ceiling runs only in its
+# own entry point, the roofline measurement of phase 2
+PATH_KERNELS = ("scatter_occupancy", "smear_quantize", "score_windows")
+REPLACES = {
+    "scatter_occupancy": "slam_toolbox_tpu/kernels/match_pallas.py:234",
+    "smear_quantize": "slam_toolbox_tpu/kernels/match_pallas.py:394",
+    "score_windows": "slam_toolbox_tpu/kernels/match_pallas.py:119",
+    "score_ceiling": "scripts/exp_roofline.py:123",
+}
 
 LAP = [
     (-6.0, -3.5), (1.5, -3.5), (5.5, -3.5), (5.5, 0.5), (5.5, 3.5),
@@ -78,21 +100,91 @@ def bench_workload(n_laps: int, resolution: float = 0.01,
     return cfg, laser, data
 
 
-def run_session(sess, data):
-    """Feed every scan; returns (estimates, ground truth, odometry,
-    per-accepted-scan seconds)."""
+def run_session(sess, data, on_scan=None):
+    """Feed every scan, then flush; returns (estimates, ground truth,
+    odometry, seconds of each accepted call that ran no drain, seconds of
+    each call that ran a streaming drain, the flush included). Drains are
+    seen through the session's stage counts, so with its stats disabled
+    every call is in the first list. `on_scan(k)` runs before the k-th
+    accepted scan's successor is fed (profile windows)."""
     import numpy as np
 
-    est, gt, odo, lat = [], [], [], []
+    counts = sess.stats.counts
+    est, gt, odo, lat, drains = [], [], [], [], []
     for i, (scan, tp) in enumerate(data):
+        n0 = counts.get("batch_dispatch", 0)
         t0 = time.perf_counter()
         out = sess.process_scan(scan.ranges, scan.odom_pose, time=i * 0.1)
+        dt = time.perf_counter() - t0
+        if counts.get("batch_dispatch", 0) != n0:
+            drains.append(dt)
+        elif out is not None:
+            lat.append(dt)
         if out is not None:
-            lat.append(time.perf_counter() - t0)
             est.append(out[0])
             gt.append(tp)
             odo.append(scan.odom_pose)
-    return np.stack(est), np.stack(gt), np.stack(odo), np.asarray(lat)
+            if on_scan is not None:
+                on_scan(len(est))
+    n0 = counts.get("batch_dispatch", 0)
+    t0 = time.perf_counter()
+    sess.flush()
+    if counts.get("batch_dispatch", 0) != n0:
+        drains.append(time.perf_counter() - t0)
+    return (np.stack(est), np.stack(gt), np.stack(odo), np.asarray(lat),
+            np.asarray(drains))
+
+
+def run_mapping(sess, data, tag: str):
+    """The main-path run of one session on the card: launch counts from 0,
+    the scans, the flush, the counts read. Prints rate, latency, ATE,
+    closures, launches and per-stage host times; returns a record."""
+    import numpy as np
+    import torch
+
+    from slam_toolbox_tpu_torch.io.dataset import ate_rmse
+    from slam_toolbox_tpu_torch.kernels import match_cuda as mc
+
+    sess.stats.enabled = True
+    closures = []
+    sess.mapper.listeners.append(closures.append)
+    torch.cuda.synchronize()
+    mc.reset_launch_counts()
+    t0 = time.perf_counter()
+    est, gt, odo, lat, drains = run_session(sess, data)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(mc.LAUNCHES)
+    traj = sess.trajectory
+    if not (np.all(np.isfinite(traj)) and traj.shape == (len(est), 3)):
+        raise AssertionError(f"{tag}: non-finite or misshapen trajectory")
+    ate, ate_odom = ate_rmse(traj, gt), ate_rmse(odo, gt)
+    st = sess.stats
+    stages = {k: {"calls": st.counts[k], "ms": 1e3 * v}
+              for k, v in sorted(st.seconds.items())}
+    verifies = st.counts["loop_verify_dispatch"] + st.counts["loop_verify"]
+    print(f"# {tag}: {len(data)} scans in, {len(est)} accepted, {wall} s, "
+          f"{len(est) / wall} scans/s, latency of the {len(lat)} calls "
+          f"that ran no drain p50 {1e3 * np.percentile(lat, 50)} ms p95 "
+          f"{1e3 * np.percentile(lat, 95)} ms", flush=True)
+    if len(drains):
+        print(f"# {tag}: {len(drains)} calls ran a drain (the flush "
+              f"included): p50 {1e3 * np.percentile(drains, 50)} ms max "
+              f"{1e3 * np.max(drains)} ms", flush=True)
+    print(f"# {tag}: ATE {ate} m vs odometry {ate_odom} m, {len(closures)} "
+          f"loop closures, {verifies} fused verify events, launches "
+          f"{launches}", flush=True)
+    print(f"# {tag} stages (calls, host ms): {json.dumps(stages)}",
+          flush=True)
+    if not ate < 0.5 * ate_odom:
+        raise AssertionError(f"{tag}: ATE {ate} not below half of {ate_odom}")
+    if not closures:
+        raise AssertionError(f"{tag}: no loop closure fired")
+    missing = [k for k in PATH_KERNELS if launches[k] == 0]
+    if missing:
+        raise AssertionError(f"{tag}: kernels never launched: {missing}")
+    return dict(launches=launches, verifies=verifies, ate=ate,
+                scans=len(est), wall=wall)
 
 
 def event_ms(fn, n: int, warm: int = 3) -> float:
@@ -112,6 +204,33 @@ def event_ms(fn, n: int, warm: int = 3) -> float:
     return t0.elapsed_time(t1) / n
 
 
+def graph_ms(fn, n: int, replays: int = 20):
+    """Mean device time of one `fn` call: n calls captured in one CUDA
+    graph, replayed, timed with CUDA events. A replay has no host launch
+    cost, so a kernel of tens of microseconds is timed by what the card
+    does and not by the wrapper's host path. Returns (ms, the launches of
+    `fn`'s kernel that the replays made), since the wrappers count no
+    call made under capture."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        for _ in range(n):
+            fn()
+    g.replay()
+    torch.cuda.synchronize()
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    t0.record()
+    for _ in range(replays):
+        g.replay()
+    t1.record()
+    torch.cuda.synchronize()
+    return t0.elapsed_time(t1) / (replays * n), n * (replays + 1)
+
+
 def card_line() -> str:
     """The card's name and power limit, as nvidia-smi reports them."""
     return subprocess.run(
@@ -119,6 +238,26 @@ def card_line() -> str:
          "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
     ).stdout.strip().splitlines()[0]
+
+
+def cells_read(G: int, d, cand_x0, cand_y0, ny: int, nx: int, finite) -> int:
+    """The distinct in-grid raster cells a window-sum kernel reads: cell
+    (cand_y0 + 2i + dy, cand_x0 + 2j + dx) for the (dx, dy) of every
+    finite beam of d (na, B, 2) and every lattice cell (i, j)."""
+    import torch
+
+    dev = d.device
+    seen = torch.zeros(G * G + 1, dtype=torch.bool, device=dev)
+    cy = cand_y0.to(torch.int64) + 2 * torch.arange(ny, device=dev)
+    cx = cand_x0.to(torch.int64) + 2 * torch.arange(nx, device=dev)
+    for a in range(d.shape[0]):
+        gy = d[a, finite, 1].to(torch.int64)[:, None] + cy[None, :]
+        gx = d[a, finite, 0].to(torch.int64)[:, None] + cx[None, :]
+        ok = (((gy >= 0) & (gy < G))[:, :, None]
+              & ((gx >= 0) & (gx < G))[:, None, :])
+        seen[torch.where(ok, gy[:, :, None] * G + gx[:, None, :],
+                         G * G).reshape(-1)] = True
+    return int(seen[:G * G].sum())
 
 
 def bound(nbytes: float, ops: float):
@@ -148,27 +287,35 @@ def loop_chain(data, radius: float):
     return list(range(best[0], best[1])), best[2]
 
 
-def kernel_inputs(matcher, ring, query, dev):
-    """Main-path inputs of the three kernels for one matcher: the base
-    scans' padded points around the query's pose, with a few valid points at
-    -1e9, NaN and far outside the grid added; the coarse rotated tables of
-    the query with every tenth beam marked non-finite."""
+def kernel_inputs(matcher, base, query, dev):
+    """Main-path inputs of the three kernels for one matcher, formed as the
+    streaming path forms them: the world points and device
+    FindValidPoints of the base scans' packs at f32 poses, seen from the
+    query's pose (P = scans x beams, no padding), the last 8 points made
+    valid points at -1e9, NaN and far outside the grid; the coarse rotated
+    tables of the query with every tenth beam marked non-finite."""
     import numpy as np
     import torch
 
+    from slam_toolbox_tpu_torch.device import upload
     from slam_toolbox_tpu_torch.kernels.match import (
-        _rotated_tables, _scan_device_cache,
+        _f32, _rotated_tables, _scan_device_cache,
     )
+    from slam_toolbox_tpu_torch.mapper.streaming import _ring_points, scan_pack
 
     center = np.asarray(query.sensor_pose, np.float64)
-    off = center[:2] - 0.5 * (matcher.G - 1) * matcher.resolution
-    pts, valid = matcher._base_points(ring, center[:2])
-    n = len(pts)
-    pts[n - 8:n - 6] = -1e9
-    pts[n - 6:n - 4] = np.nan
-    pts[n - 4:n - 2] = 1e6
-    pts[n - 2:] = center[:2] + 2.0 * matcher.G * matcher.resolution
-    valid[n - 8:] = True
+    cen = upload(center.astype(np.float32), dev)
+    packs = upload(np.stack([scan_pack(s) for s in base]), dev)
+    poses = upload(np.stack([s.sensor_pose for s in base]).astype(np.float32),
+                   dev)
+    pts, valid = _ring_points(packs, poses, None, cen[:2])
+    off = cen[:2] - _f32(0.5 * (matcher.G - 1) * matcher.resolution)
+    pts, valid = pts.clone(), valid.clone()
+    pts[-8:-6] = -1e9
+    pts[-6:-4] = float("nan")
+    pts[-4:-2] = 1e6
+    pts[-2:] = cen[:2] + 2.0 * matcher.G * matcher.resolution
+    valid[-8:] = True
     local, finite = _scan_device_cache(query, dev)
     finite = finite.clone()
     finite[::10] = False
@@ -179,13 +326,8 @@ def kernel_inputs(matcher, ring, query, dev):
         device=dev,
     )
     d = _rotated_tables(ang, local, np.float32(matcher.scale).item())
-    return dict(
-        pts=torch.from_numpy(pts).to(dev),
-        valid=torch.from_numpy(valid).to(dev),
-        off=torch.from_numpy(off.astype(np.float32)).to(dev),
-        d=d.contiguous(), finite=finite,
-        ncand=len(matcher._xy_coarse),
-    )
+    return dict(pts=pts, valid=valid, off=off, d=d.contiguous(),
+                finite=finite, ncand=len(matcher._xy_coarse))
 
 
 def check_kernels(matcher, inp, tag: str):
@@ -262,6 +404,7 @@ def check_kernels(matcher, inp, tag: str):
         err = max(err, int((s - s_p).abs().max()))
     cx = torch.tensor([cmid], dtype=torch.int32, device=d.device)
     n_fin = int(finite.sum())
+    cells = cells_read(G, d, cx, cx, n, n, finite)
     out["score_windows"] = dict(
         err=err,
         ms=event_ms(
@@ -270,16 +413,120 @@ def check_kernels(matcher, inp, tag: str):
             lambda: mc.score_windows_plain(grid, G, d, cx, cx, n, n, finite),
             20),
         library_ms=None,
-        bound=bound(G * G + 1 + na * B * 8 + B + na * n * n * 4,
+        bound=bound(cells + 8 + na * B * 8 + B + na * n * n * 4,
                     na * n_fin * n * n),
         shape=f"G={G} na={na} B={B} {n}x{n}",
     )
     for name, r in out.items():
-        print(f"# {tag} {name} [{r['shape']}]: max_abs_err {r['err']} "
-              f"kernel {r['ms']:.4f} ms plain {r['plain_ms']:.4f} ms "
-              f"library {r['library_ms']} ms bound {r['bound'][0]:.5f} ms "
-              f"({r['bound'][1]})", flush=True)
-    return out
+        print_record(tag, name, r)
+    return out, grid
+
+
+def print_record(tag, name, r):
+    print(f"# {tag} {name} [{r['shape']}]: max_abs_err {r['err']} "
+          f"kernel {r['ms']:.4f} ms plain {r['plain_ms']:.4f} ms "
+          f"library {r['library_ms']} ms bound {r['bound'][0]:.5f} ms "
+          f"({r['bound'][1]})", flush=True)
+
+
+def measure_ceiling(matcher, grid, d, n):
+    """The roofline measurement, score_ceiling's entry point: the window
+    score (K1) on the main path's raster and rotated table, every beam
+    counted, timed against its ceiling (K4), the same data path with eight
+    compile-time offsets, at the same shapes. Then K4 is held bit-equal
+    to its plain version and to K1 on the table that tiles the offsets,
+    at the main path's lattice origin and straddling both grid edges.
+    Returns the record; its "launches" are K4's launches in this
+    measurement, graph replays included."""
+    import torch
+
+    from slam_toolbox_tpu_torch.kernels import match_cuda as mc
+
+    G = matcher.G
+    na, B = d.shape[0], d.shape[1]
+    dev = grid.device
+    every = torch.ones(B, dtype=torch.bool, device=dev)
+    cmid = (G - 1) // 2 - (n - 1)
+    c = torch.tensor([cmid], dtype=torch.int32, device=dev)
+    mc.reset_launch_counts()
+    k1_dev, _ = graph_ms(
+        lambda: mc.score_windows(grid, G, d, c, c, n, n, every), 50)
+    k4_dev, replayed = graph_ms(
+        lambda: mc.score_ceiling(grid, G, c, c, na, B, n, n), 50)
+    k1_ms = event_ms(
+        lambda: mc.score_windows(grid, G, d, c, c, n, n, every), 50)
+    k4_ms = event_ms(
+        lambda: mc.score_ceiling(grid, G, c, c, na, B, n, n), 50)
+    plain_ms = event_ms(
+        lambda: mc.score_ceiling_plain(grid, G, c, c, na, B, n, n), 20)
+    table = mc.ceiling_table(na, B, dev)
+    err = 0
+    for cx0, cy0 in ((cmid, cmid), (-25, G - 30), (G - 30, -25)):
+        cx = torch.tensor([cx0], dtype=torch.int32, device=dev)
+        cy = torch.tensor([cy0], dtype=torch.int32, device=dev)
+        k4 = mc.score_ceiling(grid, G, cx, cy, na, B, n, n)
+        plain = mc.score_ceiling_plain(grid, G, cx, cy, na, B, n, n)
+        k1 = mc.score_windows(grid, G, table, cx, cy, n, n, every).sum(
+            dim=0, dtype=torch.int32)
+        torch.cuda.synchronize()
+        if not torch.equal(k4, plain):
+            raise AssertionError(f"score_ceiling != plain at ({cx0}, {cy0})")
+        if not torch.equal(k4, k1):
+            raise AssertionError(
+                f"score_ceiling != score_windows on the tiled table at "
+                f"({cx0}, {cy0})")
+        err = max(err, int((k4 - plain).abs().max()))
+    offs = torch.tensor(mc.CEIL_OFFSETS, dtype=torch.int32, device=dev)
+    cells = cells_read(G, offs[None], c, c, n, n,
+                       torch.ones(len(offs), dtype=torch.bool, device=dev))
+    rec = dict(
+        err=err, ms=k4_ms, plain_ms=plain_ms, library_ms=None,
+        bound=bound(cells + 8 + n * n * 4, na * B * n * n),
+        launches=mc.LAUNCHES["score_ceiling"] + replayed,
+        shape=f"G={G} na={na} B={B} {n}x{n}",
+        k1_ms=k1_ms, k1_device_ms=k1_dev, device_ms=k4_dev,
+        k1_pct_of_ceiling=100.0 * k4_dev / k1_dev,
+    )
+    print_record("seq", "score_ceiling", rec)
+    print(f"# ceiling: device time per launch (CUDA graph replay): "
+          f"score_windows {k1_dev} ms, its ceiling {k4_dev} ms: "
+          f"score_windows at {rec['k1_pct_of_ceiling']}% of its ceiling; "
+          f"wrapper times {k1_ms} and {k4_ms} ms; bound "
+          f"{rec['bound'][0]} ms ({rec['bound'][1]}, {cells} raster cells "
+          f"read); {rec['launches']} launches of the ceiling", flush=True)
+    return rec
+
+
+def check_no_sync(cfg, laser, scans, dev):
+    """One drain's batch loop on a fresh pipeline, with its packs and
+    odometry already on the card, under sync_debug_mode("error"): any host
+    synchronization between the batch's first and last scan raises."""
+    import numpy as np
+    import torch
+
+    from slam_toolbox_tpu_torch.device import upload
+    from slam_toolbox_tpu_torch.mapper import Mapper
+    from slam_toolbox_tpu_torch.mapper.streaming import (
+        StreamingPipeline, scan_pack,
+    )
+
+    pipe = StreamingPipeline(Mapper(cfg, device=dev), laser,
+                             drain_every=len(scans))
+    pipe.refresh_state()
+    packs = upload(np.stack([scan_pack(s) for s in scans]), dev)
+    odoms = upload(np.stack([s.odom_pose for s in scans]).astype(np.float32),
+                   dev)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        pipe._run_batch(pipe.state, packs, odoms)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    rows = pipe.state["results"][:len(scans)].cpu()
+    if not bool(torch.isfinite(rows).all()):
+        raise AssertionError("no-sync batch gave non-finite results")
+    print(f"# no sync: a {len(scans)}-scan drain batch ran with no host "
+          f"synchronization", flush=True)
 
 
 def main() -> int:
@@ -292,7 +539,6 @@ def main() -> int:
 
     from slam_toolbox_tpu_torch.api import SlamSession
     from slam_toolbox_tpu_torch.core.scan import LocalizedScan
-    from slam_toolbox_tpu_torch.io.dataset import ate_rmse
     from slam_toolbox_tpu_torch.kernels import match_cuda as mc
     from slam_toolbox_tpu_torch.mapper import Mapper
 
@@ -318,98 +564,95 @@ def main() -> int:
         return s
 
     chain, q = loop_chain(data, cfg.loop_search_maximum_distance)
+    ring = cfg.scan_buffer_size + 2   # the streaming ring's slots
     bases = {
-        "seq": (mapper.sequential_matcher,
-                list(range(cfg.scan_buffer_size)), cfg.scan_buffer_size + 1),
+        "seq": (mapper.sequential_matcher, list(range(ring)), ring + 1),
         "loop": (mapper.loop_matcher, chain, q),
     }
-    checks = {}
+    checks, grids = {}, {}
     for tag, (matcher, base, qi) in bases.items():
         print(f"# {tag}: {len(base)} base scans, query scan {qi}",
               flush=True)
         inp = kernel_inputs(matcher, [scan_at(i) for i in base],
                             scan_at(qi), dev)
-        checks[tag] = check_kernels(matcher, inp, tag)
+        checks[tag], grids[tag] = check_kernels(matcher, inp, tag)
+        if tag == "seq":
+            ceiling = measure_ceiling(
+                matcher, grids[tag], inp["d"], inp["ncand"])
 
-    # 3. the card against the CPU on a short session at a coarser grid
+    # 3. the card against the CPU on a short session at a coarser grid,
+    # on both paths
     pcfg, plaser, pdata = bench_workload(n_laps=1, resolution=0.05,
                                          beam_deg=1.0, seed=7)
-    trajs = []
-    for where in ("cuda", "cpu"):
-        sess = SlamSession(pcfg, plaser, device=where)
-        run_session(sess, pdata[:40])
-        trajs.append(sess.trajectory)
-    if trajs[0].shape != trajs[1].shape:
-        raise AssertionError("card and CPU accepted different scans")
-    parity = float(np.max(np.hypot(*(trajs[0][:, :2] - trajs[1][:, :2]).T)))
-    print(f"# parity: {len(trajs[0])} scans, card vs CPU max position "
-          f"difference {parity:.3e} m", flush=True)
-    if parity > 0.04:
-        raise AssertionError(f"card vs CPU trajectories differ: {parity}")
+    for streaming in (False, True):
+        trajs = []
+        for where in ("cuda", "cpu"):
+            sess = SlamSession(pcfg, plaser, device=where,
+                               streaming=streaming, drain_every=16)
+            run_session(sess, pdata[:40])
+            trajs.append(sess.trajectory)
+        if trajs[0].shape != trajs[1].shape:
+            raise AssertionError("card and CPU accepted different scans")
+        gap = float(np.max(np.hypot(*(trajs[0][:, :2] - trajs[1][:, :2]).T)))
+        print(f"# parity (streaming={streaming}): {len(trajs[0])} scans, "
+              f"card vs CPU max position difference {gap} m", flush=True)
+        if gap > 0.04:
+            raise AssertionError(f"card vs CPU trajectories differ: {gap}")
 
-    # 4. the mapping path at the bench geometry
-    sess = SlamSession(cfg, laser, device=dev)
-    sess.stats.enabled = True
-    closures = []
-    sess.mapper.listeners.append(closures.append)
-    mc.reset_launch_counts()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    est, gt, odo, lat = run_session(sess, data)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = dict(mc.LAUNCHES)
-    traj = sess.trajectory
-    if not (np.all(np.isfinite(traj)) and traj.shape == (len(est), 3)):
-        raise AssertionError("non-finite or misshapen trajectory")
-    ate = ate_rmse(traj, gt)
-    ate_odom = ate_rmse(odo, gt)
-    stages = {
-        k: round(1e3 * v / max(sess.stats.counts[k], 1), 3)
-        for k, v in sess.stats.seconds.items()
-    }
-    print(f"# mapping: {len(data)} scans in, {len(est)} accepted, "
-          f"{wall:.3f} s, {len(est) / wall:.3f} scans/s, latency p50 "
-          f"{1e3 * np.percentile(lat, 50):.3f} ms p95 "
-          f"{1e3 * np.percentile(lat, 95):.3f} ms", flush=True)
-    print(f"# mapping: ATE {ate:.5f} m vs odometry {ate_odom:.5f} m, "
-          f"{len(closures)} loop closures, launches {launches}", flush=True)
-    print(f"# mapping stage ms/call: {json.dumps(stages)}", flush=True)
-    if not ate < 0.5 * ate_odom:
-        raise AssertionError(f"ATE {ate} not below half of {ate_odom}")
-    if not closures:
-        raise AssertionError("no loop closure fired")
-    missing = [k for k, v in launches.items() if v == 0]
-    if missing:
-        raise AssertionError(f"kernels never launched: {missing}")
+    # 4. the classic path at the bench geometry, cut to 2 laps
+    run_mapping(SlamSession(cfg, laser, device=dev), data, "classic")
 
-    # 5. kernels line, card line, result line
-    replaces = {
-        "scatter_occupancy":
-            "slam_toolbox_tpu/kernels/match_pallas.py:234",
-        "smear_quantize": "slam_toolbox_tpu/kernels/match_pallas.py:394",
-        "score_windows": "slam_toolbox_tpu/kernels/match_pallas.py:119",
-    }
+    # 5. no host synchronization inside a drain's batch loop
+    cfg16, laser16, data16 = bench_workload(n_laps=16)
+    scans = []
+    for s, _ in data16[:400]:
+        s = LocalizedScan(laser16, s.ranges, s.odom_pose)
+        if not scans or np.hypot(*(s.odom_pose[:2] - scans[-1].odom_pose[:2])
+                                 ) >= cfg16.minimum_travel_distance:
+            scans.append(s)
+    check_no_sync(cfg16, laser16, scans[:256], dev)
+
+    # 6. the main path: the streaming pipeline on bench.py's full workload
+    main_run = run_mapping(
+        SlamSession(cfg16, laser16, device=dev, streaming=True,
+                    drain_every=256),
+        data16, "streaming")
+    if main_run["verifies"] < 1:
+        raise AssertionError("streaming: no fused loop verify ran")
+
+    # 7. kernels line, card line, result line
     rows = []
     for name in mc.KERNELS:
-        seq, loop = checks["seq"][name], checks["loop"][name]
-        rows.append({
+        if name == "score_ceiling":
+            rec, loop = ceiling, None
+        else:
+            rec, loop = checks["seq"][name], checks["loop"][name]
+        row = {
             "name": name, "route": "cuda",
             "source": f"slam_toolbox_tpu_torch/csrc/{name}.cu",
-            "replaces": replaces[name],
-            "launches": launches[name],
-            "max_abs_err": max(seq["err"], loop["err"]),
-            "ms": seq["ms"], "plain_ms": seq["plain_ms"],
-            "bound_ms": seq["bound"][0], "bound_by": seq["bound"][1],
-            "library_ms": seq["library_ms"],
-            "shape": seq["shape"],
-            "loop": {
+            "replaces": REPLACES[name],
+            "launches": main_run["launches"][name],
+            "max_abs_err": max(rec["err"], loop["err"] if loop else 0),
+            "ms": rec["ms"], "plain_ms": rec["plain_ms"],
+            "bound_ms": rec["bound"][0], "bound_by": rec["bound"][1],
+            "library_ms": rec["library_ms"],
+            "shape": rec["shape"],
+        }
+        if loop:
+            row["loop"] = {
                 "shape": loop["shape"], "ms": loop["ms"],
                 "plain_ms": loop["plain_ms"], "bound_ms": loop["bound"][0],
                 "bound_by": loop["bound"][1],
                 "library_ms": loop["library_ms"],
-            },
-        })
+            }
+        else:
+            row["launched_by"] = "the ceiling measurement of phase 2"
+            row["measurement_launches"] = rec["launches"]
+            row["device_ms"] = rec["device_ms"]
+            row["score_windows_ms"] = rec["k1_ms"]
+            row["score_windows_device_ms"] = rec["k1_device_ms"]
+            row["score_windows_pct_of_ceiling"] = rec["k1_pct_of_ceiling"]
+        rows.append(row)
     print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -1,15 +1,19 @@
 """User-facing driver mirroring the reference's ROS node + service surface.
 
 PyTorch counterpart of slam_toolbox_tpu/api/slam.py, classic synchronous
-subset: scan ingestion gates (shouldProcessScan,
+mapping subset: scan ingestion gates (shouldProcessScan,
 slam_toolbox_common.cpp:740-786), mode dispatch for mapping (addScan,
 :798-859), map->odom maintenance (setTransformFromPoses, :657-712), pose
 reporting with covariance scaling (publishPose, :862-884), pause domains
-and the managed-node lifecycle. SlamSession.process_scan is synchronous:
-every scan is matched, linked and loop-closed before it returns.
+and the managed-node lifecycle. With streaming=False process_scan is
+synchronous: every scan is matched, linked and loop-closed before it
+returns. With streaming=True scans go through the device-resident
+pipeline (mapper/streaming.py): process_scan returns the propagated
+prior at once and corrected poses land at drains (every `drain_every`
+scans, or on flush() and the accessors).
 
-Not ported yet (they raise NotImplementedError): the streaming pipeline,
-localization mode, occupancy maps, and serialize/deserialize.
+Not ported yet (they raise NotImplementedError): localization mode,
+occupancy maps, and serialize/deserialize.
 """
 from __future__ import annotations
 
@@ -79,18 +83,17 @@ class SlamSession:
     ):
         """`device` defaults to "cuda" and raises RuntimeError when no GPU
         is present; pass device="cpu" to run the plain versions on the
-        CPU. `streaming` and `drain_every` are accepted for signature
-        parity with the JAX package; streaming=True is not ported yet."""
-        if streaming:
-            raise NotImplementedError("the streaming pipeline is not ported")
+        CPU. streaming=True routes scans through the device-resident
+        pipeline, drained every `drain_every` scans."""
         if mode != "mapping":
             raise NotImplementedError(f"mode {mode!r} is not ported")
         self.config = config or MapperConfig()
         self.laser = laser
         self.mapper = Mapper(self.config, device=device)
         self.device = self.mapper.device
-        self.streaming = False
+        self.streaming = bool(streaming)
         self.drain_every = drain_every
+        self._pipe = None
         self.mode = mode
         self.throttle_scans = max(int(throttle_scans), 1)
         self.minimum_time_interval = float(minimum_time_interval)
@@ -150,7 +153,19 @@ class SlamSession:
 
         cov = np.eye(3)
         pt = self.processor_type
-        if pt == ProcessType.PROCESS:
+        if pt != ProcessType.PROCESS and self._pipe is not None:
+            # mode switch (dock): the classic path must see fully drained
+            # and settled bookkeeping
+            self._pipe.drain()
+            self._pipe.settle()
+        if pt == ProcessType.PROCESS and self.streaming:
+            ok = self._ensure_pipe().process_scan(scan)
+            if not ok:
+                return None
+            self.last_scan_time = scan.time
+            self.last_scan_odom = np.array(scan.odom_pose)
+            return self._streaming_online_pose(scan), cov
+        elif pt == ProcessType.PROCESS:
             ok = self.mapper.process(scan, covariance_out=cov)
         elif pt == ProcessType.PROCESS_FIRST_NODE:
             ok = self.mapper.process_at_dock(scan, covariance_out=cov)
@@ -179,9 +194,42 @@ class SlamSession:
             )
         )
 
+    def _ensure_pipe(self):
+        if self._pipe is None:
+            from slam_toolbox_tpu_torch.mapper.streaming import (
+                StreamingPipeline,
+            )
+
+            self._pipe = StreamingPipeline(
+                self.mapper, self.laser, drain_every=self.drain_every
+            )
+        return self._pipe
+
+    def _streaming_online_pose(self, scan) -> np.ndarray:
+        """Online pose between drains: the last drained correction
+        propagated through the odometry delta (the same prior the device
+        uses; exact once the scan itself has drained). Also maintains
+        map->odom like the classic path."""
+        last = self.mapper.sensor_manager.get_last_scan(self.laser.name)
+        if last is None:
+            pose = np.array(scan.corrected_pose)
+        else:
+            pose = np.asarray(geometry.transform_pose_between(
+                last.odom_pose, last.corrected_pose, scan.odom_pose
+            ))
+        self.map_to_odom = np.asarray(
+            geometry.compose(pose, geometry.inverse(scan.odom_pose))
+        )
+        self.last_pose = np.array(pose)
+        return pose
+
     def flush(self) -> None:
-        """Nothing is deferred on the synchronous path; kept so callers
-        written against the streaming API work unchanged."""
+        """Drain the streaming pipeline (no-op on the synchronous path) and
+        complete any deferred loop closure, so every accessor behind
+        flush() sees fully settled poses."""
+        if self._pipe is not None:
+            self._pipe.drain()
+            self._pipe.settle()
 
     @property
     def stats(self):
@@ -246,6 +294,7 @@ class SlamSession:
         return self.lifecycle.shutdown()
 
     def reset(self) -> None:
+        self._pipe = None
         self.mapper.reset()
         self.processor_type = ProcessType.PROCESS
         self.scan_count = 0
@@ -262,10 +311,13 @@ class SlamSession:
         slam_toolbox_common.cpp:524)."""
         if self.is_paused(PausedApplication.VISUALIZING_GRAPH):
             return None
+        if self._pipe is not None:
+            self._pipe.settle()
         return self.mapper.solver.get_graph()
 
     @property
     def trajectory(self) -> np.ndarray:
+        self.flush()
         scans = self.mapper.all_processed_scans()
         if not scans:
             return np.zeros((0, 3))

@@ -1,4 +1,5 @@
-"""Device selection for the port's entry points.
+"""Device selection for the port's entry points, and host<->device copies
+that do not wait.
 
 Entry points run on the card unless the caller asks for the CPU: with no
 CUDA device present, the default raises instead of quietly running the
@@ -6,6 +7,7 @@ plain versions on the CPU.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -22,3 +24,38 @@ def resolve_device(device=None) -> torch.device:
         # a tensor's device always carries its index: "cuda" != "cuda:0"
         dev = torch.device("cuda", torch.cuda.current_device())
     return dev
+
+
+def upload(a, device: torch.device) -> torch.Tensor:
+    """Host array -> tensor on `device`. To a card the copy goes through
+    pinned memory and does not wait (a pageable copy synchronizes the
+    stream); on the CPU the tensor owns a copy of `a`."""
+    t = torch.from_numpy(np.array(a, copy=True, order="C"))
+    if device.type != "cuda":
+        return t
+    return t.pin_memory().to(device, non_blocking=True)
+
+
+class HostCopy:
+    """A tensor's copy to host memory, started at construction without
+    waiting: on a card a non-blocking copy into pinned memory plus an
+    event, which numpy() waits on; on the CPU a snapshot. Later in-place
+    writes to the source do not reach the copy."""
+
+    __slots__ = ("src", "_host", "_event")
+
+    def __init__(self, t: torch.Tensor):
+        self.src = t
+        if t.device.type == "cuda":
+            self._host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+            self._host.copy_(t, non_blocking=True)
+            self._event = torch.cuda.Event()
+            self._event.record()
+        else:
+            self._host = t.clone()
+            self._event = None
+
+    def numpy(self) -> np.ndarray:
+        if self._event is not None:
+            self._event.synchronize()
+        return self._host.numpy()

@@ -7,9 +7,11 @@ nanoflann KD-tree rebuild (Mapper.cpp:1837-1912) — at N <= 1e5 2-D vertices
 a masked argmin over a coordinate array is faster than rebuilding a tree.
 
 Copy of slam_toolbox_tpu/graph/pose_graph.py for the PyTorch port. Loop
-closure takes the staged path only (coarse match_scans_batch, then fine
-dispatch_scans_batch): the fused verify program and the multi-device
-chain matching of the JAX package are not ported yet.
+closure of a streaming session (a mapper with a pack pool) runs the fused
+verify of kernels/loop_verify.py, with the deferred begin/finish split
+the streaming drain uses; the classic path keeps the staged verify
+(coarse match_scans_batch, then fine dispatch_scans_batch). The
+multi-device chain matching of the JAX package is not ported.
 """
 from __future__ import annotations
 
@@ -987,6 +989,66 @@ class PoseGraph:
             )
         return chains, start_id
 
+    def _use_fused_loop(self) -> bool:
+        """Whether loop events run through the fused verify
+        (kernels/loop_verify.py): on any device for a streaming session,
+        whose pack pool the verify gathers chains from; the classic path
+        keeps the staged verify."""
+        return self.mapper._pack_pool is not None
+
+    def try_close_loop_begin(self, scan, sensor_name):
+        """Asynchronous first half of TryCloseLoop for the streaming
+        drain: sweep the candidate chains and launch the fused verify
+        without waiting on it. Returns a bool when the attempt resolved
+        synchronously (no candidates, or the staged blocking path ran),
+        else an opaque handle for try_close_loop_finish. The finish runs
+        before any later bookkeeping reads or moves poses, so results are
+        those of the blocking call."""
+        from slam_toolbox_tpu_torch.utils.metrics import stage_timer
+
+        if not self._use_fused_loop():
+            return self.try_close_loop(scan, sensor_name)
+        chains, start_id = self._sweep_chains(scan, sensor_name, 0)
+        if not chains:
+            return False
+        with stage_timer(self.mapper.stats, "loop_verify_dispatch"):
+            dev_rows = self._dispatch_fused(scan, chains)
+        return (scan, sensor_name, chains, dev_rows, start_id)
+
+    def _dispatch_fused(self, scan, chains):
+        """Launch the fused verify of `chains` without waiting: one block
+        of rows, or, past lv.CHUNK chains, blocks of that many that the
+        finish fetches in order, stopping at the first acceptance."""
+        from slam_toolbox_tpu_torch.kernels import loop_verify as lv
+
+        dispatch = (lv.dispatch_loop_verify_chunked if len(chains) > lv.CHUNK
+                    else lv.dispatch_loop_verify)
+        return dispatch(
+            self.mapper.loop_matcher, self.mapper.sequential_matcher, scan,
+            chains, self.mapper.config, pool=self.mapper._pack_pool,
+        )
+
+    def try_close_loop_finish(self, handle) -> bool:
+        """Second half of try_close_loop_begin: fetch the verify rows,
+        apply gates/link/optimize, and, when a closure moved poses, resume
+        the sweep from the saved id exactly like the blocking loop."""
+        if isinstance(handle, bool):
+            return handle
+        scan, sensor_name, chains, dev_rows, start_id = handle
+        cfg = self.mapper.config
+        if not self._fused_finish(scan, chains, dev_rows, cfg):
+            return False
+        # a closure moved poses: re-sweep the remaining candidates with
+        # the corrected poses (blocking rounds, as in try_close_loop)
+        while True:
+            chains, start_id = self._sweep_chains(
+                scan, sensor_name, start_id
+            )
+            if not chains:
+                return True
+            if not self._try_close_fused(scan, chains, cfg):
+                return True
+
     def try_close_loop(self, scan, sensor_name) -> bool:
         """TryCloseLoop (Mapper.cpp:1500-1561): coarse match against each
         candidate chain, gate on response/variance, verify with a fine
@@ -1004,6 +1066,11 @@ class PoseGraph:
                 scan, sensor_name, start_id
             )
             if not chains:
+                return closed
+            if self._use_fused_loop():
+                if self._try_close_fused(scan, chains, cfg):
+                    closed = True
+                    continue  # poses moved: re-sweep remaining candidates
                 return closed
             with stage_timer(self.mapper.stats, "loop_coarse_match"):
                 coarse_results = self.mapper.loop_matcher.match_scans_batch(
@@ -1128,6 +1195,92 @@ class PoseGraph:
             )
             return False
         return True
+
+    def _try_close_fused(self, scan, chains, cfg) -> bool:
+        """Blocking fused verify of one round of candidate chains: coarse
+        match, gates and fine verification on the device, one fetch. Gate
+        values and acceptance order are those of the staged path."""
+        from slam_toolbox_tpu_torch.utils.metrics import stage_timer
+
+        with stage_timer(self.mapper.stats, "loop_verify"):
+            dev_rows = self._dispatch_fused(scan, chains)
+        return self._fused_finish(scan, chains, dev_rows, cfg)
+
+    def _fused_finish(self, scan, chains, dev_rows, cfg) -> bool:
+        """Host half of the fused verify: fetch the packed rows, apply the
+        gates and the first-passing-chain acceptance, link and optimize.
+        A list of (rows, chains slice) blocks (the chunked dispatch) is
+        fetched in order and stops at the first acceptance: the reference
+        discards post-acceptance candidates and re-sweeps."""
+        from slam_toolbox_tpu_torch.utils.metrics import stage_timer
+
+        seq = self.mapper.sequential_matcher
+        if isinstance(dev_rows, list):
+            for done, (rows_dev, sl) in enumerate(dev_rows):
+                with stage_timer(self.mapper.stats, "loop_verify_wait"):
+                    rows = np.asarray(rows_dev.numpy(), np.float64)
+                if self._gate_and_close(scan, sl, rows, cfg, seq):
+                    self.mapper.stats.count(
+                        "loop_chunks_skipped", len(dev_rows) - done - 1,
+                    )
+                    return True
+            return False
+        with stage_timer(self.mapper.stats, "loop_verify_wait"):
+            rows = np.asarray(dev_rows.numpy(), np.float64)
+        return self._gate_and_close(scan, chains, rows, cfg, seq)
+
+    def _gate_and_close(self, scan, chains, rows, cfg, seq) -> bool:
+        """Apply the coarse/fine gates to fetched verify rows in chain
+        order; link + optimize at the first acceptance."""
+        from slam_toolbox_tpu_torch.core.geometry import KT_TOLERANCE
+        from slam_toolbox_tpu_torch.core.scan import LocalizedScan
+        from slam_toolbox_tpu_torch.kernels.match import Matcher
+
+        for chain, row in zip(chains, rows):
+            if self.mapper.event_listeners:
+                coarse = Matcher.results_from_packed(row[:13])[0]
+                self.mapper.fire_loop_closure_check(
+                    f"COARSE RESPONSE: {coarse.response} "
+                    f"(> {cfg.loop_match_minimum_response_coarse})\n"
+                    f"            var: {coarse.covariance[0, 0]},  "
+                    f"{coarse.covariance[1, 1]} "
+                    f"(< {cfg.loop_match_maximum_variance_coarse})"
+                )
+            if row[26] <= 0.5:  # coarse response/variance gates
+                continue
+            fine = Matcher.results_from_packed(row[13:26])[0]
+            if (
+                abs(fine.response) <= KT_TOLERANCE
+                and seq.use_response_expansion
+            ):
+                # rare fallback: replay the reference's temporary-scan
+                # seeding at the coarse pose with angular expansion
+                coarse = Matcher.results_from_packed(row[:13])[0]
+                tmp = LocalizedScan(
+                    scan.laser, scan.ranges, scan.odom_pose, scan.time
+                )
+                tmp.state_id = scan.state_id
+                tmp.unique_id = scan.unique_id
+                tmp.set_corrected_pose(scan.corrected_pose)
+                tmp.set_sensor_pose(coarse.sensor_pose)
+                fine = seq.match_scan(tmp, chain, penalize=False)
+            if self.mapper.event_listeners:
+                self.mapper.fire_loop_closure_check(
+                    f"FINE RESPONSE: {fine.response} "
+                    f"(>{cfg.loop_match_minimum_response_fine})"
+                )
+            if self._loop_accept(scan, fine, cfg):
+                self.mapper.fire_loop_closure("Closing loop...")
+                scan.set_sensor_pose(fine.sensor_pose)
+                self.link_chain_to_scan(
+                    chain, scan, fine.sensor_pose, fine.covariance
+                )
+                self.correct_poses(center_scan=scan)
+                self.mapper.fire_end_loop_closure("Loop closed!")
+                return True
+            if fine.response < cfg.loop_match_minimum_response_fine:
+                self.mapper.fire_loop_closure_check("REJECTED!")
+        return False
 
     def correct_poses(self, center_scan=None) -> None:
         """CorrectPoses (Mapper.cpp:2012-2030): solver Compute + write

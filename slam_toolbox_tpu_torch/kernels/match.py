@@ -442,11 +442,19 @@ def _rotated_tables(angles, local_pts, scale):
     ).to(torch.int32)
 
 
+def _device_scalar(x, dev):
+    """An f32 scalar on `dev`: a tensor as it is, a Python number filled
+    on the device (no host-to-device copy, which would synchronize)."""
+    if isinstance(x, torch.Tensor):
+        return x.to(_F32)
+    return torch.full((), x, dtype=_F32, device=dev)
+
+
 def _positional_cov(probs, best, avg_x, avg_y, center, x_offsets, y_offsets,
                     step_xy, angle_step):
     dev = probs.device
-    step_xy = torch.as_tensor(step_xy, dtype=_F32, device=dev)
-    angle_step = torch.as_tensor(angle_step, dtype=_F32, device=dev)
+    step_xy = _device_scalar(step_xy, dev)
+    angle_step = _device_scalar(angle_step, dev)
     dx = avg_x - center[0]
     dy = avg_y - center[1]
     use = probs >= best - 0.1
@@ -497,10 +505,9 @@ def _angular_cov(grid_flat, G, sink, offset, scale, d_fine, finite,
     zero = resp_a.new_zeros(())
     norm = torch.where(use, resp_a, zero).sum()
     acc = torch.where(use, (angles - best_angle) ** 2 * resp_a, zero).sum()
-    step_sq = torch.as_tensor(angle_step, dtype=_F32) ** 2
-    acc = torch.where(acc < KT_TOLERANCE, step_sq.to(acc.device), acc)
-    return torch.where(norm > KT_TOLERANCE, acc / norm,
-                       (1000.0 * step_sq).to(acc.device))
+    step_sq = _device_scalar(angle_step, acc.device) ** 2
+    acc = torch.where(acc < KT_TOLERANCE, step_sq, acc)
+    return torch.where(norm > KT_TOLERANCE, acc / norm, 1000.0 * step_sq)
 
 
 def _match_pass_impl(

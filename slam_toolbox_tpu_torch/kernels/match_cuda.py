@@ -1,11 +1,17 @@
 """Hand-written CUDA kernels of the matcher and their plain versions.
 
 Counterparts of the three Pallas kernels of
-slam_toolbox_tpu/kernels/match_pallas.py:
+slam_toolbox_tpu/kernels/match_pallas.py and of the roofline ceiling of
+the third, scripts/exp_roofline.py:
 
-  scatter_occupancy  <- _scatter_bits          (pallas_call :234)
-  smear_quantize     <- smear_quantize_parity  (pallas_call :394)
-  score_windows      <- score_windows          (pallas_call :119)
+  scatter_occupancy  <- _scatter_bits          (match_pallas.py :234)
+  smear_quantize     <- smear_quantize_parity  (match_pallas.py :394)
+  score_windows      <- score_windows          (match_pallas.py :119)
+  score_ceiling      <- mk_ceil.kern           (exp_roofline.py :123)
+
+score_ceiling is on no mapping path: it is score_windows' ceiling, the
+same data path with compile-time offsets, timed beside it by
+chip_smoke.py.
 
 Each source in ../csrc/ is compiled on first use by its own nvcc process
 (all started together) into a shared library with a plain C interface in
@@ -15,7 +21,10 @@ stream and raises if the launch was refused. A wrapper given CPU tensors
 runs the plain PyTorch version instead; given CUDA tensors it launches the
 kernel or raises — it never falls back.
 
-LAUNCHES counts, per kernel, the launches made through the wrappers.
+LAUNCHES counts, per kernel, the launches made through the wrappers. A
+call made while a CUDA graph is being captured records the kernel into
+the graph and launches nothing, so it is not counted; the graph's
+replays are for its owner to count.
 """
 from __future__ import annotations
 
@@ -35,7 +44,11 @@ from slam_toolbox_tpu_torch.native import BUILD_DIR
 _CSRC = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "csrc")
 
-KERNELS = ("scatter_occupancy", "smear_quantize", "score_windows")
+KERNELS = ("scatter_occupancy", "smear_quantize", "score_windows",
+           "score_ceiling")
+# score_ceiling's compile-time (dx, dy) offsets, as in csrc/score_ceiling.cu
+CEIL_OFFSETS = ((612, -35), (-480, 271), (133, 702), (-57, -655),
+                (890, 404), (-821, -230), (305, -877), (-214, 515))
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "--fmad=false", "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC",
@@ -110,6 +123,7 @@ def _lib(name: str):
         "scatter_occupancy": [p, p, p, f, i, i, p, p],
         "smear_quantize": [p, p, i, i, p, p],
         "score_windows": [p, i, p, p, p, i, i, i, i, p, p, p],
+        "score_ceiling": [p, i, p, p, i, i, i, i, p, p],
     }[name]
     _libs[name] = lib
     return lib
@@ -146,6 +160,11 @@ def _raise_if(err: int, name: str) -> None:
         raise RuntimeError(f"{name} launch failed: cudaError {err}")
 
 
+def _count(name: str) -> None:
+    if not torch.cuda.is_current_stream_capturing():
+        LAUNCHES[name] += 1
+
+
 # -- K2: binary occupancy stamp ----------------------------------------------
 def scatter_occupancy(points, valid, offset, scale: float, G: int):
     """(G, G) uint8 occupancy of `points` (P, 2) f32 under mask `valid`
@@ -163,7 +182,7 @@ def scatter_occupancy(points, valid, offset, scale: float, G: int):
         points.data_ptr(), valid.data_ptr(), offset.data_ptr(),
         float(scale), G, P, occ.data_ptr(), _stream(),
     ), "scatter_occupancy")
-    LAUNCHES["scatter_occupancy"] += 1
+    _count("scatter_occupancy")
     return occ
 
 
@@ -181,7 +200,7 @@ def smear_quantize(occ, w, G: int, hk: int):
     _raise_if(lib.smear_quantize(
         occ.data_ptr(), w.data_ptr(), G, hk, out.data_ptr(), _stream(),
     ), "smear_quantize")
-    LAUNCHES["smear_quantize"] += 1
+    _count("smear_quantize")
     return out
 
 
@@ -232,5 +251,45 @@ def score_windows(grid_flat, G: int, d, cand_x0, cand_y0, ny: int, nx: int,
         cand_y0.data_ptr(), na, B, ny, nx, finite.data_ptr(),
         out.data_ptr(), _stream(),
     ), "score_windows")
-    LAUNCHES["score_windows"] += 1
+    _count("score_windows")
+    return out
+
+
+# -- K4: the window-score ceiling --------------------------------------------
+def ceiling_table(na: int, B: int, device) -> torch.Tensor:
+    """(na, B, 2) int32 table tiling CEIL_OFFSETS over the beam slots
+    s = a * B + b in order (slot s takes offset s mod 8)."""
+    offs = torch.tensor(CEIL_OFFSETS, dtype=torch.int32, device=device)
+    slots = torch.arange(na * B, device=device) % len(CEIL_OFFSETS)
+    return offs[slots].reshape(na, B, 2)
+
+
+def score_ceiling_plain(grid_flat, G: int, cand_x0, cand_y0, na: int, B: int,
+                        ny: int, nx: int):
+    """(ny, nx) int32: score_windows_plain on ceiling_table with every beam
+    finite, summed over the headings."""
+    d = ceiling_table(na, B, grid_flat.device)
+    finite = torch.ones(B, dtype=torch.bool, device=grid_flat.device)
+    return score_windows_plain(grid_flat, G, d, cand_x0, cand_y0, ny, nx,
+                               finite).sum(dim=0, dtype=torch.int32)
+
+
+def score_ceiling(grid_flat, G: int, cand_x0, cand_y0, na: int, B: int,
+                  ny: int, nx: int):
+    """The window-score ceiling; see score_ceiling_plain. Shapes and
+    launch layout are score_windows' for na headings of B beams."""
+    dev = grid_flat.device
+    _check(grid_flat, "grid_flat", torch.int8, (G * G + 1,), dev)
+    _check(cand_x0, "cand_x0", torch.int32, (1,), dev)
+    _check(cand_y0, "cand_y0", torch.int32, (1,), dev)
+    if not _on_cuda(dev):
+        return score_ceiling_plain(grid_flat, G, cand_x0, cand_y0, na, B,
+                                   ny, nx)
+    lib = _lib("score_ceiling")
+    out = torch.zeros((ny, nx), dtype=torch.int32, device=dev)
+    _raise_if(lib.score_ceiling(
+        grid_flat.data_ptr(), G, cand_x0.data_ptr(), cand_y0.data_ptr(),
+        na, B, ny, nx, out.data_ptr(), _stream(),
+    ), "score_ceiling")
+    _count("score_ceiling")
     return out

@@ -71,6 +71,9 @@ class Mapper:
         # lifelong vertex scores (Vertex::m_Score, Mapper.h:303-315);
         # persisted with the snapshot so decay state survives sessions
         self.vertex_scores = {}
+        # the streaming pipeline's device pack pool (mapper/streaming.py);
+        # while one is set, loop closure runs the fused verify
+        self._pack_pool = None
         from slam_toolbox_tpu_torch.utils.metrics import Stats
 
         self.stats = Stats(enabled=False)
@@ -125,6 +128,7 @@ class Mapper:
         self.sequential_matcher = None
         self.loop_matcher = None
         self.initialized = False
+        self._pack_pool = None
         self.localization_buffer.clear()
         if self.solver is not None:
             self.solver.reset()
@@ -379,6 +383,8 @@ class Mapper:
             )
         ok = self.graph.remove_vertex(scan)
         self.sensor_manager.remove_scan(scan)
+        if self._pack_pool is not None:
+            self._pack_pool.release(scan)
         return ok
 
     # -- accessors ----------------------------------------------------------

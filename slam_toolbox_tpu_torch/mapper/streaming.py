@@ -1,0 +1,851 @@
+"""Streaming (device-resident) sequential-match pipeline.
+
+PyTorch counterpart of slam_toolbox_tpu/mapper/streaming.py. The
+sequential dependency chain stays on the device: a ring of the running
+scans' packs and poses, the last odometry and correction, and a ring of
+packed match results. A drain runs the whole batch of accumulated scans
+(raster -> score -> ring update per scan) with no host synchronization
+between its first and its last scan, and the host fetches the batch's
+results once. The host then replays the standard graph bookkeeping
+(edges, running buffer, near chains, loop closure through the fused
+verify of kernels/loop_verify.py) with the fetched poses; the device
+state is rebuilt from the host's running buffer whenever bookkeeping
+moved a ring scan by more than RESYNC_EPS, so reference semantics hold
+at drain boundaries.
+
+The reference's environment switches are fixed at their defaults:
+pipelined drains with the adaptive settle-first switch and the
+early-verify ordering, the staleness-gated resync (RESYNC_EPS), eager
+pool seeding up to POOL_SEED_CAP scans. Packs are uploaded once per drain in one pinned,
+non-blocking copy (the reference streams 16-scan chunks during
+accumulation). Not ported: the speculative near-chain and loop-verify
+dispatch (their rows are bit-identical to the non-speculative path), the
+serial A/B drain, warm(), the localization post_finish hook and the
+watchdog.
+
+Unlike JAX's immutable arrays, the device state is updated in place by
+the batch loop. refresh_state() always allocates a fresh state, so a
+batch that is re-run after a refresh never overwrites rows another
+in-flight batch still has to read, and each dispatched batch snapshots
+its result rows to the host (device.HostCopy) before the next batch can
+write the ring.
+"""
+from __future__ import annotations
+
+import math
+import time
+import weakref
+from typing import Dict, List
+
+import numpy as np
+import torch
+
+from slam_toolbox_tpu_torch.core import geometry
+from slam_toolbox_tpu_torch.device import HostCopy, upload
+from slam_toolbox_tpu_torch.kernels import rasterize as rz
+from slam_toolbox_tpu_torch.kernels.match import _f32, _score_impl
+from slam_toolbox_tpu_torch.utils.metrics import stage_timer
+
+RESULT_CAP = 256
+RESYNC_EPS = 0.003
+POOL_SEED_CAP = 8192
+POOL_CAP = 2048      # PackPool's initial rows (it doubles when full)
+_F32 = torch.float32
+
+
+class _PendingDrain:
+    """One dispatched-but-uncommitted batch (pipelined drains)."""
+
+    __slots__ = ("scans", "packs", "odoms", "start", "results", "_copy")
+
+    def __init__(self, scans, packs, odoms, start, results):
+        self.scans = scans
+        self.packs = packs        # (n, B, 8) device tensor (for re-runs)
+        self.odoms = odoms        # (n, 3) device tensor
+        self.start = start        # first result-ring row of this batch
+        self.results = results    # the state's result ring after dispatch
+        self._copy = None
+
+    def prefetch(self) -> None:
+        """Start the result ring's copy to the host without waiting."""
+        self._copy = HostCopy(self.results)
+
+    def fetch(self) -> np.ndarray:
+        """The result ring as f64 on the host; a re-run since prefetch()
+        replaced `results`, so that case copies again."""
+        if self._copy is None or self._copy.src is not self.results:
+            self.prefetch()
+        return np.asarray(self._copy.numpy(), np.float64)
+
+
+def _unpack_scan(pack):
+    """Decode per-scan (..., B, 8) f32 pack buffers:
+    [local_xy, fvp_anchor_xy, fvp_current_xy, next_delim, flags]
+    with flags bit0 = finite, bit1 = delimiter-slot valid."""
+    local_pts = pack[..., 0:2]
+    anchor = pack[..., 2:4]
+    current = pack[..., 4:6]
+    nxt = pack[..., 6].to(torch.int64)
+    flags = pack[..., 7].to(torch.int32)
+    finite = (flags & 1) > 0
+    dvalid = (flags & 2) > 0
+    return local_pts, anchor, current, nxt, finite, dvalid
+
+
+def scan_pack(scan) -> np.ndarray:
+    """Single packed (B, 8) f32 buffer per scan: [local_xy, anchor_xy,
+    current_xy, next_delim, flags(bit0 finite, bit1 delim-valid)]. Cached
+    on the scan (the contents are sensor-frame, pose-independent)."""
+    cached = getattr(scan, "_stream_arrays", None)
+    if cached is not None:
+        return cached
+    from slam_toolbox_tpu_torch import native
+
+    pack = native.scan_pack(scan.local_points, scan.ranges)
+    if pack is None:
+        finite = np.isfinite(scan.ranges)
+        delim_idx, anchors, next_delim = rz.find_valid_points_structure(
+            scan.local_points
+        )
+        B = len(scan.ranges)
+        pack = np.zeros((B, 8), np.float32)
+        # f64->f32 assignment preserves NaN; zero exactly the non-finite
+        # beams
+        pack[:, 0:2] = scan.local_points
+        if not finite.all():
+            pack[~finite, 0:2] = 0.0
+        D = len(delim_idx)
+        if D:
+            pack[:D, 2:4] = anchors
+            pack[:D, 4:6] = pack[delim_idx, 0:2]
+        pack[:, 6] = next_delim.astype(np.float32)
+        flags = finite.astype(np.int32)
+        if D:
+            flags[:D] |= 2
+        pack[:, 7] = flags.astype(np.float32)
+    try:
+        scan._stream_arrays = pack
+    except AttributeError:
+        pass
+    return pack
+
+
+def _ring_points(packs, poses, slot_valid, viewpoint_xy):
+    """World points and device FindValidPoints of a ring or chain of scan
+    packs (C, B, 8) at f32 poses (C, 3), seen from `viewpoint_xy` (2,):
+    returns the flat (C*B, 2) points and (C*B,) validity. `slot_valid`
+    (C,) masks whole scans (None: all valid). The reference's operation
+    order is kept term by term, since no contraction may flip the
+    `ss >= 0` side test or move a point across a cell edge."""
+    local, anchor, cur, nxt, finite, dvalid = _unpack_scan(packs)
+    c, s = torch.cos(poses[:, 2]), torch.sin(poses[:, 2])
+    wx = (poses[:, 0:1] + c[:, None] * local[:, :, 0]
+          - s[:, None] * local[:, :, 1])
+    wy = (poses[:, 1:2] + s[:, None] * local[:, :, 0]
+          + c[:, None] * local[:, :, 1])
+    pts = torch.stack([wx, wy], dim=-1)
+
+    dvx = viewpoint_xy[0] - poses[:, 0]
+    dvy = viewpoint_xy[1] - poses[:, 1]
+    vxl = c * dvx + s * dvy
+    vyl = -s * dvx + c * dvy
+    a = vyl[:, None] - anchor[:, :, 1]
+    b = anchor[:, :, 0] - vxl[:, None]
+    cc = anchor[:, :, 1] * vxl[:, None] - anchor[:, :, 0] * vyl[:, None]
+    ss = cur[:, :, 0] * a + cur[:, :, 1] * b + cc
+    keep_run = (ss >= 0.0) & dvalid
+    keep = torch.gather(keep_run, 1, nxt.clamp_min(0))
+    valid = (nxt >= 0) & keep & finite
+    if slot_valid is not None:
+        valid = valid & slot_valid[:, None]
+    C, B = local.shape[0], local.shape[1]
+    return pts.reshape(C * B, 2), valid.reshape(C * B)
+
+
+def _stream_raster_impl(state, odom, matcher, offset_pose, half_span):
+    """Prior propagation + device FindValidPoints + raster of the ring.
+    Returns (grid_flat, center_off, prior)."""
+    prior = _transform_between(
+        state["last_odom"], state["last_corrected"], odom
+    )
+    center = _compose(prior, offset_pose)
+    off = center[:2] - half_span
+    center_off = torch.cat([center, off])
+    pts, valid = _ring_points(
+        state["ring_pack"], state["ring_pose"], state["ring_slot_valid"],
+        center[:2],
+    )
+    return matcher._raster(pts, valid, off), center_off, prior
+
+
+def _evict(ring_pose, head, count, run_buffer_size: int, max_sq: float):
+    """Running-buffer eviction by count and front-to-back distance
+    (Mapper.cpp:182-204) as one vectorized count: evicting from the front
+    never moves the back scan, so the reference's while-loop condition
+    after e evictions is a function of e alone, and the number of
+    evictions is the length of its leading run of True. Returns the new
+    (head, count), device scalars."""
+    K = ring_pose.shape[0]
+    e = torch.arange(K, device=ring_pose.device)
+    back = ring_pose.index_select(0, ((head + count - 1) % K).view(1))[0]
+    front = ring_pose.index_select(0, (head + e) % K)
+    d = front[:, :2] - back[:2]
+    too_far = (d[:, 0] * d[:, 0] + d[:, 1] * d[:, 1]) > max_sq
+    ct = count - e
+    cond = (ct > 1) & ((ct > run_buffer_size) | too_far)
+    n_ev = torch.cumprod(cond.to(torch.int64), 0).sum()
+    return (head + n_ev) % K, count - n_ev
+
+
+def _stream_update_impl(grid_flat, center_off, prior, state, pack, odom,
+                        offset_pose, run_buffer_size: int, max_sq: float,
+                        score_kwargs: dict, eye9):
+    """Score + pose update + ring push/evict + result append, in place on
+    `state`."""
+    local_pts, _, _, _, finite, _ = _unpack_scan(pack)
+    packed = _score_impl(grid_flat, center_off, local_pts, finite,
+                         **score_kwargs)
+    is_first = state["count"] == 0
+    center = center_off[:3]
+    mean = torch.where(is_first, center, packed[1:4])
+    response = torch.where(is_first, 0.0, packed[0])
+    cov = torch.where(is_first, eye9, packed[4:13])
+    corrected = _corrected_at(mean, offset_pose)
+    out13 = torch.cat([response[None], mean, cov])
+
+    # push into the ring at (head + count) % K, a device index
+    K = state["ring_pack"].shape[0]
+    idx = ((state["head"] + state["count"]) % K).view(1)
+    state["ring_pack"].index_copy_(0, idx, pack[None])
+    state["ring_pose"].index_copy_(0, idx, mean[None])
+    state["ring_slot_valid"].index_fill_(0, idx, True)
+    state["head"], state["count"] = _evict(
+        state["ring_pose"], state["head"], state["count"] + 1,
+        run_buffer_size, max_sq,
+    )
+    state["last_odom"] = odom
+    state["last_corrected"] = corrected
+
+    # the host knows the write index: every step appends one row
+    ridx = state["n_results"] % state["results"].shape[0]
+    state["results"][ridx].copy_(out13)
+    state["n_results"] += 1
+
+
+def _stream_batch_impl(state, packs, odoms, matcher, offset_pose, half_span,
+                       run_buffer_size: int, max_sq: float,
+                       score_kwargs: dict, eye9):
+    """A whole drain batch: raster -> score -> state update for each of
+    the n scans, in order, with no host synchronization between them (the
+    host knows n, so no padding and no device-side trip count)."""
+    for i in range(packs.shape[0]):
+        grid_flat, center_off, prior = _stream_raster_impl(
+            state, odoms[i], matcher, offset_pose, half_span,
+        )
+        _stream_update_impl(
+            grid_flat, center_off, prior, state, packs[i], odoms[i],
+            offset_pose, run_buffer_size, max_sq, score_kwargs, eye9,
+        )
+    return state
+
+
+def _compose(a, b):
+    ca, sa = torch.cos(a[2]), torch.sin(a[2])
+    h = a[2] + b[2]
+    return torch.stack([
+        a[0] + ca * b[0] - sa * b[1],
+        a[1] + sa * b[0] + ca * b[1],
+        torch.atan2(torch.sin(h), torch.cos(h)),
+    ])
+
+
+def _transform_between(p1, p2, p):
+    dh = p2[2] - p1[2]
+    c, s = torch.cos(dh), torch.sin(dh)
+    tx = p2[0] - (c * p1[0] - s * p1[1])
+    ty = p2[1] - (s * p1[0] + c * p1[1])
+    h = p[2] + dh
+    return torch.stack([
+        tx + c * p[0] - s * p[1],
+        ty + s * p[0] + c * p[1],
+        torch.atan2(torch.sin(h), torch.cos(h)),
+    ])
+
+
+def _corrected_at(sensor_pose, offset_pose):
+    ox, oy, oh = offset_pose[0], offset_pose[1], offset_pose[2]
+    length = torch.sqrt(ox * ox + oy * oy)
+    alpha = torch.atan2(oy, ox)
+    hs = torch.atan2(torch.sin(sensor_pose[2]), torch.cos(sensor_pose[2]))
+    wx = length * torch.cos(hs + alpha - oh)
+    wy = length * torch.sin(hs + alpha - oh)
+    h = hs - oh
+    return torch.stack([
+        sensor_pose[0] - wx, sensor_pose[1] - wy,
+        torch.atan2(torch.sin(h), torch.cos(h)),
+    ])
+
+
+class PackPool:
+    """Device-resident pool of per-scan pack buffers.
+
+    The pipeline uploads every scan's (B, 8) pack once for the batch;
+    retaining those rows here lets loop-closure verification and chain
+    matching gather whole chains by slot index instead of uploading each
+    chain scan again. Row 0 is a zero row, so valid slots start at 1.
+    Appends are contiguous; removed scans release() their slot and a
+    whole-pool compaction (one row gather) reclaims the space when freed
+    rows would otherwise force a growth.
+    """
+
+    def __init__(self, n_beams: int, device):
+        self.B = n_beams
+        self.cap = POOL_CAP
+        self.device = device
+        self.n = 1  # row 0 = zeros
+        self.buf = torch.zeros((self.cap, n_beams, 8), dtype=_F32,
+                               device=device)
+        self._owners: Dict[int, object] = {}   # slot -> weakref(scan)
+        self._freed = 0
+
+    def release(self, scan) -> None:
+        """Mark a removed scan's slot reusable (the row is reclaimed at the
+        next compaction)."""
+        slot = getattr(scan, "_pool_slot", None)
+        if slot is None:
+            return
+        scan._pool_slot = None
+        if self._owners.pop(slot, None) is not None:
+            self._freed += 1
+
+    def _compact(self) -> None:
+        """Gather live rows to the front of the pool and renumber the
+        owners' slots."""
+        live = []
+        for slot in sorted(self._owners):
+            s = self._owners[slot]()
+            if s is not None:
+                live.append((slot, s))
+        idx = np.zeros(self.cap, np.int64)   # row 0 stays the zero row
+        new_owners = {}
+        for j, (slot, s) in enumerate(live, start=1):
+            idx[j] = slot
+            s._pool_slot = j
+            new_owners[j] = weakref.ref(s)
+        self.buf = self.buf.index_select(0, upload(idx, self.device))
+        self._owners = new_owners
+        self.n = 1 + len(live)
+        self._freed = 0
+
+    def append_batch(self, packs, scans) -> None:
+        """packs: (n, B, 8) device tensor of the scans' packs, in order."""
+        n = len(scans)
+        if n == 0:
+            return
+        if self.n + n > self.cap and self._freed >= self.cap // 2:
+            self._compact()
+        if self.n + n > self.cap:
+            while self.n + n > self.cap:
+                self.cap *= 2
+            buf = torch.zeros((self.cap, self.B, 8), dtype=_F32,
+                              device=self.device)
+            buf[:self.n] = self.buf[:self.n]
+            self.buf = buf
+        self.buf[self.n:self.n + n] = packs[:n]
+        for i, s in enumerate(scans):
+            try:
+                s._pool_slot = self.n + i
+                self._owners[self.n + i] = weakref.ref(s)
+            except (AttributeError, TypeError):
+                pass
+        self.n += n
+
+    def add_scans(self, scans) -> None:
+        """Host-pack and upload scans that have no slot yet (seeds the pool
+        with a prior graph's scans)."""
+        todo = [s for s in scans
+                if getattr(s, "_pool_slot", None) is None
+                and len(s.ranges) == self.B]
+        if not todo:
+            return
+        batch = upload(np.stack([scan_pack(s) for s in todo]), self.device)
+        self.append_batch(batch, todo)
+
+    def gather(self, idx) -> torch.Tensor:
+        """(...,) slot indices (host) -> (..., B, 8) packs (device)."""
+        idx = np.asarray(idx, np.int64)
+        rows = self.buf.index_select(
+            0, upload(idx.reshape(-1), self.device))
+        return rows.reshape(*idx.shape, self.B, 8)
+
+
+class StreamingPipeline:
+    """Drives a Mapper through the device-resident pipeline."""
+
+    def __init__(self, mapper, laser, drain_every: int = 8):
+        self.mapper = mapper
+        self.laser = laser
+        self.drain_every = int(drain_every)
+        if not mapper.initialized:
+            mapper.initialize(laser.range_threshold)
+        m = mapper.sequential_matcher
+        self.matcher = m
+        self.device = m.device
+        self.K = int(mapper.config.scan_buffer_size)
+        self.B = laser.n_beams
+
+        self._score_args = dict(m._score_args, penalize=True, refine=True)
+        self._offset_pose = upload(
+            np.asarray(laser.offset_pose, np.float32), self.device)
+        self._half_span = _f32(0.5 * (m.G - 1) * m.resolution)
+        # the reference's f32 `run_max_distance**2 - 1e-6`
+        rmax = np.float32(mapper.config.scan_buffer_maximum_scan_distance)
+        self._max_sq = float(rmax * rmax - np.float32(1e-6))
+        self._eye9 = torch.eye(3, dtype=_F32, device=self.device).reshape(-1)
+
+        self.state = None
+        self.pending: List = []
+        self._last_gate_scan = None
+        # deferred loop closure: the commit dispatches the fused verify
+        # and returns without waiting; the NEXT commit (or settle())
+        # fetches the rows and applies the closure BEFORE any later
+        # bookkeeping, so results match the blocking order
+        self._deferred_loop = None
+        # with two batches in flight the result ring must hold both spans
+        self.result_cap = max(RESULT_CAP, 2 * self.drain_every)
+        self._pending_drain = None
+        # host poses moved relative to the device state: the next consumer
+        # of device results must refresh_state() (+ re-run in-flight
+        # batches) first
+        self._needs_resync = False
+        # bumped by refresh_state: lets drain() detect that the device
+        # chain its freshly dispatched batch rode was rebuilt mid-commit
+        self._state_epoch = 0
+        # adaptive-drain hysteresis: True while loop events keep finding
+        # candidate chains (closures likely -> settle-first ordering)
+        self._loop_hot = False
+        # True while closures move ring poses beyond RESYNC_EPS
+        self._closure_hot = True
+        self._scans_since_loop = 0
+        self._t_drain_end = None  # accum-window stage timing
+        self.pack_pool = PackPool(self.B, self.device)
+        mapper._pack_pool = self.pack_pool  # loop verify gathers from it
+        if mapper.sensor_manager is not None:
+            prior = mapper.all_processed_scans()
+            if len(prior) <= POOL_SEED_CAP:
+                self.pack_pool.add_scans(prior)
+
+    # -- state <-> host sync -----------------------------------------------
+    def refresh_state(self) -> None:
+        """(Re)build device state from the host's authoritative running
+        buffer + last scan."""
+        with stage_timer(self.mapper.stats, "refresh_state"):
+            self._refresh_state_impl()
+
+    def _refresh_state_impl(self) -> None:
+        sm = self.mapper.sensor_manager
+        running = sm.get_running_scans(self.laser.name)
+        last = sm.get_last_scan(self.laser.name)
+        K, B = self.K + 2, self.B  # +2 slack for between-drain growth
+        ring_pack = np.zeros((K, B, 8), np.float32)
+        ring_pack[:, :, 6] = -1.0  # empty slots have no delimiter
+        ring_pose = np.zeros((K, 3), np.float32)
+        slot_valid = np.zeros(K, bool)
+        for i, s in enumerate(running[-K:]):
+            ring_pack[i] = scan_pack(s)
+            ring_pose[i] = s.sensor_pose
+            slot_valid[i] = True
+            s._dev_pose = np.array(s.sensor_pose)
+        last_odom = np.zeros(3, np.float32)
+        last_corrected = np.zeros(3, np.float32)
+        if last is not None:
+            last_odom = last.odom_pose.astype(np.float32)
+            last_corrected = last.corrected_pose.astype(np.float32)
+        dev = self.device
+        self.state = {
+            "ring_pack": upload(ring_pack, dev),
+            "ring_pose": upload(ring_pose, dev),
+            "ring_slot_valid": upload(slot_valid, dev),
+            "head": torch.zeros((), dtype=torch.int64, device=dev),
+            "count": torch.full((), len(running), dtype=torch.int64,
+                                device=dev),
+            "last_odom": upload(last_odom, dev),
+            "last_corrected": upload(last_corrected, dev),
+            "results": torch.zeros((self.result_cap, 13), dtype=_F32,
+                                   device=dev),
+            "n_results": 0,   # host-side write index of the result ring
+        }
+        self._state_epoch += 1
+
+    # -- ingestion ----------------------------------------------------------
+    def process_scan(self, scan) -> bool:
+        """Gate + accumulate; the batch runs on the device at drain."""
+        if not scan.laser.validate(scan.ranges):
+            return False
+        last_ref = self._last_gate_scan or (
+            self.mapper.sensor_manager.get_last_scan(self.laser.name)
+        )
+        if not self.mapper.has_moved_enough(scan, last_ref):
+            return False
+        if self.state is None:
+            self.refresh_state()
+        self.pending.append(scan)
+        scan_pack(scan)   # host-side pack now; uploaded once per drain
+        self._last_gate_scan = scan
+        # the result ring holds two batches: this one and the previous
+        # in-flight one
+        if len(self.pending) >= self.drain_every:
+            self.drain()
+        return True
+
+    def _dispatch_batch(self, scans):
+        """Upload the batch's packs and odometry in one pinned copy each
+        and run the batch on the device."""
+        dev = self.device
+        packs = upload(np.stack([scan_pack(s) for s in scans]), dev)
+        odoms = upload(
+            np.stack([s.odom_pose for s in scans]).astype(np.float32), dev)
+        self.pack_pool.append_batch(packs, scans)
+        self._run_batch(self.state, packs, odoms)
+        return packs, odoms
+
+    def _run_batch(self, state, packs, odoms):
+        return _stream_batch_impl(
+            state, packs, odoms, self.matcher, self._offset_pose,
+            self._half_span, self.K, self._max_sq, self._score_args,
+            self._eye9,
+        )
+
+    def settle(self) -> None:
+        """Terminal completion: commit every dispatched-but-uncommitted
+        batch and any deferred loop closure, then resync the device state
+        if host bookkeeping moved poses. Scans still accumulating in
+        `pending` are untouched (drain() dispatches those)."""
+        while (self._pending_drain is not None
+               or self._deferred_loop is not None):
+            self._commit()
+        # rate-limited cadences (loop_attempt_interval_scans > 0) may
+        # leave the tail scans without a closure attempt: a terminal
+        # attempt on the newest scan restores the reference's flush
+        # semantics (the classic path attempts every scan)
+        cfg = self.mapper.config
+        if (cfg.loop_attempt_interval_scans > 0
+                and self._scans_since_loop > 0
+                and cfg.use_scan_matching and cfg.do_loop_closing):
+            last = self.mapper.sensor_manager.get_last_scan(
+                self.laser.name
+            )
+            if last is not None:
+                handle = self.mapper.graph.try_close_loop_begin(
+                    last, self.laser.name
+                )
+                closed = (handle if isinstance(handle, bool)
+                          else self.mapper.graph.try_close_loop_finish(
+                              handle))
+                self._scans_since_loop = 0
+                if closed:
+                    self._needs_resync = True
+        if self._needs_resync:
+            self.refresh_state()
+            self._needs_resync = False
+
+    def drain(self) -> None:
+        """Dispatch the pending batch. The dispatch happens FIRST, then
+        the PREVIOUS batch's host bookkeeping runs while this batch
+        executes on the device; its own bookkeeping runs at the next
+        drain (or settle()). When the previous commit moved poses the
+        in-flight batch is re-run from the refreshed state before its
+        results are read. While loop events keep producing closures that
+        move ring poses, the order flips to settle-first (commit, settle
+        the deferred verify, then dispatch), so every batch runs once from
+        post-closure state. With drain_every=1 the commit sequence is
+        exactly the classic per-scan path."""
+        if not self.pending:
+            return
+        stats0 = self.mapper.stats
+        if stats0.enabled and self._t_drain_end is not None:
+            stats0.add("accum_window", time.perf_counter() - self._t_drain_end)
+
+        scans = self.pending
+        n = len(scans)
+        self.pending = []
+        # can the commit we are about to run even ATTEMPT a closure? With
+        # loop_attempt_interval_scans rate-limiting, attempt-free commits
+        # keep the dispatch-first overlap regardless of the hysteresis
+        cfg_m = self.mapper.config
+        pd_prev = self._pending_drain
+        attempt_next = (
+            pd_prev is not None
+            and cfg_m.use_scan_matching and cfg_m.do_loop_closing
+            and (self._scans_since_loop + len(pd_prev.scans))
+            >= cfg_m.loop_attempt_interval_scans
+        )
+        settle_first = (
+            self._needs_resync
+            or ((self._deferred_loop is not None
+                 or (self._loop_hot and attempt_next))
+                and self._closure_hot)
+        )
+        if settle_first:
+            with stage_timer(stats0, "commit_total"):
+                self._commit()  # previous batch: fetch+bookkeep+verify
+            self._settle_deferred()  # wait the verify it just dispatched
+            if self._needs_resync:
+                self.refresh_state()
+                self._needs_resync = False
+        with stage_timer(stats0, "batch_dispatch"):
+            packs, odoms = self._dispatch_batch(scans)
+        pd = _PendingDrain(
+            scans, packs, odoms, start=self.state["n_results"] - n,
+            results=self.state["results"],
+        )
+        # gate the next accumulation against the newest DISPATCHED scan
+        # (its host bookkeeping hasn't run yet, so sm.last_scan is stale)
+        self._last_gate_scan = scans[-1]
+        if not settle_first:
+            epoch0 = self._state_epoch
+            with stage_timer(stats0, "commit_total"):
+                self._commit()  # previous batch's bookkeeping; overlaps
+            if self._needs_resync:
+                self.refresh_state()
+                self._needs_resync = False
+            if self._state_epoch != epoch0:
+                # the device chain this batch rode was rebuilt mid-commit:
+                # re-run it from the authoritative state
+                self._run_batch(self.state, pd.packs, pd.odoms)
+                pd.start = self.state["n_results"] - n
+                pd.results = self.state["results"]
+        pd.prefetch()
+        self._pending_drain = pd
+        if stats0.enabled:
+            self._t_drain_end = time.perf_counter()
+
+    def _settle_deferred(self) -> bool:
+        """Finish the deferred loop closure dispatched by the previous
+        commit. A closure that moved ring poses beyond RESYNC_EPS flags
+        _needs_resync (the flag survives an exception in the fetch)."""
+        if self._deferred_loop is None:
+            return False
+        handle = self._deferred_loop
+        self._deferred_loop = None
+        any_closed = False
+        try:
+            with stage_timer(self.mapper.stats, "loop_closure_settle"):
+                any_closed = self.mapper.graph.try_close_loop_finish(
+                    handle
+                )
+        finally:
+            if any_closed:
+                hot = self._ring_staleness() > RESYNC_EPS
+                # drives the settle-first hysteresis
+                self._closure_hot = hot
+                if hot:
+                    self._needs_resync = True
+        return any_closed
+
+    def _commit(self) -> None:
+        """Host bookkeeping for the oldest in-flight batch: settle the
+        previous commit's deferred loop closure, re-run the batch if that
+        closure (or an earlier flagged change) moved host poses after the
+        batch ran, then fetch its results and replay the standard graph
+        bookkeeping."""
+        self._settle_deferred()
+        pd = self._pending_drain
+        self._pending_drain = None
+        if pd is None:
+            if self._needs_resync and self.state is not None:
+                self.refresh_state()
+                self._needs_resync = False
+            return
+        if self._needs_resync:
+            self.refresh_state()
+            self._needs_resync = False
+            self._run_batch(self.state, pd.packs, pd.odoms)
+            pd.start = 0
+            pd.results = self.state["results"]
+        with stage_timer(self.mapper.stats, "drain_fetch"):
+            res_np = pd.fetch()
+        with stage_timer(self.mapper.stats, "commit_bookkeep"):
+            moved_uids, any_closed = self._bookkeep(
+                pd.scans, pd.start, res_np,
+            )
+        self._flag_resync(moved_uids, any_closed)
+
+    def _flag_resync(self, moved_uids, any_closed):
+        """Decide whether host bookkeeping diverged from the device ring:
+        pose moves (loop closures, chain fusion) matter only when a
+        ring-mirrored scan moved beyond RESYNC_EPS, since late-run closure
+        corrections are sub-millimeter and a rebuild forces the
+        settle-first drain ordering."""
+        if not (any_closed or moved_uids):
+            return
+        stale = self._ring_staleness() > RESYNC_EPS
+        if any_closed:
+            self._closure_hot = stale
+        if stale:
+            self._needs_resync = True
+
+    def _ring_staleness(self) -> float:
+        """Max endpoint-level divergence between the host's current
+        sensor poses and what the device ring believes, over the
+        ring-mirrored scans (running window + last): position delta plus
+        heading delta at the 10 m max-beam lever arm. Scans with no
+        recorded device pose count as infinitely stale."""
+        sm = self.mapper.sensor_manager
+        name = self.laser.name
+        last = sm.get_last_scan(name)
+        worst = 0.0
+        check = list(sm.get_running_scans(name))[-(self.K + 2):]
+        if last is not None and last not in check:
+            check.append(last)
+        for s in check:
+            dev = getattr(s, "_dev_pose", None)
+            if dev is None:
+                return float("inf")
+            cur = s.sensor_pose
+            d = math.hypot(cur[0] - dev[0], cur[1] - dev[1])
+            dth = abs(math.atan2(math.sin(cur[2] - dev[2]),
+                                 math.cos(cur[2] - dev[2])))
+            worst = max(worst, d + 10.0 * dth)
+        return worst
+
+    def _bookkeep(self, scans, start, res_np):
+        """Replay standard graph bookkeeping for a fetched batch in two
+        phases (host links for every scan, then one batched near-chain
+        match and the per-scan link/fuse), with one loop-closure attempt
+        on the newest scan. Returns (moved_uids, any_closed)."""
+        from slam_toolbox_tpu_torch.kernels import loop_verify as lv
+        from slam_toolbox_tpu_torch.kernels.match import Matcher
+
+        stats = self.mapper.stats
+        n = len(scans)
+        cap = self.result_cap
+        cfg = self.mapper.config
+        matching = cfg.use_scan_matching
+        moved_uids = set()
+        any_closed = False
+        sm = self.mapper.sensor_manager
+        graph = self.mapper.graph
+
+        def set_poses(i, scan):
+            packed = res_np[(start + i) % cap]
+            response = packed[0]
+            mean = packed[1:4]
+            cov = packed[4:13].reshape(3, 3)
+            last = sm.get_last_scan(scan.laser.name)
+            if last is not None:
+                scan.set_corrected_pose(np.asarray(
+                    geometry.transform_pose_between(
+                        last.odom_pose, last.corrected_pose,
+                        scan.odom_pose,
+                    )
+                ))
+            if last is not None and response > 0.0:
+                scan.set_sensor_pose(mean)
+            else:
+                cov = np.eye(3)
+            # what the device ring believes this scan's sensor pose is
+            # (the staleness-gated resync compares against it)
+            scan._dev_pose = np.array(scan.sensor_pose)
+            return cov
+
+        if n == 1:
+            # single-scan drain: exactly the classic per-scan sequence
+            scan = scans[0]
+            cov = set_poses(0, scan)
+            pose_before = scan.corrected_pose.copy()
+            any_closed = self.mapper.finish_scan(scan, cov)
+            if np.any(np.abs(scan.corrected_pose - pose_before) > 1e-7):
+                moved_uids.add(scan.unique_id)
+            return moved_uids, any_closed
+
+        # phase 1 (per scan): set poses from the fetched ring results, add
+        # the vertex + host-side links, and collect the near chains
+        # without matching them. Running-buffer eviction sees the
+        # pre-fusion pose here (mm-scale difference at the eviction
+        # boundary only).
+        staged = []
+        for i, scan in enumerate(scans):
+            cov = set_poses(i, scan)
+            sm.add_scan(scan)
+            pf = None
+            if matching:
+                with stage_timer(stats, "graph_edges"):
+                    graph.add_vertex(scan)
+                    pf = graph.add_edges_begin(scan, cov, dispatch=False)
+                sm.add_running_scan(scan)
+            sm.set_last_scan(scan)
+            staged.append((scan, pf))
+        # phase 2: every scan's near chains as one pool-gather program
+        # with a single fetch
+        offsets = []  # per staged entry: (offset, count) into the rows
+        pairs = []
+        for scan, pf in staged:
+            chains = pf[0] if pf is not None else []
+            offsets.append((len(pairs), len(chains)))
+            pairs.extend((scan, c) for c in chains)
+        fetched = []
+        if pairs:
+            with stage_timer(stats, "near_chain_match"):
+                rows = lv.dispatch_chain_matches(
+                    self.matcher, pairs, self.pack_pool
+                )
+                fetched = Matcher.results_from_packed(rows.cpu().numpy())
+        # loop closure once per batch on the newest scan (candidate chains
+        # persist across consecutive scans, so closures fire a few scans
+        # later at most); loop_attempt_interval_scans > 0 rate-limits it
+        self._scans_since_loop += n
+        attempt_loop = (
+            matching and cfg.do_loop_closing
+            and self._scans_since_loop >= cfg.loop_attempt_interval_scans
+        )
+        if attempt_loop:
+            self._scans_since_loop = 0
+        names = sm.sensor_names() if attempt_loop else []
+
+        def finish_one(i):
+            scan, pf = staged[i]
+            off, cnt = offsets[i]
+            pose_before = scan.corrected_pose.copy()
+            with stage_timer(stats, "graph_edges"):
+                graph.add_edges_finish(scan, pf,
+                                       results=fetched[off:off + cnt])
+            if np.any(np.abs(scan.corrected_pose - pose_before) > 1e-7):
+                # near-chain fusion moved this scan
+                moved_uids.add(scan.unique_id)
+
+        def begin_loop():
+            with stage_timer(stats, "loop_closure"):
+                handle = graph.try_close_loop_begin(scans[-1], names[0])
+            # adaptive hysteresis: candidate chains present -> closures
+            # likely -> settle-first ordering next drain
+            self._loop_hot = bool(handle) or not isinstance(handle, bool)
+            return handle
+
+        # early-verify ordering: finish the NEWEST scan first, dispatch
+        # the deferred loop verify, then finish the rest, so the verify's
+        # device time overlaps the remaining host bookkeeping. The sweep
+        # sees batch-mates at their pre-fusion (phase-1) poses.
+        handle = None
+        if attempt_loop and len(names) == 1:
+            finish_one(n - 1)
+            handle = begin_loop()
+            for i in range(n - 1):
+                finish_one(i)
+        else:
+            for i in range(n):
+                finish_one(i)
+        if handle is not None:
+            if isinstance(handle, bool):
+                any_closed |= handle
+            else:
+                self._deferred_loop = handle
+        elif attempt_loop and len(names) > 1:
+            with stage_timer(stats, "loop_closure"):
+                hot = False
+                for name in names:
+                    if graph.try_close_loop(scans[-1], name):
+                        any_closed = True
+                        hot = True
+                self._loop_hot = hot
+        return moved_uids, any_closed

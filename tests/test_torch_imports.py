@@ -17,8 +17,11 @@ sys.path.insert(0, {repo!r})
 import slam_toolbox_tpu_torch
 import slam_toolbox_tpu_torch.api, slam_toolbox_tpu_torch.interop
 import slam_toolbox_tpu_torch.kernels.match_cuda
+import slam_toolbox_tpu_torch.kernels.loop_verify
+import slam_toolbox_tpu_torch.mapper.streaming
 import slam_toolbox_tpu_torch.io.dataset
 import chip_smoke
+import profile_torch
 print(json.dumps(sorted(
     m for m in sys.modules
     if m.split(".")[0] in ("jax", "jaxlib", "slam_toolbox_tpu")
@@ -68,12 +71,25 @@ def test_default_device_entry_points_raise_without_cuda():
 
 
 def test_unported_modes_raise():
+    """Localization, with or without the streaming pipeline, is not
+    ported; streaming mapping is."""
     from slam_toolbox_tpu_torch.api import SlamSession
 
     with pytest.raises(NotImplementedError):
-        SlamSession(streaming=True, device="cpu")
+        SlamSession(streaming=True, mode="localization", device="cpu")
     with pytest.raises(NotImplementedError):
         SlamSession(mode="localization", device="cpu")
+    assert SlamSession(streaming=True, device="cpu").streaming
+
+
+def test_port_reads_no_slam_environment():
+    """The JAX package's SLAM_* switches are constants in the port."""
+    root = os.path.join(REPO, "slam_toolbox_tpu_torch")
+    for dirpath, _, files in os.walk(root):
+        for name in files:
+            if name.endswith((".py", ".cu", ".cpp")):
+                with open(os.path.join(dirpath, name)) as f:
+                    assert "SLAM_" not in f.read(), name
 
 
 def test_chip_smoke_fails_without_cuda():

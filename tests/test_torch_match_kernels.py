@@ -1,7 +1,10 @@
-"""The plain versions of the port's three kernels against the JAX
-package's Pallas kernels (in interpret mode, as the JAX tests run them on
-the CPU) and XLA reference paths; the kernels themselves against their
-plain versions on a CUDA card (marked `cuda`, skipped without one)."""
+"""The plain versions of the port's kernels against the JAX package's
+Pallas kernels (in interpret mode, as the JAX tests run them on the CPU)
+and XLA reference paths; the kernels themselves against their plain
+versions on a CUDA card (marked `cuda`, skipped without one)."""
+import os
+import re
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -142,8 +145,70 @@ def test_wrappers_on_cpu_run_plain_and_count_nothing():
     occ = mc.scatter_occupancy(torch.from_numpy(pts),
                                torch.from_numpy(valid),
                                torch.from_numpy(off), 100.0, 64)
-    mc.smear_quantize(occ, torch.ones(3), 64, 1)
+    grid = mc.smear_quantize(occ, torch.ones(3), 64, 1)
+    c = torch.zeros(1, dtype=torch.int32)
+    mc.score_ceiling(grid, 64, c, c, 2, 9, 3, 3)
     assert mc.LAUNCHES == {k: 0 for k in mc.KERNELS}
+
+
+# -- K4, the window-score ceiling ---------------------------------------------
+def _ceiling_numpy(grid2d, cx0, cy0, na, B, n):
+    """The ceiling from its definition: beam slot s = a * B + b reads the
+    raster at lattice cell + CEIL_OFFSETS[s mod 8]; cells outside add 0."""
+    G = grid2d.shape[0]
+    uses = np.bincount(np.arange(na * B) % 8, minlength=8)
+    out = np.zeros((n, n), np.int64)
+    for u, (dx, dy) in enumerate(mc.CEIL_OFFSETS):
+        y = cy0 + 2 * np.arange(n)[:, None] + dy
+        x = cx0 + 2 * np.arange(n)[None, :] + dx
+        ok = (y >= 0) & (y < G) & (x >= 0) & (x < G)
+        out += uses[u] * np.where(
+            ok, grid2d[np.clip(y, 0, G - 1), np.clip(x, 0, G - 1)], 0)
+    return out
+
+
+@pytest.mark.parametrize("cx0,cy0", [(975, 975), (-25, 2021), (2021, -25),
+                                     (300, 1500)])
+def test_score_ceiling_plain_matches_definition_and_xla(cx0, cy0):
+    """At the bench raster size (its offsets reach 900 cells), with 3
+    headings of 37 beams so that 111 slots cycle the 8 offsets unevenly:
+    the plain ceiling equals the numpy definition, the window sums of the
+    JAX package's XLA gather on the tiled table summed over headings, and
+    score_windows_plain on that table."""
+    G, na, B, n = 2051, 3, 37, 26
+    rng = np.random.default_rng(cx0 + 7 * cy0)
+    grid2d = rng.integers(0, 101, (G, G)).astype(np.int8)
+    grid_flat = np.concatenate([grid2d.reshape(-1), np.zeros(1, np.int8)])
+    t = torch.from_numpy(grid_flat)
+    cx = torch.tensor([cx0], dtype=torch.int32)
+    cy = torch.tensor([cy0], dtype=torch.int32)
+    got = mc.score_ceiling(t, G, cx, cy, na, B, n, n).numpy()
+    assert got.dtype == np.int32 and got.shape == (n, n)
+    np.testing.assert_array_equal(
+        got, _ceiling_numpy(grid2d, cx0, cy0, na, B, n))
+    table = mc.ceiling_table(na, B, torch.device("cpu"))
+    np.testing.assert_array_equal(table[1, 0].numpy(), mc.CEIL_OFFSETS[37 % 8])
+    every = np.ones(B, bool)
+    xla = _xla_sums(grid_flat, G, (cx0 + 2 * np.arange(n)).astype(np.int32),
+                    (cy0 + 2 * np.arange(n)).astype(np.int32),
+                    table.numpy(), every)
+    np.testing.assert_array_equal(got, xla.sum(axis=0))
+    np.testing.assert_array_equal(
+        got, mc.score_windows_plain(t, G, table, cx, cy, n, n,
+                                    torch.from_numpy(every)).sum(0).numpy())
+    assert got.any()
+
+
+def test_score_ceiling_offsets_match_source():
+    """The CUDA source's compile-time offsets are CEIL_OFFSETS."""
+    src = open(os.path.join(os.path.dirname(mc.__file__), os.pardir, "csrc",
+                            "score_ceiling.cu")).read()
+    dx, dy = (
+        [int(v) for v in re.search(
+            rf"#define CEIL_OFFSETS_{axis} \{{([^}}]*)\}}", src).group(1)
+            .split(",")]
+        for axis in ("DX", "DY"))
+    assert list(zip(dx, dy)) == [tuple(o) for o in mc.CEIL_OFFSETS]
 
 
 def test_wrappers_check_arguments():
@@ -200,3 +265,25 @@ def test_kernels_match_plain_on_card(cuda_device, G, hk):
         assert torch.equal(
             mc.score_windows(grid, G, d, c, c, n, n, finite),
             mc.score_windows_plain(grid, G, d, c, c, n, n, finite))
+
+
+@pytest.mark.cuda
+def test_score_ceiling_matches_plain_and_window_kernel_on_card(cuda_device):
+    """K4 at the bench geometry against its plain version and against K1
+    on the table that tiles its offsets, every beam counted."""
+    dev = cuda_device
+    G, na, B, n = 2051, 21, 1081, 26
+    rng = np.random.default_rng(4)
+    grid = torch.from_numpy(np.concatenate([
+        rng.integers(0, 101, G * G).astype(np.int8), np.zeros(1, np.int8)
+    ])).to(dev)
+    table = mc.ceiling_table(na, B, dev)
+    every = torch.ones(B, dtype=torch.bool, device=dev)
+    for cx0, cy0 in ((G // 2 - n, G // 2 - n), (-25, G - 30), (G - 30, -25)):
+        cx = torch.tensor([cx0], dtype=torch.int32, device=dev)
+        cy = torch.tensor([cy0], dtype=torch.int32, device=dev)
+        k4 = mc.score_ceiling(grid, G, cx, cy, na, B, n, n)
+        assert torch.equal(k4, mc.score_ceiling_plain(grid, G, cx, cy, na, B,
+                                                      n, n))
+        assert torch.equal(k4, mc.score_windows(
+            grid, G, table, cx, cy, n, n, every).sum(0, dtype=torch.int32))
