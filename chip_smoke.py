@@ -13,6 +13,12 @@ Phases, in order; any failure exits non-zero and nothing is caught:
                 (the sequential ring; a loop chain as pose_graph builds
                 one) plus out-of-grid, -1e9 and non-finite beams
                 (bit-equal required), and time both with CUDA events;
+                the scatter (both ways of ORing its bits), the smear and
+                the library scatter also by CUDA graph replays (device
+                time per launch); then the scatter and the smear on the
+                adversarial occupancy patterns (empty, full, random,
+                corners, word and tile edges, full rows and columns) at
+                G = 2051, 561 and 257, word- and bit-equal required;
                 then the window-score ceiling (score_ceiling), the
                 roofline measurement: its device time (CUDA graph
                 replays) beside score_windows' on the same raster at the
@@ -56,6 +62,11 @@ REPLACES = {
     "score_windows": "slam_toolbox_tpu/kernels/match_pallas.py:119",
     "score_ceiling": "scripts/exp_roofline.py:123",
 }
+# device time per launch from CUDA graph replays, where phase 2 takes it
+DEVICE_KEYS = ("device_ms", "aggregated_device_ms", "library_device_ms")
+# the adversarial occupancy patterns' geometries: both matchers' and a
+# grid one word past a multiple of 32 with a single tap
+PATTERN_GEOMETRIES = ((2051, 20), (561, 1), (257, 0))
 
 LAP = [
     (-6.0, -3.5), (1.5, -3.5), (5.5, -3.5), (5.5, 0.5), (5.5, 3.5),
@@ -155,6 +166,9 @@ def run_mapping(sess, data, tag: str):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = dict(mc.LAUNCHES)
+    by_grid = {}
+    for (name, G), n in sorted(mc.GRID_LAUNCHES.items()):
+        by_grid.setdefault(name, {})[str(G)] = n
     traj = sess.trajectory
     if not (np.all(np.isfinite(traj)) and traj.shape == (len(est), 3)):
         raise AssertionError(f"{tag}: non-finite or misshapen trajectory")
@@ -173,7 +187,7 @@ def run_mapping(sess, data, tag: str):
               f"{1e3 * np.max(drains)} ms", flush=True)
     print(f"# {tag}: ATE {ate} m vs odometry {ate_odom} m, {len(closures)} "
           f"loop closures, {verifies} fused verify events, launches "
-          f"{launches}", flush=True)
+          f"{launches}, by grid side {by_grid}", flush=True)
     print(f"# {tag} stages (calls, host ms): {json.dumps(stages)}",
           flush=True)
     if not ate < 0.5 * ate_odom:
@@ -183,8 +197,8 @@ def run_mapping(sess, data, tag: str):
     missing = [k for k in PATH_KERNELS if launches[k] == 0]
     if missing:
         raise AssertionError(f"{tag}: kernels never launched: {missing}")
-    return dict(launches=launches, verifies=verifies, ate=ate,
-                scans=len(est), wall=wall)
+    return dict(launches=launches, by_grid=by_grid, verifies=verifies,
+                ate=ate, scans=len(est), wall=wall)
 
 
 def event_ms(fn, n: int, warm: int = 3) -> float:
@@ -345,46 +359,60 @@ def check_kernels(matcher, inp, tag: str):
     w = matcher._w
     out = {}
 
-    # K2: scatter
-    occ = mc.scatter_occupancy(pts, valid, off, scale, G)
-    occ_p = rz.scatter_occupancy_plain(pts, valid, off, scale, G)
+    # K2: scatter into packed words, plain and warp-aggregated ORs
+    P = pts.shape[0]
+    words = mc.scatter_occupancy(pts, valid, off, scale, G)
+    words_a = mc.scatter_occupancy(pts, valid, off, scale, G, aggregate=True)
+    words_p = rz.scatter_occupancy_plain(pts, valid, off, scale, G)
     torch.cuda.synchronize()
-    if not torch.equal(occ, occ_p):
+    if not (torch.equal(words, words_p) and torch.equal(words_a, words_p)):
         raise AssertionError(f"{tag} scatter_occupancy != plain")
     ix, iy, inb = rz.cell_coords(pts, valid, off, scale, G)
     idx = (iy[inb], ix[inb])
     ones = torch.ones(idx[0].shape[0], dtype=torch.uint8, device=pts.device)
-    P = pts.shape[0]
-    n_valid = int(valid.sum())
+    n_in = int(inb.sum())
+    lib_fn = (lambda: torch.zeros((G, G), dtype=torch.uint8,
+                                  device=pts.device).index_put_(idx, ones))
     out["scatter_occupancy"] = dict(
-        err=int((occ.int() - occ_p.int()).abs().max()),
+        err=int((words.long() - words_p.long()).abs().max()),
         ms=event_ms(lambda: mc.scatter_occupancy(pts, valid, off, scale, G),
                     50),
+        device_ms=graph_ms(
+            lambda: mc.scatter_occupancy(pts, valid, off, scale, G), 50)[0],
+        aggregated_device_ms=graph_ms(
+            lambda: mc.scatter_occupancy(pts, valid, off, scale, G,
+                                         aggregate=True), 50)[0],
         plain_ms=event_ms(
             lambda: rz.scatter_occupancy_plain(pts, valid, off, scale, G),
             20),
-        library_ms=event_ms(
-            lambda: torch.zeros((G, G), dtype=torch.uint8,
-                                device=pts.device).index_put_(idx, ones),
-            50),
-        bound=bound(P * 9 + 8 + G * G, 12 * n_valid),
+        library_ms=event_ms(lib_fn, 50),
+        library_device_ms=graph_ms(lib_fn, 50)[0],
+        # the packed words written once; a cell test and an OR per point
+        bound=bound(P * 9 + 8 + 4 * words.numel(), 12 * n_in),
         shape=f"P={P} G={G}",
     )
 
-    # K3: smear + quantize
-    grid = mc.smear_quantize(occ, w, G, hk)
-    grid_p = rz.smear_quantize_plain(occ, w, G, hk)
+    # K3: smear + quantize from the packed words
+    grid = mc.smear_quantize(words, w, G, hk)
+    grid_p = rz.smear_quantize_plain(words, w, G, hk)
     torch.cuda.synchronize()
     if not torch.equal(grid, grid_p):
         raise AssertionError(f"{tag} smear_quantize != plain")
     K = 2 * hk + 1
     out["smear_quantize"] = dict(
         err=int((grid.int() - grid_p.int()).abs().max()),
-        ms=event_ms(lambda: mc.smear_quantize(occ, w, G, hk), 50),
-        plain_ms=event_ms(lambda: rz.smear_quantize_plain(occ, w, G, hk),
+        ms=event_ms(lambda: mc.smear_quantize(words, w, G, hk), 50),
+        device_ms=graph_ms(lambda: mc.smear_quantize(words, w, G, hk),
+                           50)[0],
+        plain_ms=event_ms(lambda: rz.smear_quantize_plain(words, w, G, hk),
                           20),
         library_ms=None,
-        bound=bound(2 * G * G + 1 + 4 * K, G * G * (4 * K + 2)),
+        # what this raster needs: every cell written once; the operations
+        # of the cells with an occupied cell within reach (the others are
+        # 0): 3 per column tap k = 0..hk (pair max, product, running max),
+        # 2 for the row pass (nearer distance, tap select), 2 to quantize
+        bound=bound(4 * words.numel() + 4 * K + G * G + 1,
+                    int((grid_p[:-1] != 0).sum()) * (3 * (hk + 1) + 4)),
         shape=f"G={G} hk={hk}",
     )
 
@@ -423,10 +451,100 @@ def check_kernels(matcher, inp, tag: str):
 
 
 def print_record(tag, name, r):
+    device = "".join(f" {k} {r[k]} ms" for k in DEVICE_KEYS if k in r)
     print(f"# {tag} {name} [{r['shape']}]: max_abs_err {r['err']} "
           f"kernel {r['ms']:.4f} ms plain {r['plain_ms']:.4f} ms "
           f"library {r['library_ms']} ms bound {r['bound'][0]:.5f} ms "
-          f"({r['bound'][1]})", flush=True)
+          f"({r['bound'][1]});{device}", flush=True)
+
+
+def occupancy_patterns(G: int, hk: int, seed: int = 0):
+    """{name: (G, G) bool occupancy} of the patterns where the smear's bit
+    scan and tile edges fail if they fail anywhere: empty, full and 50%
+    random grids; a cell in each corner; cells hk and hk + 1 from a word
+    boundary and from a tile boundary, on both axes; one full column and
+    one full row, in the middle and on the last (at odd G, partly filled)
+    word row and column."""
+    import numpy as np
+
+    from slam_toolbox_tpu_torch.kernels import match_cuda as mc
+
+    rng = np.random.default_rng(seed)
+    ty, tx = mc.SMEAR_TILE
+    pats = {
+        "empty": np.zeros((G, G), bool),
+        "full": np.ones((G, G), bool),
+        "random_50": rng.random((G, G)) < 0.5,
+    }
+    corners = np.zeros((G, G), bool)
+    corners[[0, 0, G - 1, G - 1], [0, G - 1, 0, G - 1]] = True
+    pats["corners"] = corners
+    near = set()
+    for b in (32, ty * max(1, G // ty // 2), G // 32 * 32,
+              tx, tx * max(1, G // tx // 2)):
+        near.update((b - hk - 1, b - hk, b + hk, b + hk + 1))
+    near = sorted(v for v in near if 0 <= v < G)
+    edges = np.zeros((G, G), bool)
+    edges[near, G // 2] = True    # along axis 0
+    edges[G // 3, near] = True    # along axis 1
+    pats["word_and_tile_edges"] = edges
+    lines = np.zeros((G, G), bool)
+    lines[:, G // 2] = lines[G // 3, :] = True
+    pats["middle_row_and_column"] = lines
+    last = np.zeros((G, G), bool)
+    last[:, G - 1] = last[G - 1, :] = True
+    pats["last_row_and_column"] = last
+    return pats
+
+
+def check_patterns(G: int, hk: int, w, dev):
+    """Hold K2 (both OR variants) word for word and K3 bit for bit
+    against their plain versions on every occupancy pattern, each given
+    to the scatter as points at its cells' centres; on the full grid also
+    K3 on words with stray bits above row G (the smear must ignore them).
+    Returns the number of patterns checked and K3's device time on the
+    50% random grid, where no row or strip is empty."""
+    import numpy as np
+    import torch
+
+    from slam_toolbox_tpu_torch.kernels import match_cuda as mc
+    from slam_toolbox_tpu_torch.kernels import rasterize as rz
+
+    off = torch.zeros(2, dtype=torch.float32, device=dev)
+    pats = occupancy_patterns(G, hk)
+    for name, occ in pats.items():
+        iy, ix = np.nonzero(occ)
+        pts = torch.from_numpy(
+            (np.stack([ix, iy], axis=1) * 0.01).astype(np.float32)).to(dev)
+        valid = torch.ones(len(pts), dtype=torch.bool, device=dev)
+        words = mc.scatter_occupancy(pts, valid, off, 100.0, G)
+        words_a = mc.scatter_occupancy(pts, valid, off, 100.0, G,
+                                       aggregate=True)
+        words_p = rz.scatter_occupancy_plain(pts, valid, off, 100.0, G)
+        if not (torch.equal(words, words_p) and torch.equal(words_a, words_p)):
+            raise AssertionError(f"pattern {name} G={G}: scatter != plain")
+        if not torch.equal(rz.unpack_occupancy(words_p, G).cpu(),
+                           torch.from_numpy(occ.astype(np.uint8))):
+            raise AssertionError(f"pattern {name} G={G}: wrong cells")
+        if name == "random_50":
+            dense_ms = graph_ms(lambda: mc.smear_quantize(words, w, G, hk),
+                                20)[0]
+        tests = [words]
+        if name == "full" and G % 32:
+            stray = words.clone()
+            stray[-1] |= ~((1 << (G % 32)) - 1)
+            tests.append(stray)
+        for ws in tests:
+            grid = mc.smear_quantize(ws, w, G, hk)
+            if not torch.equal(grid, rz.smear_quantize_plain(ws, w, G, hk)):
+                raise AssertionError(
+                    f"pattern {name} G={G} hk={hk}: smear != plain")
+    torch.cuda.synchronize()
+    print(f"# patterns G={G} hk={hk}: scatter and smear equal to their "
+          f"plain versions on {len(pats)} patterns ({', '.join(pats)}); "
+          f"smear device time on the 50% random grid {dense_ms} ms",
+          flush=True)
+    return len(pats), dense_ms
 
 
 def measure_ceiling(matcher, grid, d, n):
@@ -540,6 +658,7 @@ def main() -> int:
     from slam_toolbox_tpu_torch.api import SlamSession
     from slam_toolbox_tpu_torch.core.scan import LocalizedScan
     from slam_toolbox_tpu_torch.kernels import match_cuda as mc
+    from slam_toolbox_tpu_torch.kernels import rasterize as rz
     from slam_toolbox_tpu_torch.mapper import Mapper
 
     dev = torch.device("cuda")
@@ -579,6 +698,15 @@ def main() -> int:
         if tag == "seq":
             ceiling = measure_ceiling(
                 matcher, grids[tag], inp["d"], inp["ncand"])
+    taps = {(m.G, m.half_kernel): m._w
+            for m in (mapper.sequential_matcher, mapper.loop_matcher)}
+    n_patterns, dense_ms = 0, {}
+    for G, hk in PATTERN_GEOMETRIES:
+        w = taps.get((G, hk))
+        if w is None:
+            w = torch.from_numpy(rz.smear_weights(1.0, hk)).to(dev)
+        n, dense_ms[f"G={G} hk={hk}"] = check_patterns(G, hk, w, dev)
+        n_patterns += n
 
     # 3. the card against the CPU on a short session at a coarser grid,
     # on both paths
@@ -632,6 +760,7 @@ def main() -> int:
             "source": f"slam_toolbox_tpu_torch/csrc/{name}.cu",
             "replaces": REPLACES[name],
             "launches": main_run["launches"][name],
+            "launches_by_grid": main_run["by_grid"].get(name, {}),
             "max_abs_err": max(rec["err"], loop["err"] if loop else 0),
             "ms": rec["ms"], "plain_ms": rec["plain_ms"],
             "bound_ms": rec["bound"][0], "bound_by": rec["bound"][1],
@@ -645,6 +774,14 @@ def main() -> int:
                 "bound_by": loop["bound"][1],
                 "library_ms": loop["library_ms"],
             }
+            for key in DEVICE_KEYS:
+                if key in rec:
+                    row[key] = rec[key]
+                    row["loop"][key] = loop[key]
+            if name in ("scatter_occupancy", "smear_quantize"):
+                row["patterns_checked"] = n_patterns
+            if name == "smear_quantize":
+                row["dense_device_ms"] = dense_ms
         else:
             row["launched_by"] = "the ceiling measurement of phase 2"
             row["measurement_launches"] = rec["launches"]

@@ -120,8 +120,9 @@ class Matcher:
         self._na_fine = int(np.floor(
             self._fine_angle_offset * 2.0 / self._fine_angle_res + 0.5)) + 1
         dev = self.device
-        self._w = torch.from_numpy(
-            rz.smear_weights(self.sigma_cells, self.half_kernel)).to(dev)
+        taps = rz.smear_weights(self.sigma_cells, self.half_kernel)
+        rz.check_smear_taps(taps)   # the smear kernel relies on their shape
+        self._w = torch.from_numpy(taps).to(dev)
         self._score_args = dict(
             x_off_c=torch.tensor(self._xy_coarse, dtype=_F32, device=dev),
             y_off_c=torch.tensor(self._xy_coarse, dtype=_F32, device=dev),
@@ -144,10 +145,11 @@ class Matcher:
         return torch.as_tensor(a, dtype=dtype).to(self.device)
 
     def _raster(self, pts, valid, offset):
-        """Scatter + smear + int8 quantize: (G*G+1,) raster on device."""
-        occ = mc.scatter_occupancy(pts, valid, offset, _f32(self.scale),
-                                   self.G)
-        return mc.smear_quantize(occ, self._w, self.G, self.half_kernel)
+        """Scatter to packed occupancy words + smear + int8 quantize:
+        (G*G+1,) raster on device."""
+        words = mc.scatter_occupancy(pts, valid, offset, _f32(self.scale),
+                                     self.G)
+        return mc.smear_quantize(words, self._w, self.G, self.half_kernel)
 
     # -- raster construction ------------------------------------------------
     def build_grid(self, base_scans, viewpoint_pose: np.ndarray):

@@ -21,13 +21,16 @@ stream and raises if the launch was refused. A wrapper given CPU tensors
 runs the plain PyTorch version instead; given CUDA tensors it launches the
 kernel or raises — it never falls back.
 
-LAUNCHES counts, per kernel, the launches made through the wrappers. A
-call made while a CUDA graph is being captured records the kernel into
-the graph and launches nothing, so it is not counted; the graph's
-replays are for its owner to count.
+LAUNCHES counts, per kernel, the launches made through the wrappers, and
+GRID_LAUNCHES the same per (kernel, grid side G), which tells the
+sequential matcher's rasters from the loop matcher's. A call made while
+a CUDA graph is being captured records the kernel into the graph and
+launches nothing, so it is not counted; the graph's replays are for its
+owner to count.
 """
 from __future__ import annotations
 
+import collections
 import ctypes
 import os
 import shutil
@@ -37,7 +40,7 @@ import time
 import torch
 
 from slam_toolbox_tpu_torch.kernels.rasterize import (
-    scatter_occupancy_plain, smear_quantize_plain,
+    occupancy_words, scatter_occupancy_plain, smear_quantize_plain,
 )
 from slam_toolbox_tpu_torch.native import BUILD_DIR
 
@@ -49,17 +52,21 @@ KERNELS = ("scatter_occupancy", "smear_quantize", "score_windows",
 # score_ceiling's compile-time (dx, dy) offsets, as in csrc/score_ceiling.cu
 CEIL_OFFSETS = ((612, -35), (-480, 271), (133, 702), (-57, -655),
                 (890, 404), (-821, -230), (305, -877), (-214, 515))
+# smear_quantize's output tile (rows, columns), as in csrc/smear_quantize.cu
+SMEAR_TILE = (32, 124)
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "--fmad=false", "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC",
 ]
 LAUNCHES = {name: 0 for name in KERNELS}
+GRID_LAUNCHES = collections.Counter()
 _libs = {}
 
 
 def reset_launch_counts() -> None:
     for name in KERNELS:
         LAUNCHES[name] = 0
+    GRID_LAUNCHES.clear()
 
 
 def _source(name: str) -> str:
@@ -120,7 +127,7 @@ def _lib(name: str):
     fn = getattr(lib, name)
     fn.restype = i
     fn.argtypes = {
-        "scatter_occupancy": [p, p, p, f, i, i, p, p],
+        "scatter_occupancy": [p, p, p, f, i, i, i, p, p],
         "smear_quantize": [p, p, i, i, p, p],
         "score_windows": [p, i, p, p, p, i, i, i, i, p, p, p],
         "score_ceiling": [p, i, p, p, i, i, i, i, p, p],
@@ -160,15 +167,20 @@ def _raise_if(err: int, name: str) -> None:
         raise RuntimeError(f"{name} launch failed: cudaError {err}")
 
 
-def _count(name: str) -> None:
+def _count(name: str, G: int) -> None:
     if not torch.cuda.is_current_stream_capturing():
         LAUNCHES[name] += 1
+        GRID_LAUNCHES[name, G] += 1
 
 
 # -- K2: binary occupancy stamp ----------------------------------------------
-def scatter_occupancy(points, valid, offset, scale: float, G: int):
-    """(G, G) uint8 occupancy of `points` (P, 2) f32 under mask `valid`
-    (P,) bool; cell = round_half_away((p - offset) * scale)."""
+def scatter_occupancy(points, valid, offset, scale: float, G: int,
+                      aggregate: bool = False):
+    """(ceil(G/32), G) int32 packed occupancy (kernels/rasterize.py) of
+    `points` (P, 2) f32 under mask `valid` (P,) bool; cell =
+    round_half_away((p - offset) * scale). The kernel zero-fills the
+    words itself. `aggregate` merges one warp's ORs to a word before the
+    atomic (the same words; chip_smoke.py times both)."""
     dev = points.device
     P = points.shape[0]
     _check(points, "points", torch.float32, (P, 2), dev)
@@ -177,30 +189,37 @@ def scatter_occupancy(points, valid, offset, scale: float, G: int):
     if not _on_cuda(dev):
         return scatter_occupancy_plain(points, valid, offset, scale, G)
     lib = _lib("scatter_occupancy")
-    occ = torch.zeros((G, G), dtype=torch.uint8, device=dev)
+    words = torch.empty((occupancy_words(G), G), dtype=torch.int32,
+                        device=dev)
     _raise_if(lib.scatter_occupancy(
         points.data_ptr(), valid.data_ptr(), offset.data_ptr(),
-        float(scale), G, P, occ.data_ptr(), _stream(),
+        float(scale), G, P, int(aggregate), words.data_ptr(), _stream(),
     ), "scatter_occupancy")
-    _count("scatter_occupancy")
-    return occ
+    _count("scatter_occupancy", G)
+    return words
 
 
 # -- K3: separable max-times smear + int8 quantize ---------------------------
-def smear_quantize(occ, w, G: int, hk: int):
-    """(G*G+1,) int8 raster (last cell a zero sink) from the (G, G) uint8
-    0/1 occupancy and the (2*hk+1,) f32 taps `w`."""
-    dev = occ.device
-    _check(occ, "occ", torch.uint8, (G, G), dev)
+def smear_quantize(words, w, G: int, hk: int):
+    """(G*G+1,) int8 raster (last cell a zero sink) from the packed
+    (ceil(G/32), G) int32 occupancy and the (2*hk+1,) f32 taps `w`.
+
+    The kernel requires taps that are finite, non-negative, symmetric and
+    non-increasing outward from the centre (rasterize.check_smear_taps);
+    it does not check them, since that would read the device. Matcher
+    checks its taps on the host before upload. The plain version, taken
+    for CPU tensors, holds for any taps."""
+    dev = words.device
+    _check(words, "words", torch.int32, (occupancy_words(G), G), dev)
     _check(w, "w", torch.float32, (2 * hk + 1,), dev)
     if not _on_cuda(dev):
-        return smear_quantize_plain(occ, w, G, hk)
+        return smear_quantize_plain(words, w, G, hk)
     lib = _lib("smear_quantize")
     out = torch.empty(G * G + 1, dtype=torch.int8, device=dev)
     _raise_if(lib.smear_quantize(
-        occ.data_ptr(), w.data_ptr(), G, hk, out.data_ptr(), _stream(),
+        words.data_ptr(), w.data_ptr(), G, hk, out.data_ptr(), _stream(),
     ), "smear_quantize")
-    _count("smear_quantize")
+    _count("smear_quantize", G)
     return out
 
 
@@ -251,7 +270,7 @@ def score_windows(grid_flat, G: int, d, cand_x0, cand_y0, ny: int, nx: int,
         cand_y0.data_ptr(), na, B, ny, nx, finite.data_ptr(),
         out.data_ptr(), _stream(),
     ), "score_windows")
-    _count("score_windows")
+    _count("score_windows", G)
     return out
 
 
@@ -291,5 +310,5 @@ def score_ceiling(grid_flat, G: int, cand_x0, cand_y0, na: int, B: int,
         grid_flat.data_ptr(), G, cand_x0.data_ptr(), cand_y0.data_ptr(),
         na, B, ny, nx, out.data_ptr(), _stream(),
     ), "score_ceiling")
-    _count("score_ceiling")
+    _count("score_ceiling", G)
     return out

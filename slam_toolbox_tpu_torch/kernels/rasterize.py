@@ -10,6 +10,12 @@ window factors into two 1-D passes).
 `rasterize_smear` is the plain version of the two hand-written kernels
 in kernels/match_cuda.py (scatter_occupancy, smear_quantize) and runs
 their exact arithmetic: the same f32 products, maxima and rounding.
+
+The occupancy passes between the two as bits packed along axis 0 (the
+smear's first pass): a (ceil(G/32), G) int32 array whose word (q, c)
+holds rows 32q .. 32q+31 of column c, bit r & 31 for row r. int32
+carries the 32 bits (bit 31 makes a word negative); rows at or beyond G
+are never set.
 """
 from __future__ import annotations
 
@@ -42,6 +48,30 @@ def smear_weights(sigma_cells: float, half_kernel: int) -> np.ndarray:
     return np.exp(arg.astype(np.float64)).astype(np.float32)
 
 
+def check_smear_taps(w: np.ndarray) -> None:
+    """Raise ValueError unless the (2*hk+1,) taps are finite,
+    non-negative, symmetric bit for bit and non-increasing outward from
+    the centre: the smear kernel relies on it (its row pass takes the tap
+    at the nearest occupied offset, its column pass pairs the taps +-k).
+    smear_weights' taps always meet it."""
+    w = np.asarray(w, np.float32)
+    hk = (len(w) - 1) // 2
+    if w.ndim != 1 or len(w) != 2 * hk + 1:
+        raise ValueError(f"smear taps: odd-length vector expected, got "
+                         f"shape {w.shape}")
+    if not (np.all(np.isfinite(w)) and np.all(w >= 0)):
+        raise ValueError("smear taps: not finite and non-negative")
+    if not np.array_equal(w.view(np.int32), w[::-1].view(np.int32)):
+        raise ValueError("smear taps: not symmetric")
+    if np.any(np.diff(w[hk:]) > 0):
+        raise ValueError("smear taps: increase away from the centre")
+
+
+def occupancy_words(grid_size: int) -> int:
+    """Word rows of the packed occupancy: ceil(G / 32)."""
+    return (grid_size + 31) // 32
+
+
 def cell_coords(points, valid, offset, scale, grid_size: int):
     """(ix, iy, inb): cells round_half_away((p - offset) * scale) in f32
     and the in-grid mask. The mask is decided on the floats, before any
@@ -53,21 +83,37 @@ def cell_coords(points, valid, offset, scale, grid_size: int):
 
 
 def scatter_occupancy_plain(points, valid, offset, scale, grid_size: int):
-    """(G, G) uint8 binary occupancy: cell (iy, ix) = 1 for every valid
-    in-grid point (OR semantics). Plain version of the scatter kernel."""
+    """(ceil(G/32), G) int32 packed binary occupancy (module docstring):
+    the bit of cell (iy, ix) is set for every valid in-grid point. The
+    OR is a sum of 1 << bit over the distinct cells. Plain version of the
+    scatter kernel."""
     G = grid_size
     ix, iy, inb = cell_coords(points, valid, offset, scale, G)
-    occ = torch.zeros(G * G, dtype=torch.uint8, device=points.device)
-    occ[(iy * G + ix)[inb]] = 1
-    return occ.view(G, G)
+    cells = torch.unique((iy * G + ix)[inb])
+    iy, ix = cells // G, cells % G
+    words = torch.zeros(occupancy_words(G) * G, dtype=torch.int64,
+                        device=points.device)
+    words.index_add_(0, (iy >> 5) * G + ix, torch.ones_like(iy) << (iy & 31))
+    words = torch.where(words >= 1 << 31, words - (1 << 32), words)
+    return words.to(torch.int32).view(-1, G)
 
 
-def smear_quantize_plain(occ, w, grid_size: int, half_kernel: int):
-    """(G*G+1,) int8 raster: separable max-times smear of the 0/1
+def unpack_occupancy(words, grid_size: int):
+    """(G, G) uint8 0/1 grid of the packed occupancy; bits of rows at or
+    beyond G are dropped."""
+    G = grid_size
+    bit = torch.arange(32, dtype=torch.int32, device=words.device)
+    occ = (words[:, None, :] >> bit[None, :, None]) & 1   # (nw, 32, G)
+    return occ.reshape(-1, G)[:G].to(torch.uint8)
+
+
+def smear_quantize_plain(words, w, grid_size: int, half_kernel: int):
+    """(G*G+1,) int8 raster: separable max-times smear of the packed 0/1
     occupancy (rows, then columns), quantized to round_half_away(100*z),
-    with a zero sink cell appended. Plain version of the smear kernel."""
+    with a zero sink cell appended. Plain version of the smear kernel;
+    it holds for any taps."""
     G, hk = grid_size, half_kernel
-    x = occ.to(torch.float32)
+    x = unpack_occupancy(words, G).to(torch.float32)
     for dim in (0, 1):
         pad = [0, 0, 0, 0]
         pad[2 * (1 - dim)] = pad[2 * (1 - dim) + 1] = hk

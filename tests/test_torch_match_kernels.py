@@ -103,24 +103,40 @@ def _raster_inputs(G, seed):
     return pts, valid, np.zeros(2, np.float32)
 
 
+def _pack_numpy(occ):
+    """(G, G) 0/1 -> (ceil(G/32), G) int32 words from the layout's
+    definition: bit r & 31 of word (r >> 5, c) is cell (r, c)."""
+    G = occ.shape[0]
+    nw = (G + 31) // 32
+    rows = np.zeros((nw * 32, G), np.int64)
+    rows[:G] = occ
+    words = (rows.reshape(nw, 32, G) << np.arange(32)[None, :, None]).sum(1)
+    return np.where(words >= 1 << 31, words - (1 << 32), words).astype(
+        np.int32)
+
+
 @pytest.mark.parametrize("G", [100, 101, 257])
 def test_scatter_plain_matches_pallas_parity(G):
     pts, valid, off = _raster_inputs(G, G)
     ref = np.asarray(mp.scatter_occupancy_parity(
         jnp.asarray(pts), jnp.asarray(valid), jnp.asarray(off),
         np.float32(100.0), G))
-    got = mc.scatter_occupancy(torch.from_numpy(pts),
-                               torch.from_numpy(valid),
-                               torch.from_numpy(off), 100.0, G).numpy()
+    words = mc.scatter_occupancy(torch.from_numpy(pts),
+                                 torch.from_numpy(valid),
+                                 torch.from_numpy(off), 100.0, G)
+    assert words.dtype == torch.int32 and words.shape == ((G + 31) // 32, G)
+    got = trz.unpack_occupancy(words, G).numpy()
     assert got.dtype == np.uint8 and got.shape == (G, G)
-    np.testing.assert_array_equal(got, _unparity(ref, G).astype(np.uint8))
+    occ = _unparity(ref, G).astype(np.uint8)
+    np.testing.assert_array_equal(got, occ)
+    np.testing.assert_array_equal(words.numpy(), _pack_numpy(occ))
     assert got.sum() > 0
 
 
 @pytest.mark.parametrize("G,hk", [(101, 5), (100, 4), (257, 10)])
 def test_smear_plain_matches_pallas_parity(G, hk):
-    """Scatter + smear + quantize equal the Pallas rasterize_parity output
-    mapped back from the padded parity layout."""
+    """Scatter + smear + quantize from the packed words equal the Pallas
+    rasterize_parity output mapped back from the padded parity layout."""
     pts, valid, off = _raster_inputs(G, 3 * G + hk)
     sigma = hk / 2.0
     pgrid = np.asarray(mp.rasterize_parity(
@@ -129,23 +145,80 @@ def test_smear_plain_matches_pallas_parity(G, hk):
     gh = (G + 1) // 2
     planes = pgrid[:, mp.PAD_TOP:mp.PAD_TOP + gh,
                    mp.PAD_LEFT:mp.PAD_LEFT + gh]
-    occ = mc.scatter_occupancy(torch.from_numpy(pts),
-                               torch.from_numpy(valid),
-                               torch.from_numpy(off), 100.0, G)
+    words = mc.scatter_occupancy(torch.from_numpy(pts),
+                                 torch.from_numpy(valid),
+                                 torch.from_numpy(off), 100.0, G)
     w = torch.from_numpy(trz.smear_weights(sigma, hk))
-    got = mc.smear_quantize(occ, w, G, hk).numpy()
+    got = mc.smear_quantize(words, w, G, hk).numpy()
     np.testing.assert_array_equal(got[:-1].reshape(G, G),
                                   _unparity(planes, G))
     assert got[-1] == 0
 
 
+def test_plain_smear_ignores_bits_past_the_grid():
+    """At odd G the last word row is partly filled: set bits of rows at or
+    beyond G change nothing."""
+    G, hk = 101, 5
+    rng = np.random.default_rng(3)
+    words = _pack_numpy(rng.random((G, G)) < 0.05)
+    stray = words.copy()
+    stray[-1] |= np.int32(~((1 << (G % 32)) - 1))
+    w = torch.from_numpy(trz.smear_weights(2.5, hk))
+    np.testing.assert_array_equal(
+        trz.smear_quantize_plain(torch.from_numpy(stray), w, G, hk).numpy(),
+        trz.smear_quantize_plain(torch.from_numpy(words), w, G, hk).numpy())
+
+
+@pytest.mark.parametrize("sigma", [0.5, 1.0, 2.5, 3.0, 10.0, 25.0])
+@pytest.mark.parametrize("hk", [0, 1, 2, 5, 20, 33, 64])
+def test_smear_weights_meet_the_kernel_precondition(sigma, hk):
+    """Every tap vector smear_weights makes is finite, non-negative,
+    symmetric and non-increasing outward (what the smear kernel relies
+    on), the two matcher geometries (sigma 10, hk 20; sigma 1.5, hk 1 at
+    the loop grid) included, out to taps that underflow to 0."""
+    w = trz.smear_weights(sigma, hk)
+    trz.check_smear_taps(w)
+    assert w[hk] == 1.0
+
+
+def test_matcher_geometries_meet_the_kernel_precondition():
+    from slam_toolbox_tpu_torch.core.params import MapperConfig
+    from slam_toolbox_tpu_torch.mapper import Mapper
+
+    cfg = MapperConfig(correlation_search_space_resolution=0.01,
+                       correlation_search_space_smear_deviation=0.1)
+    m = Mapper(cfg, device="cpu")
+    m.initialize(10.0)
+    for matcher in (m.sequential_matcher, m.loop_matcher):
+        trz.check_smear_taps(matcher._w.numpy())
+    assert m.sequential_matcher.half_kernel == 20
+
+
+@pytest.mark.parametrize("taps", [
+    [0.5, 1.0, 0.4],              # not symmetric
+    [0.6, 0.5, 1.0, 0.5, 0.6],    # increases outward
+    [-0.1, 1.0, -0.1],            # negative
+    [np.nan, 1.0, np.nan],        # not finite
+])
+def test_matcher_raises_on_taps_that_break_the_precondition(
+        monkeypatch, taps):
+    from slam_toolbox_tpu_torch.kernels.match import Matcher
+
+    monkeypatch.setattr(trz, "smear_weights",
+                        lambda sigma, hk: np.asarray(taps, np.float32))
+    with pytest.raises(ValueError, match="smear taps"):
+        Matcher(0.5, 0.05, 0.05, 10.0, 0.35, 0.035, 0.0035, 0.5, 1.0, 0.5,
+                0.9, device="cpu")
+
+
 def test_wrappers_on_cpu_run_plain_and_count_nothing():
     mc.reset_launch_counts()
     pts, valid, off = _raster_inputs(64, 0)
-    occ = mc.scatter_occupancy(torch.from_numpy(pts),
-                               torch.from_numpy(valid),
-                               torch.from_numpy(off), 100.0, 64)
-    grid = mc.smear_quantize(occ, torch.ones(3), 64, 1)
+    words = mc.scatter_occupancy(torch.from_numpy(pts),
+                                 torch.from_numpy(valid),
+                                 torch.from_numpy(off), 100.0, 64)
+    assert words.dtype == torch.int32 and words.shape == (2, 64)
+    grid = mc.smear_quantize(words, torch.ones(3), 64, 1)
     c = torch.zeros(1, dtype=torch.int32)
     mc.score_ceiling(grid, 64, c, c, 2, 9, 3, 3)
     assert mc.LAUNCHES == {k: 0 for k in mc.KERNELS}
@@ -211,14 +284,30 @@ def test_score_ceiling_offsets_match_source():
     assert list(zip(dx, dy)) == [tuple(o) for o in mc.CEIL_OFFSETS]
 
 
+def test_smear_tile_matches_source():
+    """chip_smoke's tile-edge patterns use SMEAR_TILE; it is the tile of
+    the CUDA source."""
+    src = open(os.path.join(os.path.dirname(mc.__file__), os.pardir, "csrc",
+                            "smear_quantize.cu")).read()
+    ty = int(re.search(r"constexpr int TY = (\d+);", src).group(1))
+    tx = int(re.search(r"constexpr int TX = (\d+);", src).group(1))
+    assert (ty, tx) == mc.SMEAR_TILE
+
+
 def test_wrappers_check_arguments():
-    occ = torch.zeros((8, 8), dtype=torch.uint8)
+    words = torch.zeros((1, 8), dtype=torch.int32)
     with pytest.raises(TypeError):
-        mc.smear_quantize(occ.float(), torch.ones(3), 8, 1)
+        mc.smear_quantize(words.float(), torch.ones(3), 8, 1)
+    with pytest.raises(TypeError):
+        mc.smear_quantize(words.to(torch.uint8), torch.ones(3), 8, 1)
     with pytest.raises(ValueError):
-        mc.smear_quantize(occ, torch.ones(5), 8, 1)
+        mc.smear_quantize(words, torch.ones(5), 8, 1)
     with pytest.raises(ValueError):
-        mc.smear_quantize(occ.t(), torch.ones(3), 8, 1)
+        mc.smear_quantize(torch.zeros((8, 8), dtype=torch.int32),
+                          torch.ones(3), 8, 1)
+    with pytest.raises(ValueError):
+        mc.smear_quantize(torch.zeros((40, 2), dtype=torch.int32).t(),
+                          torch.ones(3), 40, 1)
     grid = torch.zeros(65, dtype=torch.int8)
     d = torch.zeros((2, 4, 2), dtype=torch.int32)
     with pytest.raises(ValueError):
@@ -251,11 +340,15 @@ def test_kernels_match_plain_on_card(cuda_device, G, hk):
     valid = torch.from_numpy(rng.random(P) < 0.9).to(dev)
     args = (torch.from_numpy(pts).to(dev), valid,
             torch.tensor([0.003, -0.007], device=dev), 100.0, G)
-    occ = mc.scatter_occupancy(*args)
-    assert torch.equal(occ, trz.scatter_occupancy_plain(*args))
+    words = mc.scatter_occupancy(*args)
+    assert torch.equal(words, trz.scatter_occupancy_plain(*args))
+    assert torch.equal(mc.scatter_occupancy(*args, aggregate=True), words)
     w = torch.from_numpy(trz.smear_weights(max(hk, 1) / 2.0, hk)).to(dev)
-    grid = mc.smear_quantize(occ, w, G, hk)
-    assert torch.equal(grid, trz.smear_quantize_plain(occ, w, G, hk))
+    grid = mc.smear_quantize(words, w, G, hk)
+    assert torch.equal(grid, trz.smear_quantize_plain(words, w, G, hk))
+    # the adversarial occupancy patterns of chip_smoke.py, phase 2
+    from chip_smoke import check_patterns
+    assert check_patterns(G, hk, w, dev)[0] == 7
     n = 81 if G < 1000 else 26
     d = torch.from_numpy(
         rng.integers(-G // 2, G // 2, (21, 1081, 2)).astype(np.int32)).to(dev)
