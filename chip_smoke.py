@@ -13,12 +13,14 @@ Phases, in order; any failure exits non-zero and nothing is caught:
                 (the sequential ring; a loop chain as pose_graph builds
                 one) plus out-of-grid, -1e9 and non-finite beams
                 (bit-equal required), and time both with CUDA events;
-                the scatter (both ways of ORing its bits), the smear and
-                the library scatter also by CUDA graph replays (device
-                time per launch); then the scatter and the smear on the
-                adversarial occupancy patterns (empty, full, random,
-                corners, word and tile edges, full rows and columns) at
-                G = 2051, 561 and 257, word- and bit-equal required;
+                the scatter, the smear and the library scatter also by
+                CUDA graph replays (device time per launch), with the
+                share of the smear's tile rows that are empty; then the
+                scatter and the smear on the adversarial occupancy
+                patterns (empty, full, random, corners, word and tile
+                edges, full rows and columns) at (G, hk) = (2051, 20),
+                (561, 1), (257, 0) and (257, 40), word- and bit-equal
+                required;
                 then the window-score ceiling (score_ceiling), the
                 roofline measurement: its device time (CUDA graph
                 replays) beside score_windows' on the same raster at the
@@ -63,10 +65,11 @@ REPLACES = {
     "score_ceiling": "scripts/exp_roofline.py:123",
 }
 # device time per launch from CUDA graph replays, where phase 2 takes it
-DEVICE_KEYS = ("device_ms", "aggregated_device_ms", "library_device_ms")
-# the adversarial occupancy patterns' geometries: both matchers' and a
-# grid one word past a multiple of 32 with a single tap
-PATTERN_GEOMETRIES = ((2051, 20), (561, 1), (257, 0))
+DEVICE_KEYS = ("device_ms", "library_device_ms")
+# the adversarial occupancy patterns' geometries: both matchers', and a
+# grid one row past a multiple of 32 with a single tap and with hk > 32
+# (where the smear's row pass walks words beyond its three)
+PATTERN_GEOMETRIES = ((2051, 20), (561, 1), (257, 0), (257, 40))
 
 LAP = [
     (-6.0, -3.5), (1.5, -3.5), (5.5, -3.5), (5.5, 0.5), (5.5, 3.5),
@@ -359,13 +362,12 @@ def check_kernels(matcher, inp, tag: str):
     w = matcher._w
     out = {}
 
-    # K2: scatter into packed words, plain and warp-aggregated ORs
+    # K2: scatter into packed words
     P = pts.shape[0]
     words = mc.scatter_occupancy(pts, valid, off, scale, G)
-    words_a = mc.scatter_occupancy(pts, valid, off, scale, G, aggregate=True)
     words_p = rz.scatter_occupancy_plain(pts, valid, off, scale, G)
     torch.cuda.synchronize()
-    if not (torch.equal(words, words_p) and torch.equal(words_a, words_p)):
+    if not torch.equal(words, words_p):
         raise AssertionError(f"{tag} scatter_occupancy != plain")
     ix, iy, inb = rz.cell_coords(pts, valid, off, scale, G)
     idx = (iy[inb], ix[inb])
@@ -379,9 +381,6 @@ def check_kernels(matcher, inp, tag: str):
                     50),
         device_ms=graph_ms(
             lambda: mc.scatter_occupancy(pts, valid, off, scale, G), 50)[0],
-        aggregated_device_ms=graph_ms(
-            lambda: mc.scatter_occupancy(pts, valid, off, scale, G,
-                                         aggregate=True), 50)[0],
         plain_ms=event_ms(
             lambda: rz.scatter_occupancy_plain(pts, valid, off, scale, G),
             20),
@@ -414,6 +413,7 @@ def check_kernels(matcher, inp, tag: str):
         bound=bound(4 * words.numel() + 4 * K + G * G + 1,
                     int((grid_p[:-1] != 0).sum()) * (3 * (hk + 1) + 4)),
         shape=f"G={G} hk={hk}",
+        empty_tile_rows=empty_tile_rows(words, G, hk),
     )
 
     # K1: window sums, at the main path's origin and straddling both edges
@@ -450,8 +450,30 @@ def check_kernels(matcher, inp, tag: str):
     return out, grid
 
 
+def empty_tile_rows(words, G: int, hk: int) -> float:
+    """Share of the smear's tile rows (one output row across a tile of
+    SMEAR_TILE columns) with no occupied cell within hk rows and hk
+    columns: the sparsity the smear's column pass skips (its halo is a
+    little wider than hk, so it skips at most this share)."""
+    import torch
+
+    from slam_toolbox_tpu_torch.kernels import match_cuda as mc
+    from slam_toolbox_tpu_torch.kernels import rasterize as rz
+
+    occ = rz.unpack_occupancy(words, G).float()
+    # rows within hk of an occupied row, column by column
+    near = torch.nn.functional.max_pool1d(
+        occ.t()[None], 2 * hk + 1, 1, hk)[0].t() > 0
+    tx = mc.SMEAR_TILE[1]
+    empty = sum(int((~near[:, max(0, ox - hk):ox + tx + hk].any(dim=1)).sum())
+                for ox in range(0, G, tx))
+    return empty / (G * len(range(0, G, tx)))
+
+
 def print_record(tag, name, r):
     device = "".join(f" {k} {r[k]} ms" for k in DEVICE_KEYS if k in r)
+    if "empty_tile_rows" in r:
+        device += f" empty tile rows {r['empty_tile_rows']}"
     print(f"# {tag} {name} [{r['shape']}]: max_abs_err {r['err']} "
           f"kernel {r['ms']:.4f} ms plain {r['plain_ms']:.4f} ms "
           f"library {r['library_ms']} ms bound {r['bound'][0]:.5f} ms "
@@ -498,7 +520,7 @@ def occupancy_patterns(G: int, hk: int, seed: int = 0):
 
 
 def check_patterns(G: int, hk: int, w, dev):
-    """Hold K2 (both OR variants) word for word and K3 bit for bit
+    """Hold K2 word for word and K3 bit for bit
     against their plain versions on every occupancy pattern, each given
     to the scatter as points at its cells' centres; on the full grid also
     K3 on words with stray bits above row G (the smear must ignore them).
@@ -518,10 +540,8 @@ def check_patterns(G: int, hk: int, w, dev):
             (np.stack([ix, iy], axis=1) * 0.01).astype(np.float32)).to(dev)
         valid = torch.ones(len(pts), dtype=torch.bool, device=dev)
         words = mc.scatter_occupancy(pts, valid, off, 100.0, G)
-        words_a = mc.scatter_occupancy(pts, valid, off, 100.0, G,
-                                       aggregate=True)
         words_p = rz.scatter_occupancy_plain(pts, valid, off, 100.0, G)
-        if not (torch.equal(words, words_p) and torch.equal(words_a, words_p)):
+        if not torch.equal(words, words_p):
             raise AssertionError(f"pattern {name} G={G}: scatter != plain")
         if not torch.equal(rz.unpack_occupancy(words_p, G).cpu(),
                            torch.from_numpy(occ.astype(np.uint8))):
@@ -704,7 +724,8 @@ def main() -> int:
     for G, hk in PATTERN_GEOMETRIES:
         w = taps.get((G, hk))
         if w is None:
-            w = torch.from_numpy(rz.smear_weights(1.0, hk)).to(dev)
+            w = torch.from_numpy(
+                rz.smear_weights(max(hk, 1) / 2.0, hk)).to(dev)
         n, dense_ms[f"G={G} hk={hk}"] = check_patterns(G, hk, w, dev)
         n_patterns += n
 
@@ -782,6 +803,8 @@ def main() -> int:
                 row["patterns_checked"] = n_patterns
             if name == "smear_quantize":
                 row["dense_device_ms"] = dense_ms
+                row["empty_tile_rows"] = rec["empty_tile_rows"]
+                row["loop"]["empty_tile_rows"] = loop["empty_tile_rows"]
         else:
             row["launched_by"] = "the ceiling measurement of phase 2"
             row["measurement_launches"] = rec["launches"]

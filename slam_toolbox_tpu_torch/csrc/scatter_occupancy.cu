@@ -19,9 +19,10 @@
 // is one host crossing, records into a CUDA graph, and never syncs.
 //
 // Contention: a wall along axis 0 puts up to 32 consecutive beams on one
-// word. With `aggregate` set, the lanes of a warp that hit one word OR
-// their bits together first (__match_any_sync, __reduce_or_sync) and one
-// lane issues the atomic; chip_smoke.py times both variants.
+// word. Merging one warp's ORs to a word before the atomic
+// (__match_any_sync + __reduce_or_sync) was measured slower on the main
+// path's rings and chains (chip_smoke.py, PERF.md), so each point issues
+// its own atomic.
 //
 // Exactness: the cell is round_half_away((p - offset) * scale) in f32, as
 // in slam_toolbox_tpu/kernels/rasterize.py. The _rn intrinsics keep nvcc
@@ -37,73 +38,38 @@ __device__ __forceinline__ float round_half_away(float x) {
     return x >= 0.f ? floorf(__fadd_rn(x, 0.5f)) : ceilf(__fsub_rn(x, 0.5f));
 }
 
-// The word index of point i and its bit, or word -1 for no cell.
-__device__ __forceinline__ long long point_word(
+__global__ void scatter_occupancy_kernel(
     const float* __restrict__ pts, const uint8_t* __restrict__ valid,
-    const float* __restrict__ offset, float scale, int G, int P, int i,
-    uint32_t* bit) {
-    *bit = 0u;
-    if (i >= P || !valid[i]) return -1;
+    const float* __restrict__ offset, float scale, int G, int P,
+    uint32_t* __restrict__ words) {
+    const int i = blockIdx.x * blockDim.x + threadIdx.x;
+    if (i >= P || !valid[i]) return;
     const float fx = round_half_away(
         __fmul_rn(__fsub_rn(pts[2 * i], offset[0]), scale));
     const float fy = round_half_away(
         __fmul_rn(__fsub_rn(pts[2 * i + 1], offset[1]), scale));
     const float g = (float)G;
     // NaN fails every comparison, so it is dropped here too
-    if (!(fx >= 0.f && fx < g && fy >= 0.f && fy < g)) return -1;
+    if (!(fx >= 0.f && fx < g && fy >= 0.f && fy < g)) return;
     const int ix = (int)fx, iy = (int)fy;
-    *bit = 1u << (iy & 31);
-    return (long long)(iy >> 5) * G + ix;
-}
-
-__global__ void scatter_occupancy_kernel(
-    const float* __restrict__ pts, const uint8_t* __restrict__ valid,
-    const float* __restrict__ offset, float scale, int G, int P,
-    uint32_t* __restrict__ words) {
-    uint32_t bit;
-    const long long wi = point_word(pts, valid, offset, scale, G, P,
-                                    blockIdx.x * blockDim.x + threadIdx.x,
-                                    &bit);
-    if (wi >= 0) atomicOr(words + wi, bit);
-}
-
-// The same stamp with the ORs of one warp to one word merged first. Every
-// lane of the warp reaches the warp-wide intrinsics (the launch is a whole
-// number of warps; a lane past P or off the grid takes word -1).
-__global__ void scatter_occupancy_aggregated_kernel(
-    const float* __restrict__ pts, const uint8_t* __restrict__ valid,
-    const float* __restrict__ offset, float scale, int G, int P,
-    uint32_t* __restrict__ words) {
-    uint32_t bit;
-    const long long wi = point_word(pts, valid, offset, scale, G, P,
-                                    blockIdx.x * blockDim.x + threadIdx.x,
-                                    &bit);
-    const unsigned peers = __match_any_sync(0xffffffffu, wi);
-    const uint32_t merged = __reduce_or_sync(peers, bit);
-    const int lane = threadIdx.x & 31;
-    if (wi >= 0 && lane == __ffs(peers) - 1) atomicOr(words + wi, merged);
+    atomicOr(words + (size_t)(iy >> 5) * G + ix, 1u << (iy & 31));
 }
 
 }  // namespace
 
 extern "C" int scatter_occupancy(
     const void* pts, const void* valid, const void* offset, float scale,
-    int G, int P, int aggregate, void* words, void* stream) {
+    int G, int P, void* words, void* stream) {
     const cudaStream_t s = (cudaStream_t)stream;
     const size_t nbytes = (size_t)((G + 31) / 32) * G * sizeof(uint32_t);
     cudaError_t e = cudaMemsetAsync(words, 0, nbytes, s);
     if (e != cudaSuccess) return (int)e;
     if (P > 0) {
         const int threads = 256;
-        const int blocks = (P + threads - 1) / threads;
-        if (aggregate)
-            scatter_occupancy_aggregated_kernel<<<blocks, threads, 0, s>>>(
-                (const float*)pts, (const uint8_t*)valid,
-                (const float*)offset, scale, G, P, (uint32_t*)words);
-        else
-            scatter_occupancy_kernel<<<blocks, threads, 0, s>>>(
-                (const float*)pts, (const uint8_t*)valid,
-                (const float*)offset, scale, G, P, (uint32_t*)words);
+        scatter_occupancy_kernel<<<(P + threads - 1) / threads, threads, 0,
+                                   s>>>(
+            (const float*)pts, (const uint8_t*)valid, (const float*)offset,
+            scale, G, P, (uint32_t*)words);
     }
     return (int)cudaGetLastError();
 }

@@ -38,10 +38,9 @@
 //
 // Bound on the H100: on a dense occupancy, operations: per output cell
 // the column pass does 3 f32 operations for each tap k = 0 .. hk (63 at
-// the bench's hk = 20), against 1 byte written and 1/8 byte of packed
-// words read. The f32 maxima issue at half the rate of the products, so
-// the column pass is what takes the time. On a scan raster, where most
-// cells have no occupied cell within reach, bytes.
+// the bench's hk = 20; two of them are maxima), against 1 byte written
+// and 1/8 byte of packed words read. On a scan raster, where most cells
+// have no occupied cell within reach, bytes.
 #include <cuda_runtime.h>
 #include <stdint.h>
 

@@ -127,7 +127,7 @@ def _lib(name: str):
     fn = getattr(lib, name)
     fn.restype = i
     fn.argtypes = {
-        "scatter_occupancy": [p, p, p, f, i, i, i, p, p],
+        "scatter_occupancy": [p, p, p, f, i, i, p, p],
         "smear_quantize": [p, p, i, i, p, p],
         "score_windows": [p, i, p, p, p, i, i, i, i, p, p, p],
         "score_ceiling": [p, i, p, p, i, i, i, i, p, p],
@@ -174,13 +174,11 @@ def _count(name: str, G: int) -> None:
 
 
 # -- K2: binary occupancy stamp ----------------------------------------------
-def scatter_occupancy(points, valid, offset, scale: float, G: int,
-                      aggregate: bool = False):
+def scatter_occupancy(points, valid, offset, scale: float, G: int):
     """(ceil(G/32), G) int32 packed occupancy (kernels/rasterize.py) of
     `points` (P, 2) f32 under mask `valid` (P,) bool; cell =
-    round_half_away((p - offset) * scale). The kernel zero-fills the
-    words itself. `aggregate` merges one warp's ORs to a word before the
-    atomic (the same words; chip_smoke.py times both)."""
+    round_half_away((p - offset) * scale). The kernel's launcher
+    zero-fills the words on the stream, so the call is one launch."""
     dev = points.device
     P = points.shape[0]
     _check(points, "points", torch.float32, (P, 2), dev)
@@ -193,7 +191,7 @@ def scatter_occupancy(points, valid, offset, scale: float, G: int,
                         device=dev)
     _raise_if(lib.scatter_occupancy(
         points.data_ptr(), valid.data_ptr(), offset.data_ptr(),
-        float(scale), G, P, int(aggregate), words.data_ptr(), _stream(),
+        float(scale), G, P, words.data_ptr(), _stream(),
     ), "scatter_occupancy")
     _count("scatter_occupancy", G)
     return words
