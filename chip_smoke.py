@@ -430,6 +430,7 @@ def check_kernels(matcher, inp, tag: str):
             raise AssertionError(
                 f"{tag} score_windows != plain at ({cx0}, {cy0})")
         err = max(err, int((s - s_p).abs().max()))
+    n_cases = check_window_cases(grid, G, d, finite, n, tag)
     cx = torch.tensor([cmid], dtype=torch.int32, device=d.device)
     n_fin = int(finite.sum())
     cells = cells_read(G, d, cx, cx, n, n, finite)
@@ -437,6 +438,11 @@ def check_kernels(matcher, inp, tag: str):
         err=err,
         ms=event_ms(
             lambda: mc.score_windows(grid, G, d, cx, cx, n, n, finite), 50),
+        device_ms=graph_ms(
+            lambda: mc.score_windows(grid, G, d, cx, cx, n, n, finite),
+            50)[0],
+        beam_classes=beam_classes(G, d, cx, cx, n, n, finite),
+        cases_checked=n_cases,
         plain_ms=event_ms(
             lambda: mc.score_windows_plain(grid, G, d, cx, cx, n, n, finite),
             20),
@@ -448,6 +454,70 @@ def check_kernels(matcher, inp, tag: str):
     for name, r in out.items():
         print_record(tag, name, r)
     return out, grid
+
+
+def beam_classes(G: int, d, cand_x0, cand_y0, ny: int, nx: int, finite):
+    """Shares of the (heading, beam) pairs of table d (na, B, 2) whose
+    lattice window lies wholly inside the G x G grid ("full"), partly
+    ("partial"), or not at all or on a non-finite beam ("empty"): the
+    classes the window-score kernel sorts its beams into, counted here
+    from the definition, row by row and column by column."""
+    import torch
+
+    dev = d.device
+
+    def rows_in(o, n):   # lattice rows (or columns) with o + 2i in [0, G)
+        v = o.to(torch.int64)[..., None] + 2 * torch.arange(n, device=dev)
+        return ((v >= 0) & (v < G)).sum(dim=-1)
+
+    ry = rows_in(d[..., 1].to(torch.int64) + cand_y0.to(torch.int64), ny)
+    rx = rows_in(d[..., 0].to(torch.int64) + cand_x0.to(torch.int64), nx)
+    empty = (ry == 0) | (rx == 0) | ~finite[None, :]
+    full = ~empty & (ry == ny) & (rx == nx)
+    total = empty.numel()
+    return dict(full=int(full.sum()) / total,
+                partial=int((~empty & ~full).sum()) / total,
+                empty=int(empty.sum()) / total)
+
+
+def check_window_cases(grid, G: int, d, finite, n: int, tag: str) -> int:
+    """Hold K1 bit-equal to its plain version, at the main path's lattice
+    origin and straddling both grid edges, on the cases the span
+    arithmetic must survive: a table whose finite beams hold INT_MIN
+    (torch's NaN to int32) and 1 << 28 (the f64 tables' NaN) in either
+    coordinate, every beam non-finite, and lattices with ny != nx.
+    Returns the number of (case, origin) pairs checked."""
+    import torch
+
+    from slam_toolbox_tpu_torch.kernels import match_cuda as mc
+
+    dev = d.device
+    extreme, fin = d.clone(), finite.clone()
+    big = torch.iinfo(torch.int32).min
+    for k, (axis, v) in enumerate(((0, big), (1, big), (0, 1 << 28),
+                                   (1, 1 << 28), (0, -(1 << 28)))):
+        extreme[:, 7 * k:7 * k + 5, axis] = v
+        fin[7 * k:7 * k + 7] = True
+    extreme[:, 40:45] = big
+    cases = [("extreme table", extreme, fin, n, n),
+             ("no finite beam", d, torch.zeros_like(finite), n, n),
+             ("7 x 11 lattice", d, finite, 7, 11),
+             ("11 x 7 lattice", d, finite, 11, 7)]
+    cmid = (G - 1) // 2 - (n - 1)
+    checked = 0
+    for name, dd, ff, ny, nx in cases:
+        for cx0, cy0 in ((cmid, cmid), (-25, G - 30), (G - 30, -25)):
+            cx = torch.tensor([cx0], dtype=torch.int32, device=dev)
+            cy = torch.tensor([cy0], dtype=torch.int32, device=dev)
+            s = mc.score_windows(grid, G, dd, cx, cy, ny, nx, ff)
+            s_p = mc.score_windows_plain(grid, G, dd, cx, cy, ny, nx, ff)
+            torch.cuda.synchronize()
+            if not torch.equal(s, s_p):
+                raise AssertionError(
+                    f"{tag} score_windows != plain on the {name} at "
+                    f"({cx0}, {cy0})")
+            checked += 1
+    return checked
 
 
 def empty_tile_rows(words, G: int, hk: int) -> float:
@@ -474,6 +544,9 @@ def print_record(tag, name, r):
     device = "".join(f" {k} {r[k]} ms" for k in DEVICE_KEYS if k in r)
     if "empty_tile_rows" in r:
         device += f" empty tile rows {r['empty_tile_rows']}"
+    if "beam_classes" in r:
+        device += (f" (heading, beam) pairs {r['beam_classes']}; "
+                   f"{r['cases_checked']} edge cases bit-equal")
     print(f"# {tag} {name} [{r['shape']}]: max_abs_err {r['err']} "
           f"kernel {r['ms']:.4f} ms plain {r['plain_ms']:.4f} ms "
           f"library {r['library_ms']} ms bound {r['bound'][0]:.5f} ms "
@@ -805,6 +878,11 @@ def main() -> int:
                 row["dense_device_ms"] = dense_ms
                 row["empty_tile_rows"] = rec["empty_tile_rows"]
                 row["loop"]["empty_tile_rows"] = loop["empty_tile_rows"]
+            if name == "score_windows":
+                row["beam_classes"] = rec["beam_classes"]
+                row["loop"]["beam_classes"] = loop["beam_classes"]
+                row["cases_checked"] = rec["cases_checked"] + loop[
+                    "cases_checked"]
         else:
             row["launched_by"] = "the ceiling measurement of phase 2"
             row["measurement_launches"] = rec["launches"]
