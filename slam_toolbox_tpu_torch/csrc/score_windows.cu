@@ -6,73 +6,224 @@
 //   finite[b] * raster[cand_y0 + 2i + dy[a,b], cand_x0 + 2j + dx[a,b]]
 // into an int32 sum; cells outside the G x G grid add 0. The TPU version
 // reads a parity-split raster in aligned 2-D windows with 32 row-phase
-// accumulators, all Mosaic alignment workarounds; this kernel gathers
-// straight from the plain row-major raster.
+// accumulators, all Mosaic alignment devices; this kernel gathers
+// straight from the plain row-major int8 raster.
 //
-// Bound on the H100: at the loop matcher's 81 x 81 lattice, operations
-// (21 x 1081 x 6561 gathered adds against a 0.3 MB raster); at the
-// sequential matcher's 26 x 26 lattice the 4.2 MB raster read outweighs
-// the adds. The raster sits in L2 (50 MB), and the adds are int32 and
-// order-free, so the design spreads the work over as many blocks as it
-// can: one thread per candidate cell, one block per (beam chunk, heading,
-// candidate tile), the chunk's (dx, dy) table staged in shared memory, and
-// the per-chunk partial sums combined with int32 atomicAdd, which is
-// exact in any order. 21 headings alone would fill 21 of the 132 SMs.
-// Coordinates are signed 64-bit, so negative and far-out cells (the f64
-// tables map NaN beams to 1 << 28) fail the bounds test instead of
-// wrapping.
+// What bounds it on the H100: not bytes (the raster, 4.2 MB at G 2051,
+// sits in the 50 MB L2) but the instructions issued per gathered byte.
+// The first port spent 15-20 per byte (three shared loads, 64-bit
+// coordinates, four bounds tests and a 64-bit multiply per beam and
+// cell), held one load in flight per thread, and ran a ragged grid.
+//
+// The design:
+// - Per-beam lattice spans. For each (heading, beam) the block computes
+//   once, in 64-bit with floor division, the lattice rows [i_lo, i_hi)
+//   and columns [j_lo, j_hi) whose cells fall inside the grid, and an
+//   int32 base offset (cand_y0 + dy) * G + cand_x0 + dx. A non-finite
+//   beam, or one whose span is empty (the INT_MIN and 1 << 28 entries of
+//   NaN beams included), is dropped; a beam that covers the whole lattice
+//   is full; the rest are partial. Full and partial beams are staged in
+//   shared memory in two lists.
+// - Full beams are summed with no test: acc += raster[base + 2iG + 2j],
+//   the offset precomputed per cell. Partial beams add two unsigned
+//   range compares per cell. Every warp of a block walks the same list,
+//   so the branch is uniform; the raster is read through the read-only
+//   path, and neighbouring beams hit neighbouring raster windows in L1.
+// - Several cells per thread (CPT), so one staged beam feeds CPT
+//   independent loads, and the beam loop is unrolled for more in flight.
+// - A block owns every beam of its TILE cells: its warps split the beams,
+//   sum in shared memory and store each output once, so there is no
+//   atomic and no zero fill. The launcher sizes the block's warps from
+//   the SM count so that both matcher geometries fill the card in one
+//   wave.
+// int32 sums of int8 values are exact in any order, so the result equals
+// the plain version's bit for bit.
+#include <algorithm>
+#include <climits>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int NT = 256;   // candidate cells per block
-constexpr int BCH = 64;   // beams per block
+constexpr int CPT = 4;            // lattice cells per thread
+constexpr int TILE = 32 * CPT;    // lattice cells per block
+constexpr int MAXW = 16;          // warps per block, at most
+constexpr int SB = 1152;          // beams staged in shared memory at a time
 
-__global__ void __launch_bounds__(NT) score_windows_kernel(
-    const int8_t* __restrict__ grid, int G, const int* __restrict__ d,
+// Lattice indices i in [0, n) with 0 <= o + 2i < G, as [*lo, *lo + count);
+// floor division by arithmetic shift, so negative o rounds the right way.
+__device__ __forceinline__ int lattice_span(long long o, int G, int n,
+                                            int* lo) {
+    long long l = -(o >> 1);            // ceil(-o / 2)
+    long long h = ((G - 1 - o) >> 1) + 1;
+    l = l < 0 ? 0 : l;
+    h = h > n ? n : h;
+    *lo = (int)l;
+    return h > l ? (int)(h - l) : 0;
+}
+
+template <bool ATOMIC>
+__global__ void __launch_bounds__(MAXW * 32) score_windows_kernel(
+    const int8_t* __restrict__ grid, int G, const int2* __restrict__ d,
     const int* __restrict__ cand_x0, const int* __restrict__ cand_y0,
-    int B, int ny, int nx, const uint8_t* __restrict__ finite,
+    int B, int chunk, int ny, int nx, const uint8_t* __restrict__ finite,
     int* __restrict__ out) {
-    __shared__ int s_dx[BCH], s_dy[BCH];
-    __shared__ uint8_t s_ok[BCH];
+    __shared__ int s_base[SB];     // full beams from the front, partial
+    __shared__ uint2 s_span[SB];   // from the back: (i_lo | ni << 16, ...)
+    __shared__ int s_sum[TILE];
+    __shared__ int s_n[2];
     const int a = blockIdx.y;
-    const int b0 = blockIdx.x * BCH;
-    const int nb = min(BCH, B - b0);
-    for (int k = threadIdx.x; k < nb; k += NT) {
-        const int* dab = d + 2 * ((size_t)a * B + b0 + k);
-        s_dx[k] = dab[0];
-        s_dy[k] = dab[1];
-        s_ok[k] = finite[b0 + k];
-    }
-    __syncthreads();
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+    const int W = blockDim.x >> 5;
+    const int ncell = ny * nx;
+    const long long cx = cand_x0[0], cy = cand_y0[0];
 
-    const int c = blockIdx.z * NT + threadIdx.x;
-    if (c >= ny * nx) return;
-    const int i = c / nx, j = c - i * nx;
-    const long long by = (long long)cand_y0[0] + 2 * i;
-    const long long bx = (long long)cand_x0[0] + 2 * j;
-    int acc = 0;
-    for (int k = 0; k < nb; ++k) {
-        if (!s_ok[k]) continue;  // uniform across the block
-        const long long y = by + s_dy[k], x = bx + s_dx[k];
-        if (y >= 0 && y < G && x >= 0 && x < G) acc += grid[y * G + x];
+    // this thread's cells; a cell past the lattice reads cell 0's offset
+    // (valid for any beam that reads it) and is never stored
+    int ci[CPT], cj[CPT], off[CPT], acc[CPT];
+#pragma unroll
+    for (int c = 0; c < CPT; ++c) {
+        int cell = blockIdx.x * TILE + c * 32 + lane;
+        cell = cell < ncell ? cell : 0;
+        ci[c] = cell / nx;
+        cj[c] = cell - ci[c] * nx;
+        off[c] = 2 * (ci[c] * G + cj[c]);
+        acc[c] = 0;
     }
-    if (acc) atomicAdd(out + ((size_t)a * ny + i) * nx + j, acc);
+    for (int k = threadIdx.x; k < TILE; k += blockDim.x) s_sum[k] = 0;
+
+    const int b_end = min(B, (int)blockIdx.z * chunk + chunk);
+    for (int b0 = blockIdx.z * chunk; b0 < b_end; b0 += SB) {
+        const int nb = min(SB, b_end - b0);
+        if (threadIdx.x == 0) s_n[0] = s_n[1] = 0;
+        __syncthreads();
+        for (int k0 = 0; k0 < nb; k0 += blockDim.x) {   // uniform trip count
+            const int k = k0 + threadIdx.x;
+            int cls = 0, base = 0, ilo = 0, jlo = 0, ni = 0, nj = 0;
+            if (k < nb && finite[b0 + k]) {
+                const int2 t = d[(size_t)a * B + b0 + k];
+                const long long y0 = cy + t.y, x0 = cx + t.x;
+                ni = lattice_span(y0, G, ny, &ilo);
+                nj = lattice_span(x0, G, nx, &jlo);
+                if (ni && nj) {
+                    cls = ni == ny && nj == nx ? 1 : 2;
+                    base = (int)(y0 * G + x0);
+                }
+            }
+            const unsigned fm = __ballot_sync(~0u, cls == 1);
+            const unsigned pm = __ballot_sync(~0u, cls == 2);
+            int fb = 0, pb = 0;
+            if (lane == 0) {
+                if (fm) fb = atomicAdd(&s_n[0], __popc(fm));
+                if (pm) pb = atomicAdd(&s_n[1], __popc(pm));
+            }
+            fb = __shfl_sync(~0u, fb, 0);
+            pb = __shfl_sync(~0u, pb, 0);
+            const unsigned below = (1u << lane) - 1;
+            if (cls == 1) {
+                s_base[fb + __popc(fm & below)] = base;
+            } else if (cls == 2) {
+                const int s = SB - 1 - (pb + __popc(pm & below));
+                s_base[s] = base;
+                s_span[s] = make_uint2((unsigned)ilo | (unsigned)ni << 16,
+                                       (unsigned)jlo | (unsigned)nj << 16);
+            }
+        }
+        __syncthreads();
+        const int nf = s_n[0], np = s_n[1];
+#pragma unroll 4
+        for (int k = warp; k < nf; k += W) {
+            const int8_t* g = grid + s_base[k];
+#pragma unroll
+            for (int c = 0; c < CPT; ++c) acc[c] += __ldg(g + off[c]);
+        }
+#pragma unroll 2
+        for (int k = warp; k < np; k += W) {
+            const int s = SB - 1 - k;
+            const int8_t* g = grid + s_base[s];
+            const uint2 sp = s_span[s];
+            const int ilo = sp.x & 0xffff, jlo = sp.y & 0xffff;
+            const unsigned ni = sp.x >> 16, nj = sp.y >> 16;
+#pragma unroll
+            for (int c = 0; c < CPT; ++c)
+                if ((unsigned)(ci[c] - ilo) < ni &&
+                    (unsigned)(cj[c] - jlo) < nj)
+                    acc[c] += __ldg(g + off[c]);
+        }
+        __syncthreads();   // the next batch overwrites the lists
+    }
+
+    __syncthreads();   // s_sum's zeros, also when B is 0
+#pragma unroll
+    for (int c = 0; c < CPT; ++c) atomicAdd(&s_sum[c * 32 + lane], acc[c]);
+    __syncthreads();
+    int* o = out + (size_t)a * ncell + blockIdx.x * TILE;
+    for (int k = threadIdx.x; k < TILE; k += blockDim.x) {
+        if (blockIdx.x * TILE + k >= ncell) break;
+        if (!ATOMIC) o[k] = s_sum[k];
+        else if (s_sum[k]) atomicAdd(o + k, s_sum[k]);
+    }
+}
+
+int sm_count() {
+    static int n = 0;
+    if (n == 0) {
+        int dev = 0;
+        cudaGetDevice(&dev);
+        cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
+    }
+    return n;
+}
+
+bool fits(int G, int ny, int nx) {
+    // 16-bit span fields; int32 raster offsets, the lattice's reach included
+    return ny <= 0xffff && nx <= 0xffff &&
+           (long long)(G + 2LL * (ny + nx)) * (G + 2LL * (ny + nx)) < INT_MAX;
 }
 
 }  // namespace
 
+// Variant A: beam chunks over blocks, partial sums combined with int32
+// atomicAdd into an output the launcher zero-fills on the stream.
 extern "C" int score_windows(
     const void* grid, int G, const void* d, const void* cand_x0,
     const void* cand_y0, int na, int B, int ny, int nx, const void* finite,
     void* out, void* stream) {
-    if (na > 0 && B > 0 && ny > 0 && nx > 0) {
-        const dim3 blocks((B + BCH - 1) / BCH, na, (ny * nx + NT - 1) / NT);
-        score_windows_kernel<<<blocks, NT, 0, (cudaStream_t)stream>>>(
-            (const int8_t*)grid, G, (const int*)d, (const int*)cand_x0,
-            (const int*)cand_y0, B, ny, nx, (const uint8_t*)finite,
+    if (na <= 0 || ny <= 0 || nx <= 0) return 0;
+    if (!fits(G, ny, nx)) return (int)cudaErrorInvalidValue;
+    const cudaStream_t st = (cudaStream_t)stream;
+    const int tiles = (ny * nx + TILE - 1) / TILE;
+    cudaMemsetAsync(out, 0, (size_t)na * ny * nx * sizeof(int), st);
+    if (B > 0) {
+        const int base_blocks = na * tiles;
+        int nch = (2 * sm_count() + base_blocks - 1) / base_blocks;
+        nch = std::max(1, std::min(nch, (B + 31) / 32));
+        const int chunk = (B + nch - 1) / nch;
+        nch = (B + chunk - 1) / chunk;
+        score_windows_kernel<true><<<dim3(tiles, na, nch), 256, 0, st>>>(
+            (const int8_t*)grid, G, (const int2*)d, (const int*)cand_x0,
+            (const int*)cand_y0, B, chunk, ny, nx, (const uint8_t*)finite,
             (int*)out);
     }
+    return (int)cudaGetLastError();
+}
+
+// Variant B: a block owns every beam of its cells and stores once.
+extern "C" int score_windows_store(
+    const void* grid, int G, const void* d, const void* cand_x0,
+    const void* cand_y0, int na, int B, int ny, int nx, const void* finite,
+    void* out, void* stream) {
+    if (na <= 0 || ny <= 0 || nx <= 0) return 0;
+    if (!fits(G, ny, nx)) return (int)cudaErrorInvalidValue;
+    const int blocks = na * ((ny * nx + TILE - 1) / TILE);
+    // about 16 resident warps per SM: the bench lattice (21 x 6 blocks)
+    // takes 16 warps a block, the loop lattice (21 x 52) 4
+    const int W = std::max(
+        4, std::min(MAXW, (16 * sm_count() + blocks - 1) / blocks));
+    score_windows_kernel<false><<<dim3(blocks / na, na, 1), W * 32, 0,
+                                  (cudaStream_t)stream>>>(
+        (const int8_t*)grid, G, (const int2*)d, (const int*)cand_x0,
+        (const int*)cand_y0, B, B, ny, nx, (const uint8_t*)finite,
+        (int*)out);
     return (int)cudaGetLastError();
 }

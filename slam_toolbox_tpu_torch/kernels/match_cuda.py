@@ -262,7 +262,7 @@ def score_windows(grid_flat, G: int, d, cand_x0, cand_y0, ny: int, nx: int,
         return score_windows_plain(grid_flat, G, d, cand_x0, cand_y0, ny,
                                    nx, finite)
     lib = _lib("score_windows")
-    out = torch.zeros((na, ny, nx), dtype=torch.int32, device=dev)
+    out = torch.empty((na, ny, nx), dtype=torch.int32, device=dev)
     _raise_if(lib.score_windows(
         grid_flat.data_ptr(), G, d.data_ptr(), cand_x0.data_ptr(),
         cand_y0.data_ptr(), na, B, ny, nx, finite.data_ptr(),
