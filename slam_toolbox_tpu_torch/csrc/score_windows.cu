@@ -31,11 +31,18 @@
 //   path, and neighbouring beams hit neighbouring raster windows in L1.
 // - Several cells per thread (CPT), so one staged beam feeds CPT
 //   independent loads, and the beam loop is unrolled for more in flight.
-// - A block owns every beam of its TILE cells: its warps split the beams,
-//   sum in shared memory and store each output once, so there is no
-//   atomic and no zero fill. The launcher sizes the block's warps from
-//   the SM count so that both matcher geometries fill the card in one
-//   wave.
+// - The beams of a heading are cut into chunks, one block per (cell
+//   tile, heading, chunk); a block's warps split its chunk, sum in shared
+//   memory and add each cell's sum to the output with one int32
+//   atomicAdd. The launcher zero-fills the output with cudaMemsetAsync on
+//   the caller's stream (recorded under CUDA graph capture), so a call
+//   makes no PyTorch launch, and picks the number of chunks from na, ny *
+//   nx and the SM count so that both matcher geometries fill the card:
+//   the bench lattice (26 x 26, 6 tiles) takes 3 chunks of 361 beams, 378
+//   blocks; the loop lattice (81 x 81, 52 tiles) 1 chunk, 1,092 blocks.
+//   A block that owns every beam of its cells and stores once, with no
+//   atomics and no fill, was measured slower at both geometries and
+//   removed.
 // int32 sums of int8 values are exact in any order, so the result equals
 // the plain version's bit for bit.
 #include <algorithm>
@@ -47,7 +54,7 @@ namespace {
 
 constexpr int CPT = 4;            // lattice cells per thread
 constexpr int TILE = 32 * CPT;    // lattice cells per block
-constexpr int MAXW = 16;          // warps per block, at most
+constexpr int NT = 256;           // threads per block
 constexpr int SB = 1152;          // beams staged in shared memory at a time
 
 // Lattice indices i in [0, n) with 0 <= o + 2i < G, as [*lo, *lo + count);
@@ -62,8 +69,7 @@ __device__ __forceinline__ int lattice_span(long long o, int G, int n,
     return h > l ? (int)(h - l) : 0;
 }
 
-template <bool ATOMIC>
-__global__ void __launch_bounds__(MAXW * 32) score_windows_kernel(
+__global__ void __launch_bounds__(NT) score_windows_kernel(
     const int8_t* __restrict__ grid, int G, const int2* __restrict__ d,
     const int* __restrict__ cand_x0, const int* __restrict__ cand_y0,
     int B, int chunk, int ny, int nx, const uint8_t* __restrict__ finite,
@@ -74,7 +80,7 @@ __global__ void __launch_bounds__(MAXW * 32) score_windows_kernel(
     __shared__ int s_n[2];
     const int a = blockIdx.y;
     const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-    const int W = blockDim.x >> 5;
+    constexpr int W = NT / 32;
     const int ncell = ny * nx;
     const long long cx = cand_x0[0], cy = cand_y0[0];
 
@@ -90,14 +96,14 @@ __global__ void __launch_bounds__(MAXW * 32) score_windows_kernel(
         off[c] = 2 * (ci[c] * G + cj[c]);
         acc[c] = 0;
     }
-    for (int k = threadIdx.x; k < TILE; k += blockDim.x) s_sum[k] = 0;
+    for (int k = threadIdx.x; k < TILE; k += NT) s_sum[k] = 0;
 
     const int b_end = min(B, (int)blockIdx.z * chunk + chunk);
     for (int b0 = blockIdx.z * chunk; b0 < b_end; b0 += SB) {
         const int nb = min(SB, b_end - b0);
         if (threadIdx.x == 0) s_n[0] = s_n[1] = 0;
         __syncthreads();
-        for (int k0 = 0; k0 < nb; k0 += blockDim.x) {   // uniform trip count
+        for (int k0 = 0; k0 < nb; k0 += NT) {   // uniform trip count
             const int k = k0 + threadIdx.x;
             int cls = 0, base = 0, ilo = 0, jlo = 0, ni = 0, nj = 0;
             if (k < nb && finite[b0 + k]) {
@@ -158,10 +164,9 @@ __global__ void __launch_bounds__(MAXW * 32) score_windows_kernel(
     for (int c = 0; c < CPT; ++c) atomicAdd(&s_sum[c * 32 + lane], acc[c]);
     __syncthreads();
     int* o = out + (size_t)a * ncell + blockIdx.x * TILE;
-    for (int k = threadIdx.x; k < TILE; k += blockDim.x) {
+    for (int k = threadIdx.x; k < TILE; k += NT) {
         if (blockIdx.x * TILE + k >= ncell) break;
-        if (!ATOMIC) o[k] = s_sum[k];
-        else if (s_sum[k]) atomicAdd(o + k, s_sum[k]);
+        if (s_sum[k]) atomicAdd(o + k, s_sum[k]);
     }
 }
 
@@ -183,8 +188,6 @@ bool fits(int G, int ny, int nx) {
 
 }  // namespace
 
-// Variant A: beam chunks over blocks, partial sums combined with int32
-// atomicAdd into an output the launcher zero-fills on the stream.
 extern "C" int score_windows(
     const void* grid, int G, const void* d, const void* cand_x0,
     const void* cand_y0, int na, int B, int ny, int nx, const void* finite,
@@ -196,34 +199,15 @@ extern "C" int score_windows(
     cudaMemsetAsync(out, 0, (size_t)na * ny * nx * sizeof(int), st);
     if (B > 0) {
         const int base_blocks = na * tiles;
+        // about two blocks of NT threads per SM, chunks of 32 beams at least
         int nch = (2 * sm_count() + base_blocks - 1) / base_blocks;
         nch = std::max(1, std::min(nch, (B + 31) / 32));
         const int chunk = (B + nch - 1) / nch;
         nch = (B + chunk - 1) / chunk;
-        score_windows_kernel<true><<<dim3(tiles, na, nch), 256, 0, st>>>(
+        score_windows_kernel<<<dim3(tiles, na, nch), NT, 0, st>>>(
             (const int8_t*)grid, G, (const int2*)d, (const int*)cand_x0,
             (const int*)cand_y0, B, chunk, ny, nx, (const uint8_t*)finite,
             (int*)out);
     }
-    return (int)cudaGetLastError();
-}
-
-// Variant B: a block owns every beam of its cells and stores once.
-extern "C" int score_windows_store(
-    const void* grid, int G, const void* d, const void* cand_x0,
-    const void* cand_y0, int na, int B, int ny, int nx, const void* finite,
-    void* out, void* stream) {
-    if (na <= 0 || ny <= 0 || nx <= 0) return 0;
-    if (!fits(G, ny, nx)) return (int)cudaErrorInvalidValue;
-    const int blocks = na * ((ny * nx + TILE - 1) / TILE);
-    // about 16 resident warps per SM: the bench lattice (21 x 6 blocks)
-    // takes 16 warps a block, the loop lattice (21 x 52) 4
-    const int W = std::max(
-        4, std::min(MAXW, (16 * sm_count() + blocks - 1) / blocks));
-    score_windows_kernel<false><<<dim3(blocks / na, na, 1), W * 32, 0,
-                                  (cudaStream_t)stream>>>(
-        (const int8_t*)grid, G, (const int2*)d, (const int*)cand_x0,
-        (const int*)cand_y0, B, B, ny, nx, (const uint8_t*)finite,
-        (int*)out);
     return (int)cudaGetLastError();
 }

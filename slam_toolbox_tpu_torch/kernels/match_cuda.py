@@ -248,7 +248,10 @@ def score_windows(grid_flat, G: int, d, cand_x0, cand_y0, ny: int, nx: int,
                   finite):
     """Coarse window sums; see score_windows_plain. cand_x0 / cand_y0 are
     int32 tensors of one element on the grid's device, so the matcher's
-    device-side candidate origin needs no host round trip."""
+    device-side candidate origin needs no host round trip. The kernel's
+    launcher zero-fills the sums on the stream, so the call is one ctypes
+    crossing and no PyTorch launch; it refuses ny or nx above 65535 and
+    grids whose offsets, the lattice's reach included, pass int32."""
     dev = grid_flat.device
     na, B = d.shape[0], d.shape[1]
     _check(grid_flat, "grid_flat", torch.int8, (G * G + 1,), dev)
@@ -261,6 +264,8 @@ def score_windows(grid_flat, G: int, d, cand_x0, cand_y0, ny: int, nx: int,
     if not _on_cuda(dev):
         return score_windows_plain(grid_flat, G, d, cand_x0, cand_y0, ny,
                                    nx, finite)
+    if d.data_ptr() % 8:
+        raise ValueError("d: the kernel reads (dx, dy) pairs 8-byte aligned")
     lib = _lib("score_windows")
     out = torch.empty((na, ny, nx), dtype=torch.int32, device=dev)
     _raise_if(lib.score_windows(
