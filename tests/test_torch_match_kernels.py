@@ -85,6 +85,34 @@ def test_score_windows_plain_loop_lattice(cx0, cy0):
         (cy0 + 2 * np.arange(n)).astype(np.int32), d, finite))
 
 
+@pytest.mark.parametrize("cx0,cy0,ny,nx", [
+    (-30, -40, 7, 11), (-40, 230, 11, 7), (120, -75, 26, 26),
+    (250, 3, 1, 13), (-3, -3, 17, 1),
+])
+def test_score_windows_plain_extreme_tables(cx0, cy0, ny, nx):
+    """The semantics the kernel's per-beam spans must keep: table entries
+    of INT_MIN (torch's NaN to int32) and +-(1 << 28) (the f64 tables'
+    NaN) in either coordinate, on finite and on non-finite beams, add
+    nothing; negative origins and ny != nx lattices. Against the JAX
+    package's XLA gather."""
+    G, na, B = 257, 4, 61
+    _, grid_flat, d, finite = _window_case(11 + ny, G, na, B, 26, cx0)
+    big = np.iinfo(np.int32).min
+    for k, (axis, v) in enumerate(((0, big), (1, big), (0, 1 << 28),
+                                   (1, 1 << 28), (0, -(1 << 28)))):
+        d[:, 5 + 6 * k:8 + 6 * k, axis] = v
+        finite[5 + 6 * k:7 + 6 * k] = True    # finite and
+        finite[7 + 6 * k] = False             # non-finite beams
+    d[1, 40:44] = big
+    finite[40:42] = True
+    got = _plain_sums(grid_flat, G, d, cx0, cy0, ny, nx, finite)
+    assert got.shape == (na, ny, nx)
+    np.testing.assert_array_equal(got, _xla_sums(
+        grid_flat, G, (cx0 + 2 * np.arange(nx)).astype(np.int32),
+        (cy0 + 2 * np.arange(ny)).astype(np.int32), d, finite))
+    assert got.any()
+
+
 def _unparity(planes, G):
     """(4, >=gh, >=gh) parity planes (origin at row r0, col c0 handled by
     the caller) -> (G, G) full grid: cell (y, x) = planes[2(y&1)+(x&1),
@@ -355,9 +383,14 @@ def test_kernels_match_plain_on_card(cuda_device, G, hk):
     finite = torch.from_numpy(rng.random(1081) > 0.05).to(dev)
     for c0 in (G // 2 - n, -30, G - 40):
         c = torch.tensor([c0], dtype=torch.int32, device=dev)
-        assert torch.equal(
-            mc.score_windows(grid, G, d, c, c, n, n, finite),
-            mc.score_windows_plain(grid, G, d, c, c, n, n, finite))
+        for dd, ff in ((d, finite), (d[:, :1].contiguous(), finite[:1])):
+            assert torch.equal(   # B = 1081, then B = 1
+                mc.score_windows(grid, G, dd, c, c, n, n, ff),
+                mc.score_windows_plain(grid, G, dd, c, c, n, n, ff))
+    # INT_MIN and 1 << 28 entries, no finite beam, ny != nx (chip_smoke's
+    # cases, phase 2)
+    from chip_smoke import check_window_cases
+    assert check_window_cases(grid, G, d, finite, n, f"G={G}") == 12
 
 
 @pytest.mark.cuda
