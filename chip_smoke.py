@@ -25,11 +25,15 @@ Phases, in order; any failure exits non-zero and nothing is caught:
                 edges, full rows and columns) at (G, hk) = (2051, 20),
                 (561, 1), (257, 0) and (257, 40), word- and bit-equal
                 required;
-                then the window-score ceiling (score_ceiling), the
-                roofline measurement: its device time (CUDA graph
-                replays) beside score_windows' on the same raster at the
-                bench geometry, and held bit-equal to its plain version
-                and to score_windows on the table that tiles its offsets;
+                and the window-score ceiling (score_ceiling), the
+                roofline measurement at the bench geometry: its device
+                time (CUDA graph replays) beside score_windows' on the
+                table that tiles its offsets, at equal work, with the
+                gathers of each run; held bit-equal to its plain version
+                and to score_windows on that table at four origins, on
+                7 x 11 and 11 x 7 lattices, with 65 slots and on a grid
+                that every offset misses; its byte loads counted in the
+                SASS where cuobjdump is present;
   3. parity   — a 40-scan session at a reduced geometry on the card and on
                 the CPU (plain versions), classic and streaming:
                 trajectories within 4 cm;
@@ -261,24 +265,28 @@ def card_line() -> str:
     ).stdout.strip().splitlines()[0]
 
 
-def cells_read(G: int, d, cand_x0, cand_y0, ny: int, nx: int, finite) -> int:
-    """The distinct in-grid raster cells a window-sum kernel reads: cell
-    (cand_y0 + 2i + dy, cand_x0 + 2j + dx) for the (dx, dy) of every
-    finite beam of d (na, B, 2) and every lattice cell (i, j)."""
+def cells_read(G: int, d, cand_x0, cand_y0, ny: int, nx: int, finite):
+    """(distinct in-grid raster cells, gathers) of a window-sum kernel:
+    cell (cand_y0 + 2i + dy, cand_x0 + 2j + dx) for the (dx, dy) of every
+    finite beam of d (na, B, 2) and every lattice cell (i, j). The first
+    feeds the bound's bytes; the second, the (heading, beam, cell) triples
+    whose cell is in the grid, is the loads and adds the kernel makes."""
     import torch
 
     dev = d.device
     seen = torch.zeros(G * G + 1, dtype=torch.bool, device=dev)
     cy = cand_y0.to(torch.int64) + 2 * torch.arange(ny, device=dev)
     cx = cand_x0.to(torch.int64) + 2 * torch.arange(nx, device=dev)
+    gathers = 0
     for a in range(d.shape[0]):
         gy = d[a, finite, 1].to(torch.int64)[:, None] + cy[None, :]
         gx = d[a, finite, 0].to(torch.int64)[:, None] + cx[None, :]
         ok = (((gy >= 0) & (gy < G))[:, :, None]
               & ((gx >= 0) & (gx < G))[:, None, :])
+        gathers += int(ok.sum())
         seen[torch.where(ok, gy[:, :, None] * G + gx[:, None, :],
                          G * G).reshape(-1)] = True
-    return int(seen[:G * G].sum())
+    return int(seen[:G * G].sum()), gathers
 
 
 def bound(nbytes: float, ops: float):
@@ -436,8 +444,7 @@ def check_kernels(matcher, inp, tag: str):
         err = max(err, int((s - s_p).abs().max()))
     n_cases = check_window_cases(grid, G, d, finite, n, tag)
     cx = torch.tensor([cmid], dtype=torch.int32, device=d.device)
-    n_fin = int(finite.sum())
-    cells = cells_read(G, d, cx, cx, n, n, finite)
+    cells, gathers = cells_read(G, d, cx, cx, n, n, finite)
     out["score_windows"] = dict(
         err=err,
         ms=event_ms(
@@ -451,8 +458,7 @@ def check_kernels(matcher, inp, tag: str):
             lambda: mc.score_windows_plain(grid, G, d, cx, cx, n, n, finite),
             20),
         library_ms=None,
-        bound=bound(cells + 8 + na * B * 8 + B + na * n * n * 4,
-                    na * n_fin * n * n),
+        bound=bound(cells + 8 + na * B * 8 + B + na * n * n * 4, gathers),
         shape=f"G={G} na={na} B={B} {n}x{n}",
     )
     for name, r in out.items():
@@ -644,15 +650,171 @@ def check_patterns(G: int, hk: int, w, dev):
     return len(pats), dense_ms
 
 
+def partial_origin(G: int):
+    """A lattice origin where the 26 x 26 lattice of the bench geometry
+    (G 2051) finds the ceiling's offsets 0 and 2 partly inside the grid,
+    offset 4 outside and the rest wholly inside."""
+    return G - 621, G - 731
+
+
+def offset_classes(G: int, cx0: int, cy0: int, ny: int, nx: int, dev):
+    """How many of the ceiling's 8 offsets are full, partial and empty at
+    lattice origin (cx0, cy0): beam_classes on a one-heading table of the
+    offsets."""
+    import torch
+
+    from slam_toolbox_tpu_torch.kernels import match_cuda as mc
+
+    offs = torch.tensor(mc.CEIL_OFFSETS, dtype=torch.int32, device=dev)
+    every = torch.ones(len(offs), dtype=torch.bool, device=dev)
+    c = [torch.tensor([v], dtype=torch.int32, device=dev) for v in (cx0, cy0)]
+    shares = beam_classes(G, offs[None], c[0], c[1], ny, nx, every)
+    return {k: round(v * len(offs)) for k, v in shares.items()}
+
+
+def miss_grid(dev):
+    """A random G 257 raster: from any lattice origin in [-25, 227]^2,
+    every one of the ceiling's offsets puts a lattice of up to 26 x 26
+    cells wholly outside it, so neither K4 nor K1 on the tiled table
+    reads it."""
+    import numpy as np
+    import torch
+
+    return torch.from_numpy(np.concatenate([
+        np.random.default_rng(257).integers(0, 101, 257 * 257, np.int8),
+        np.zeros(1, np.int8)])).to(dev)
+
+
+def check_ceiling_cases(grid, G: int, na: int, B: int, n: int) -> int:
+    """Hold K4 bit-equal to its plain version and to K1 on the table that
+    tiles its offsets (every beam, summed over headings): with na headings
+    of B beams on the n x n lattice and on 7 x 11 and 11 x 7 lattices, and
+    with 5 headings of 13 beams (65 slots cycle the offsets unevenly), at
+    the main path's lattice origin, straddling both grid edges and at the
+    partial origin; then on a G 257 raster, where every offset falls
+    outside and the sums must be 0. Returns the (case, origin) pairs
+    checked."""
+    import torch
+
+    from slam_toolbox_tpu_torch.kernels import match_cuda as mc
+
+    dev = grid.device
+    cmid = (G - 1) // 2 - (n - 1)
+    origins = ((cmid, cmid), (-25, G - 30), (G - 30, -25), partial_origin(G))
+    small = miss_grid(dev)
+    cases = [(grid, G, na, B, n, n, origins),
+             (grid, G, na, B, 7, 11, origins),
+             (grid, G, na, B, 11, 7, origins),
+             (grid, G, 5, 13, n, n, origins),
+             (small, 257, na, B, n, n, ((100, 100), (-25, 227)))]
+    checked = 0
+    for g, gs, a, b, ny, nx, where in cases:
+        table = mc.ceiling_table(a, b, dev)
+        every = torch.ones(b, dtype=torch.bool, device=dev)
+        for cx0, cy0 in where:
+            cx = torch.tensor([cx0], dtype=torch.int32, device=dev)
+            cy = torch.tensor([cy0], dtype=torch.int32, device=dev)
+            k4 = mc.score_ceiling(g, gs, cx, cy, a, b, ny, nx)
+            plain = mc.score_ceiling_plain(g, gs, cx, cy, a, b, ny, nx)
+            k1 = mc.score_windows(g, gs, table, cx, cy, ny, nx, every).sum(
+                dim=0, dtype=torch.int32)
+            torch.cuda.synchronize()
+            what = f"G {gs}, {a} x {b} slots, {ny} x {nx} at ({cx0}, {cy0})"
+            if not torch.equal(k4, plain):
+                raise AssertionError(f"score_ceiling != plain: {what}")
+            if not torch.equal(k4, k1):
+                raise AssertionError(
+                    f"score_ceiling != score_windows on the tiled table: "
+                    f"{what}")
+            if gs == 257 and k4.any():
+                raise AssertionError(f"score_ceiling not 0: {what}")
+            checked += 1
+    return checked
+
+
+def sass_byte_loads(sass: str, kernel: str):
+    """(byte loads, byte loads inside a loop) of the kernel whose name
+    contains `kernel` in `cuobjdump -sass` output: LDG.E.S8 and LDG.E.U8,
+    constant-cache forms included. A loop is the span from a backward
+    branch's target to the branch; the second count is None when the
+    kernel has no backward branch."""
+    import re
+
+    body, inside = [], False
+    for line in sass.splitlines():
+        if "Function :" in line:
+            inside = kernel in line
+            continue
+        m = re.search(r"/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;", line)
+        if inside and m:
+            body.append((int(m.group(1), 16), m.group(2)))
+    loads = [a for a, ins in body if re.search(r"\bLDG\.E\.[SU]8\b", ins)]
+    loops = []
+    for a, ins in body:
+        m = re.search(r"\bBRA\b.*\b0x([0-9a-f]+)\b", ins)
+        if m and int(m.group(1), 16) <= a:
+            loops.append((int(m.group(1), 16), a))
+    if not loops:
+        return len(loads), None
+    return len(loads), sum(any(lo <= a <= hi for lo, hi in loops)
+                           for a in loads)
+
+
+def check_ceiling_sass():
+    """Count the byte loads in the built score_ceiling kernel with
+    cuobjdump, where it stands beside nvcc: a load for each of the 8
+    offsets x 4 cells must survive the compiler inside the slot loops (a
+    load hoisted out of them would make the ceiling add one value per
+    offset). Returns {"byte_loads", "in_loops"}, or None when cuobjdump is
+    absent."""
+    import os
+
+    from slam_toolbox_tpu_torch.kernels import match_cuda as mc
+
+    tool = os.path.join(os.path.dirname(mc._nvcc()), "cuobjdump")
+    if not os.path.exists(tool):
+        print(f"# ceiling SASS: no cuobjdump beside nvcc ({tool}); the "
+              f"load count could not be checked", flush=True)
+        return None
+    sass = subprocess.run([tool, "-sass", mc._lib_path("score_ceiling")],
+                          capture_output=True, text=True, check=True).stdout
+    total, in_loops = sass_byte_loads(sass, "score_ceiling_kernel")
+    need = 8 * 4
+    print(f"# ceiling SASS: {total} byte loads in score_ceiling_kernel, "
+          f"{in_loops} of them inside a loop (8 offsets x 4 cells need "
+          f"{need})", flush=True)
+    if total < need or (in_loops is not None and in_loops < need):
+        raise AssertionError(
+            f"score_ceiling: {total} byte loads ({in_loops} in a loop), "
+            f"fewer than the body's {need}: the compiler merged or hoisted "
+            f"them")
+    return dict(byte_loads=total, in_loops=in_loops)
+
+
+def in_turns(fa, fb, n: int = 50):
+    """Device times of fa and fb by graph_ms in the order a, b, b, a:
+    ((a1, a2), (b1, b2)), and the launches of fa's kernel the replays
+    made."""
+    a1, la = graph_ms(fa, n)
+    b1, _ = graph_ms(fb, n)
+    b2, _ = graph_ms(fb, n)
+    a2, la2 = graph_ms(fa, n)
+    return (a1, a2), (b1, b2), la + la2
+
+
 def measure_ceiling(matcher, grid, d, n):
-    """The roofline measurement, score_ceiling's entry point: the window
-    score (K1) on the main path's raster and rotated table, every beam
-    counted, timed against its ceiling (K4), the same data path with eight
-    compile-time offsets, at the same shapes. Then K4 is held bit-equal
-    to its plain version and to K1 on the table that tiles the offsets,
-    at the main path's lattice origin and straddling both grid edges.
-    Returns the record; its "launches" are K4's launches in this
-    measurement, graph replays included."""
+    """The roofline measurement, score_ceiling's entry point, on the main
+    path's raster at the bench geometry. At equal work: the ceiling (K4)
+    and the window score (K1) on the table that tiles K4's offsets, every
+    beam counted, at the main path's lattice origin, timed by CUDA graph
+    replays in turns; beside them K1 on the main path's rotated table,
+    every beam counted, and K4 at an origin where some offsets are
+    partial, each with its gathers; and the fixed cost of K4 and of K1 on
+    the tiled table, the same calls on a raster that every offset misses.
+    Then K4 is held bit-equal to its plain
+    version and to K1 on the tiled table (check_ceiling_cases) and its
+    loads are counted in the SASS. Returns the record; its "launches" are
+    K4's launches in this measurement, graph replays included."""
     import torch
 
     from slam_toolbox_tpu_torch.kernels import match_cuda as mc
@@ -661,56 +823,95 @@ def measure_ceiling(matcher, grid, d, n):
     na, B = d.shape[0], d.shape[1]
     dev = grid.device
     every = torch.ones(B, dtype=torch.bool, device=dev)
+    table = mc.ceiling_table(na, B, dev)
     cmid = (G - 1) // 2 - (n - 1)
     c = torch.tensor([cmid], dtype=torch.int32, device=dev)
+    px0, py0 = partial_origin(G)
+    px = torch.tensor([px0], dtype=torch.int32, device=dev)
+    py = torch.tensor([py0], dtype=torch.int32, device=dev)
     mc.reset_launch_counts()
+    k4_runs, k1t_runs, replayed = in_turns(
+        lambda: mc.score_ceiling(grid, G, c, c, na, B, n, n),
+        lambda: mc.score_windows(grid, G, table, c, c, n, n, every))
+    k4p_dev, replayed_p = graph_ms(
+        lambda: mc.score_ceiling(grid, G, px, py, na, B, n, n), 50)
+    # the fixed cost of each call (fill, launch, set-up, K1's staging):
+    # the same calls on a raster that every offset misses, no load issued
+    miss = miss_grid(dev)
+    c100 = torch.tensor([100], dtype=torch.int32, device=dev)
+    k4f_runs, k1f_runs, replayed_f = in_turns(
+        lambda: mc.score_ceiling(miss, 257, c100, c100, na, B, n, n),
+        lambda: mc.score_windows(miss, 257, table, c100, c100, n, n, every))
+    k4_floor, k1_floor = sum(k4f_runs) / 2, sum(k1f_runs) / 2
     k1_dev, _ = graph_ms(
         lambda: mc.score_windows(grid, G, d, c, c, n, n, every), 50)
-    k4_dev, replayed = graph_ms(
-        lambda: mc.score_ceiling(grid, G, c, c, na, B, n, n), 50)
+    k4_dev, k1t_dev = sum(k4_runs) / 2, sum(k1t_runs) / 2
     k1_ms = event_ms(
         lambda: mc.score_windows(grid, G, d, c, c, n, n, every), 50)
     k4_ms = event_ms(
         lambda: mc.score_ceiling(grid, G, c, c, na, B, n, n), 50)
     plain_ms = event_ms(
         lambda: mc.score_ceiling_plain(grid, G, c, c, na, B, n, n), 20)
-    table = mc.ceiling_table(na, B, dev)
     err = 0
-    for cx0, cy0 in ((cmid, cmid), (-25, G - 30), (G - 30, -25)):
-        cx = torch.tensor([cx0], dtype=torch.int32, device=dev)
-        cy = torch.tensor([cy0], dtype=torch.int32, device=dev)
+    for cx, cy in ((c, c), (px, py)):
         k4 = mc.score_ceiling(grid, G, cx, cy, na, B, n, n)
         plain = mc.score_ceiling_plain(grid, G, cx, cy, na, B, n, n)
-        k1 = mc.score_windows(grid, G, table, cx, cy, n, n, every).sum(
-            dim=0, dtype=torch.int32)
-        torch.cuda.synchronize()
-        if not torch.equal(k4, plain):
-            raise AssertionError(f"score_ceiling != plain at ({cx0}, {cy0})")
-        if not torch.equal(k4, k1):
-            raise AssertionError(
-                f"score_ceiling != score_windows on the tiled table at "
-                f"({cx0}, {cy0})")
         err = max(err, int((k4 - plain).abs().max()))
-    offs = torch.tensor(mc.CEIL_OFFSETS, dtype=torch.int32, device=dev)
-    cells = cells_read(G, offs[None], c, c, n, n,
-                       torch.ones(len(offs), dtype=torch.bool, device=dev))
+    n_cases = check_ceiling_cases(grid, G, na, B, n)
+    sass = check_ceiling_sass()
+    cells, gathers = cells_read(G, table, c, c, n, n, every)
+    gathers = dict(
+        tiled=gathers,
+        tiled_partial=cells_read(G, table, px, py, n, n, every)[1],
+        path_table=cells_read(G, d, c, c, n, n, every)[1])
+    classes = {f"{cmid},{cmid}": offset_classes(G, cmid, cmid, n, n, dev),
+               f"{px0},{py0}": offset_classes(G, px0, py0, n, n, dev)}
     rec = dict(
         err=err, ms=k4_ms, plain_ms=plain_ms, library_ms=None,
-        bound=bound(cells + 8 + n * n * 4, na * B * n * n),
-        launches=mc.LAUNCHES["score_ceiling"] + replayed,
+        bound=bound(cells + 8 + n * n * 4, gathers["tiled"]),
+        launches=(mc.LAUNCHES["score_ceiling"] + replayed + replayed_p
+                  + replayed_f),
         shape=f"G={G} na={na} B={B} {n}x{n}",
-        k1_ms=k1_ms, k1_device_ms=k1_dev, device_ms=k4_dev,
-        k1_pct_of_ceiling=100.0 * k4_dev / k1_dev,
+        device_ms=k4_dev, device_ms_runs=k4_runs, device_ms_partial=k4p_dev,
+        k1_ms=k1_ms, k1_device_ms=k1_dev, k1_tiled_device_ms=k1t_dev,
+        k1_tiled_device_ms_runs=k1t_runs,
+        k1_pct_of_ceiling=100.0 * k4_dev / k1t_dev,
+        fixed_device_ms=dict(score_ceiling=k4_floor, score_windows=k1_floor),
+        gathers=gathers, offset_classes=classes, cases_checked=n_cases,
+        sass=sass,
     )
     print_record("seq", "score_ceiling", rec)
-    print(f"# ceiling: device time per launch (CUDA graph replay): "
-          f"score_windows {k1_dev} ms, its ceiling {k4_dev} ms: "
-          f"score_windows at {rec['k1_pct_of_ceiling']}% of its ceiling "
-          f"(the ceiling keeps the first port's data path, so the new "
-          f"score_windows may pass 100%); "
-          f"wrapper times {k1_ms} and {k4_ms} ms; bound "
-          f"{rec['bound'][0]} ms ({rec['bound'][1]}, {cells} raster cells "
-          f"read); {rec['launches']} launches of the ceiling", flush=True)
+
+    def rate(g, ms):   # gathers per ns
+        return g / (ms * 1e6) if ms > 0 else float("nan")
+
+    print(f"# ceiling: device time per launch (CUDA graph replays, in turns "
+          f"K4, K1, K1, K4) at equal work, the lattice origin ({cmid}, "
+          f"{cmid}), offsets {classes[f'{cmid},{cmid}']}, "
+          f"{gathers['tiled']} gathers each: score_ceiling {k4_dev} ms "
+          f"{k4_runs} ({rate(gathers['tiled'], k4_dev)} gathers/ns), "
+          f"score_windows on the tiled table {k1t_dev} ms {k1t_runs} "
+          f"({rate(gathers['tiled'], k1t_dev)} gathers/ns): score_windows "
+          f"at {rec['k1_pct_of_ceiling']}% of its ceiling; score_windows on "
+          f"the path's table, every beam: {k1_dev} ms, "
+          f"{gathers['path_table']} gathers "
+          f"({rate(gathers['path_table'], k1_dev)} gathers/ns); "
+          f"score_ceiling at ({px0}, {py0}), offsets "
+          f"{classes[f'{px0},{py0}']}: {k4p_dev} ms, "
+          f"{gathers['tiled_partial']} gathers "
+          f"({rate(gathers['tiled_partial'], k4p_dev)} gathers/ns); "
+          f"fixed cost (the same calls on a G 257 raster every offset "
+          f"misses): score_ceiling {k4_floor} ms {k4f_runs}, score_windows "
+          f"{k1_floor} ms {k1f_runs}, so at equal work the rest takes "
+          f"{k4_dev - k4_floor} and {k1t_dev - k1_floor} ms "
+          f"({rate(gathers['tiled'], k4_dev - k4_floor)} and "
+          f"{rate(gathers['tiled'], k1t_dev - k1_floor)} gathers/ns); not "
+          f"timed at the loop geometry (G 561: offsets of up to 890 cells "
+          f"leave almost every offset outside the grid); wrapper times "
+          f"{k1_ms} and {k4_ms} ms; bound {rec['bound'][0]} ms "
+          f"({rec['bound'][1]}, {cells} raster cells read); "
+          f"{rec['launches']} launches of the ceiling; {n_cases} "
+          f"(case, origin) pairs bit-equal", flush=True)
     return rec
 
 
@@ -893,9 +1094,16 @@ def main() -> int:
             row["launched_by"] = "the ceiling measurement of phase 2"
             row["measurement_launches"] = rec["launches"]
             row["device_ms"] = rec["device_ms"]
+            row["device_ms_partial"] = rec["device_ms_partial"]
+            row["score_windows_tiled_device_ms"] = rec["k1_tiled_device_ms"]
+            row["score_windows_pct_of_ceiling"] = rec["k1_pct_of_ceiling"]
             row["score_windows_ms"] = rec["k1_ms"]
             row["score_windows_device_ms"] = rec["k1_device_ms"]
-            row["score_windows_pct_of_ceiling"] = rec["k1_pct_of_ceiling"]
+            row["fixed_device_ms"] = rec["fixed_device_ms"]
+            row["gathers"] = rec["gathers"]
+            row["offset_classes"] = rec["offset_classes"]
+            row["cases_checked"] = rec["cases_checked"]
+            row["sass"] = rec["sass"]
         rows.append(row)
     print(json.dumps({"kernels": rows}))
     print(card)

@@ -10,8 +10,8 @@ the third, scripts/exp_roofline.py:
   score_ceiling      <- mk_ceil.kern           (exp_roofline.py :123)
 
 score_ceiling is on no mapping path: it is score_windows' ceiling, the
-same data path with compile-time offsets, timed beside it by
-chip_smoke.py.
+same data path with compile-time offsets in place of the table, timed
+beside it at equal work by chip_smoke.py.
 
 Each source in ../csrc/ is compiled on first use by its own nvcc process
 (all started together) into a shared library with a plain C interface in
@@ -298,8 +298,11 @@ def score_ceiling_plain(grid_flat, G: int, cand_x0, cand_y0, na: int, B: int,
 
 def score_ceiling(grid_flat, G: int, cand_x0, cand_y0, na: int, B: int,
                   ny: int, nx: int):
-    """The window-score ceiling; see score_ceiling_plain. Shapes and
-    launch layout are score_windows' for na headings of B beams."""
+    """The window-score ceiling; see score_ceiling_plain. The kernel is
+    score_windows' data path for the na * B slots with the table taken
+    out; its launcher zero-fills the sums on the stream, so the call makes
+    no PyTorch launch. It refuses the grids score_windows refuses and
+    more than about 2**31 slots."""
     dev = grid_flat.device
     _check(grid_flat, "grid_flat", torch.int8, (G * G + 1,), dev)
     _check(cand_x0, "cand_x0", torch.int32, (1,), dev)
@@ -308,7 +311,7 @@ def score_ceiling(grid_flat, G: int, cand_x0, cand_y0, na: int, B: int,
         return score_ceiling_plain(grid_flat, G, cand_x0, cand_y0, na, B,
                                    ny, nx)
     lib = _lib("score_ceiling")
-    out = torch.zeros((ny, nx), dtype=torch.int32, device=dev)
+    out = torch.empty((ny, nx), dtype=torch.int32, device=dev)
     _raise_if(lib.score_ceiling(
         grid_flat.data_ptr(), G, cand_x0.data_ptr(), cand_y0.data_ptr(),
         na, B, ny, nx, out.data_ptr(), _stream(),

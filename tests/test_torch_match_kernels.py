@@ -254,15 +254,15 @@ def test_wrappers_on_cpu_run_plain_and_count_nothing():
 
 
 # -- K4, the window-score ceiling ---------------------------------------------
-def _ceiling_numpy(grid2d, cx0, cy0, na, B, n):
+def _ceiling_numpy(grid2d, cx0, cy0, na, B, ny, nx):
     """The ceiling from its definition: beam slot s = a * B + b reads the
     raster at lattice cell + CEIL_OFFSETS[s mod 8]; cells outside add 0."""
     G = grid2d.shape[0]
     uses = np.bincount(np.arange(na * B) % 8, minlength=8)
-    out = np.zeros((n, n), np.int64)
+    out = np.zeros((ny, nx), np.int64)
     for u, (dx, dy) in enumerate(mc.CEIL_OFFSETS):
-        y = cy0 + 2 * np.arange(n)[:, None] + dy
-        x = cx0 + 2 * np.arange(n)[None, :] + dx
+        y = cy0 + 2 * np.arange(ny)[:, None] + dy
+        x = cx0 + 2 * np.arange(nx)[None, :] + dx
         ok = (y >= 0) & (y < G) & (x >= 0) & (x < G)
         out += uses[u] * np.where(
             ok, grid2d[np.clip(y, 0, G - 1), np.clip(x, 0, G - 1)], 0)
@@ -287,7 +287,7 @@ def test_score_ceiling_plain_matches_definition_and_xla(cx0, cy0):
     got = mc.score_ceiling(t, G, cx, cy, na, B, n, n).numpy()
     assert got.dtype == np.int32 and got.shape == (n, n)
     np.testing.assert_array_equal(
-        got, _ceiling_numpy(grid2d, cx0, cy0, na, B, n))
+        got, _ceiling_numpy(grid2d, cx0, cy0, na, B, n, n))
     table = mc.ceiling_table(na, B, torch.device("cpu"))
     np.testing.assert_array_equal(table[1, 0].numpy(), mc.CEIL_OFFSETS[37 % 8])
     every = np.ones(B, bool)
@@ -299,6 +299,82 @@ def test_score_ceiling_plain_matches_definition_and_xla(cx0, cy0):
         got, mc.score_windows_plain(t, G, table, cx, cy, n, n,
                                     torch.from_numpy(every)).sum(0).numpy())
     assert got.any()
+
+
+def _offset_classes(G, cx0, cy0, ny, nx):
+    """Per offset: 'full', 'partial' or 'empty' for the ny x nx lattice at
+    (cx0, cy0), from the definition."""
+    out = []
+    for dx, dy in mc.CEIL_OFFSETS:
+        ry = np.count_nonzero((0 <= cy0 + dy + 2 * np.arange(ny))
+                              & (cy0 + dy + 2 * np.arange(ny) < G))
+        rx = np.count_nonzero((0 <= cx0 + dx + 2 * np.arange(nx))
+                              & (cx0 + dx + 2 * np.arange(nx) < G))
+        out.append("empty" if not ry or not rx else
+                   "full" if (ry, rx) == (ny, nx) else "partial")
+    return out
+
+
+# (G, na, B, ny, nx, cx0, cy0): the cases the kernel's slot groups, cell
+# tiles and per-offset spans must survive; chip_smoke.check_ceiling_cases
+# holds the kernel on the same kinds of case
+CEILING_CASES = {
+    "7x11": (2051, 3, 37, 7, 11, 975, 975),
+    "11x7": (2051, 3, 37, 11, 7, 975, 975),
+    "65_slots": (2051, 5, 13, 26, 26, 975, 975),
+    "partial_offsets": (2051, 3, 37, 26, 26, 1430, 1320),
+    "every_offset_outside": (257, 3, 37, 26, 26, 100, 100),
+}
+
+
+@pytest.mark.parametrize("case", sorted(CEILING_CASES))
+def test_score_ceiling_plain_cases_match_definition(case):
+    """score_ceiling on CPU tensors (its plain version) against the numpy
+    definition on lattices with ny != nx, 65 slots that cycle the offsets
+    unevenly, an origin where offsets straddle the grid's edge, and a grid
+    that every offset misses (all zeros)."""
+    G, na, B, ny, nx, cx0, cy0 = CEILING_CASES[case]
+    rng = np.random.default_rng(sum(map(abs, CEILING_CASES[case])))
+    grid2d = rng.integers(0, 101, (G, G)).astype(np.int8)
+    grid_flat = np.concatenate([grid2d.reshape(-1), np.zeros(1, np.int8)])
+    got = mc.score_ceiling(torch.from_numpy(grid_flat), G,
+                           torch.tensor([cx0], dtype=torch.int32),
+                           torch.tensor([cy0], dtype=torch.int32),
+                           na, B, ny, nx).numpy()
+    assert got.dtype == np.int32 and got.shape == (ny, nx)
+    np.testing.assert_array_equal(
+        got, _ceiling_numpy(grid2d, cx0, cy0, na, B, ny, nx))
+    classes = _offset_classes(G, cx0, cy0, ny, nx)
+    if case == "partial_offsets":
+        assert classes.count("partial") == 2 and "empty" in classes
+    if case == "every_offset_outside":
+        assert set(classes) == {"empty"} and not got.any()
+    else:
+        assert got.any()
+
+
+def test_sass_byte_loads_counts_loads_in_loops():
+    """chip_smoke's SASS check counts the S8 / U8 global loads of the named
+    kernel only, and those between a backward branch and its target."""
+    from chip_smoke import sass_byte_loads
+
+    sass = "\n".join([
+        "\t\tFunction : _ZN12_GLOBAL__N_120score_ceiling_kernelEPKa",
+        "        /*0000*/                   LDC R1, c[0x0][0x28] ;",
+        "        /*0100*/                   LDG.E.S8.CONSTANT R5, "
+        "desc[UR4][R2.64] ;",
+        "        /*0110*/                   LDG.E.U8 R6, desc[UR4][R8.64] ;",
+        "        /*0120*/              @!P0 BRA 0x100 ;",
+        "        /*0130*/                   LDG.E.S8 R6, desc[UR4][R8.64] ;",
+        "        /*0140*/                   LDG.E R7, desc[UR4][R8.64] ;",
+        "        /*0150*/                   EXIT ;",
+        "\t\tFunction : other_kernel",
+        "        /*0100*/                   LDG.E.S8 R5, desc[UR4][R2.64] ;",
+        "        /*0110*/                   BRA 0x100 ;",
+    ])
+    assert sass_byte_loads(sass, "score_ceiling_kernel") == (3, 2)
+    assert sass_byte_loads(sass.replace("BRA 0x100", "BRA 0x200"),
+                           "score_ceiling_kernel") == (3, None)
 
 
 def test_score_ceiling_offsets_match_source():
@@ -396,20 +472,26 @@ def test_kernels_match_plain_on_card(cuda_device, G, hk):
 @pytest.mark.cuda
 def test_score_ceiling_matches_plain_and_window_kernel_on_card(cuda_device):
     """K4 at the bench geometry against its plain version and against K1
-    on the table that tiles its offsets, every beam counted."""
+    on the table that tiles its offsets, every beam counted, at four
+    origins; on 7 x 11 and 11 x 7 lattices, with 65 slots and on a grid
+    that every offset misses (chip_smoke's cases, phase 2); and on
+    CEILING_CASES against the numpy definition."""
     dev = cuda_device
     G, na, B, n = 2051, 21, 1081, 26
     rng = np.random.default_rng(4)
     grid = torch.from_numpy(np.concatenate([
         rng.integers(0, 101, G * G).astype(np.int8), np.zeros(1, np.int8)
     ])).to(dev)
-    table = mc.ceiling_table(na, B, dev)
-    every = torch.ones(B, dtype=torch.bool, device=dev)
-    for cx0, cy0 in ((G // 2 - n, G // 2 - n), (-25, G - 30), (G - 30, -25)):
-        cx = torch.tensor([cx0], dtype=torch.int32, device=dev)
-        cy = torch.tensor([cy0], dtype=torch.int32, device=dev)
-        k4 = mc.score_ceiling(grid, G, cx, cy, na, B, n, n)
-        assert torch.equal(k4, mc.score_ceiling_plain(grid, G, cx, cy, na, B,
-                                                      n, n))
-        assert torch.equal(k4, mc.score_windows(
-            grid, G, table, cx, cy, n, n, every).sum(0, dtype=torch.int32))
+    from chip_smoke import check_ceiling_cases
+    assert check_ceiling_cases(grid, G, na, B, n) == 18
+    for G, na, B, ny, nx, cx0, cy0 in CEILING_CASES.values():
+        grid2d = rng.integers(0, 101, (G, G)).astype(np.int8)
+        flat = torch.from_numpy(np.concatenate([
+            grid2d.reshape(-1), np.zeros(1, np.int8)])).to(dev)
+        got = mc.score_ceiling(
+            flat, G, torch.tensor([cx0], dtype=torch.int32, device=dev),
+            torch.tensor([cy0], dtype=torch.int32, device=dev),
+            na, B, ny, nx)
+        np.testing.assert_array_equal(
+            got.cpu().numpy(), _ceiling_numpy(grid2d, cx0, cy0, na, B, ny,
+                                              nx))
