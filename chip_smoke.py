@@ -41,14 +41,31 @@ Phases, in order; any failure exits non-zero and nothing is caught:
                 to 2 laps (about 260 scans, one revisit) through
                 SlamSession(device="cuda"): ATE below half of odometry's,
                 at least one loop closure, every path kernel launched;
-  5. no sync  — one drain's batch loop (256 scans) on the card under
-                torch.cuda.set_sync_debug_mode("error");
+  5. no sync  — on a pipeline that has committed the bench workload's
+                first drain, the second drain's batch loop (256 scans) and
+                its speculative launches (the near-chain matches of its
+                predicted chains, here 16 pairs of its scans with chains
+                of committed scans, and the fused verify of its newest
+                scan's predicted loop candidates, with EARLY_VERIFY off as
+                in localization) under
+                torch.cuda.set_sync_debug_mode("error"); the speculative
+                rows bit-equal to the non-speculative path's, and the
+                commit then uses the speculative rows;
   6. streaming — bench.py's full workload (16 laps, about 2,030 scans)
                 through SlamSession(streaming=True, drain_every=256,
-                device="cuda"), the main path: ATE below half of
-                odometry's, at least one loop closure and one fused verify,
-                every path kernel launched;
-  7. the kernels line (JSON), the card's name and power limit, and the
+                device="cuda") with the defaults (speculation on), the main
+                path: ATE below half of odometry's, at least one loop
+                closure and one fused verify, speculative near-chain rows
+                used, every path kernel launched;
+  7. spec off — the same workload with SPECULATE off: the same trajectory
+                and closures (bit for bit; or, if the card's path proves
+                nondeterministic by a second spec-off run, within 4 cm),
+                both rates printed;
+  8. serial   — 2 laps with PIPELINED off against pipelined, drains of 32,
+                loop attempts every drain: the same trajectory;
+  9. warm     — warm_all() on a fresh streaming session (launches made
+                while warming are not counted), then 2 laps through it;
+ 10. the kernels line (JSON), the card's name and power limit, and the
      last line {"ok": true, "device": {...}}.
 
 It exits non-zero with no result when no CUDA device is present. It imports
@@ -56,6 +73,7 @@ nothing of JAX and nothing of the JAX package.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import subprocess
 import sys
@@ -74,6 +92,10 @@ REPLACES = {
 }
 # device time per launch from CUDA graph replays, where phase 2 takes it
 DEVICE_KEYS = ("device_ms", "library_device_ms")
+# the streaming pipeline's speculation counters a run reports
+SPEC_COUNTS = ("spec_pairs", "spec_chain_hit", "spec_chain_miss",
+               "spec_dispatch_abort", "spec_loop_dispatched", "spec_loop_hit",
+               "spec_loop_partial", "spec_loop_miss")
 # the adversarial occupancy patterns' geometries: both matchers', and a
 # grid one row past a multiple of 32 with a single tap and with hk > 32
 # (where the smear's row pass walks words beyond its three)
@@ -157,10 +179,11 @@ def run_session(sess, data, on_scan=None):
             np.asarray(drains))
 
 
-def run_mapping(sess, data, tag: str):
+def run_mapping(sess, data, tag: str, need_closure: bool = True):
     """The main-path run of one session on the card: launch counts from 0,
     the scans, the flush, the counts read. Prints rate, latency, ATE,
-    closures, launches and per-stage host times; returns a record."""
+    closures, launches, the speculation's counts and per-stage host
+    times; returns a record."""
     import numpy as np
     import torch
 
@@ -199,17 +222,23 @@ def run_mapping(sess, data, tag: str):
     print(f"# {tag}: ATE {ate} m vs odometry {ate_odom} m, {len(closures)} "
           f"loop closures, {verifies} fused verify events, launches "
           f"{launches}, by grid side {by_grid}", flush=True)
+    spec = {k: st.counts[k] for k in SPEC_COUNTS}
+    print(f"# {tag} speculation: {json.dumps(spec)}, near_chain_match "
+          f"{stages.get('near_chain_match', {}).get('ms', 0.0)} ms, "
+          f"spec_dispatch {stages.get('spec_dispatch', {}).get('ms', 0.0)} "
+          f"ms", flush=True)
     print(f"# {tag} stages (calls, host ms): {json.dumps(stages)}",
           flush=True)
     if not ate < 0.5 * ate_odom:
         raise AssertionError(f"{tag}: ATE {ate} not below half of {ate_odom}")
-    if not closures:
+    if need_closure and not closures:
         raise AssertionError(f"{tag}: no loop closure fired")
     missing = [k for k in PATH_KERNELS if launches[k] == 0]
     if missing:
         raise AssertionError(f"{tag}: kernels never launched: {missing}")
     return dict(launches=launches, by_grid=by_grid, verifies=verifies,
-                ate=ate, scans=len(est), wall=wall)
+                ate=ate, scans=len(est), wall=wall, rate=len(est) / wall,
+                traj=traj, closures=len(closures), spec=spec)
 
 
 def event_ms(fn, n: int, warm: int = 3) -> float:
@@ -915,36 +944,151 @@ def measure_ceiling(matcher, grid, d, n):
     return rec
 
 
-def check_no_sync(cfg, laser, scans, dev):
-    """One drain's batch loop on a fresh pipeline, with its packs and
-    odometry already on the card, under sync_debug_mode("error"): any host
-    synchronization between the batch's first and last scan raises."""
+def spec_pairs_for(batch, committed, n_pairs: int = 16, half: int = 5):
+    """(query, ring row offset, chain) triples: the first n_pairs scans of
+    `batch`, each with the run of committed scans around the one nearest
+    it by odometry (up to 2 * half + 1 scans), as near chains look."""
+    import numpy as np
+
+    xy = np.array([s.odom_pose[:2] for s in committed])
+    out = []
+    for i, q in enumerate(batch[:n_pairs]):
+        j = int(np.argmin(np.hypot(*(xy - q.odom_pose[:2]).T)))
+        out.append((q, i, committed[max(0, j - half):j + half + 1]))
+    return out
+
+
+def check_no_sync(cfg, laser, data, dev):
+    """Phase 5. A streaming session commits the bench workload's first
+    drain; its second drain's batch (256 scans) is then launched with its
+    speculative launches under sync_debug_mode("error"), so any host
+    synchronization between the batch's first scan and the last
+    speculative launch raises: the pipeline's own _dispatch_spec (with
+    EARLY_VERIFY off, so the newest scan's predicted loop candidates are
+    verified too) and a near-chain speculation of 16 pairs of batch scans
+    with committed chains. Then the speculative near-chain rows are held
+    bit-equal to the non-speculative dispatch at the ring's centers, the
+    batch is committed, and the speculative route's kernel launches and
+    the commit's speculation counts are returned."""
     import numpy as np
     import torch
 
-    from slam_toolbox_tpu_torch.device import upload
-    from slam_toolbox_tpu_torch.mapper import Mapper
-    from slam_toolbox_tpu_torch.mapper.streaming import (
-        StreamingPipeline, scan_pack,
-    )
+    from slam_toolbox_tpu_torch.api import SlamSession
+    from slam_toolbox_tpu_torch.kernels import loop_verify as lv
+    from slam_toolbox_tpu_torch.kernels import match_cuda as mc
+    from slam_toolbox_tpu_torch.mapper import streaming as ts
 
-    pipe = StreamingPipeline(Mapper(cfg, device=dev), laser,
-                             drain_every=len(scans))
-    pipe.refresh_state()
-    packs = upload(np.stack([scan_pack(s) for s in scans]), dev)
-    odoms = upload(np.stack([s.odom_pose for s in scans]).astype(np.float32),
-                   dev)
+    sess = SlamSession(cfg, laser, device=dev, streaming=True,
+                       drain_every=256)
+    sess.stats.enabled = True
+    pipe = sess._ensure_pipe()
+    it = iter(enumerate(data))
+    for i, (scan, _) in it:   # up to the first drain
+        sess.process_scan(scan.ranges, scan.odom_pose, time=i * 0.1)
+        if sess.stats.counts["batch_dispatch"]:
+            break
+    # commit it as the next drain would: settle() would also make its
+    # terminal loop attempt and restart the cadence
+    pipe._commit()
+    if pipe._needs_resync:
+        pipe.refresh_state()
+        pipe._needs_resync = False
+    committed = sess.mapper.all_processed_scans()
+    pipe.drain_every = 1 << 30   # accumulate the second batch only
+    for i, (scan, _) in it:
+        sess.process_scan(scan.ranges, scan.odom_pose, time=i * 0.1)
+        if len(pipe.pending) == 256:
+            break
+    scans, pipe.pending = pipe.pending, []
+    n = len(scans)
+    pairs = spec_pairs_for(scans, committed)
+    early = ts.EARLY_VERIFY
+    ts.EARLY_VERIFY = False
     torch.cuda.synchronize()
+    mc.reset_launch_counts()
     torch.cuda.set_sync_debug_mode("error")
     try:
-        pipe._run_batch(pipe.state, packs, odoms)
+        packs, odoms = pipe._dispatch_batch(scans)
+        batch_launches = dict(mc.LAUNCHES)
+        pd = ts._PendingDrain(scans, packs, odoms,
+                              start=pipe.state["n_results"] - n,
+                              results=pipe.state["results"])
+        pipe._dispatch_spec(pd)
+        echo, _ = lv.dispatch_chain_matches_spec(
+            pipe.matcher, [(q, (pd.start + k) % pipe.result_cap, c)
+                           for q, k, c in pairs],
+            pipe.pack_pool, pd.results)
+        pd.prefetch()
     finally:
         torch.cuda.set_sync_debug_mode("default")
-    rows = pipe.state["results"][:len(scans)].cpu()
-    if not bool(torch.isfinite(rows).all()):
+        ts.EARLY_VERIFY = early
+    spec_launches = {k: v - batch_launches[k] for k, v in mc.LAUNCHES.items()}
+    rows = pd.results.cpu().numpy()
+    if not np.all(np.isfinite(rows[:n])):
         raise AssertionError("no-sync batch gave non-finite results")
-    print(f"# no sync: a {len(scans)}-scan drain batch ran with no host "
-          f"synchronization", flush=True)
+    cap = pipe.result_cap
+    if not torch.equal(echo[:cap], pd.results):
+        raise AssertionError("the echo's ring differs from the result ring")
+    # the non-speculative path with each query at its ring row's pose
+    saved = [q.corrected_pose.copy() for q, _, _ in pairs]
+    for q, k, _ in pairs:
+        q.set_sensor_pose(rows[(pd.start + k) % cap, 1:4].astype(np.float64))
+        if not np.array_equal(np.asarray(q.sensor_pose, np.float32),
+                              rows[(pd.start + k) % cap, 1:4]):
+            raise AssertionError("a ring pose does not round-trip")
+    ref = lv.dispatch_chain_matches(pipe.matcher,
+                                    [(q, c) for q, _, c in pairs],
+                                    pipe.pack_pool)
+    for (q, _, _), pose in zip(pairs, saved):
+        q.set_corrected_pose(pose)
+    if not torch.equal(echo[cap:], ref):
+        raise AssertionError(
+            "speculative near-chain rows differ from the dispatch's: max "
+            f"{float((echo[cap:] - ref).abs().max())}")
+    n_loop = len(pd.spec_loop[0]) if pd.spec_loop is not None else 0
+    pipe._pending_drain = pd
+    pipe._last_gate_scan = scans[-1]
+    pipe.drain_every = 256
+    sess.flush()
+    counts = {k: sess.stats.counts[k] for k in SPEC_COUNTS}
+    print(f"# no sync: a {n}-scan drain batch, its speculative launches "
+          f"(the loop verify of {n_loop} predicted candidates) and "
+          f"{len(pairs)} speculative near-chain matches ran "
+          f"with no host synchronization; launches of the batch "
+          f"{batch_launches}, of the speculation {spec_launches}; the "
+          f"speculative near-chain rows bit-equal to the dispatch's; the "
+          f"commit's speculation counts {json.dumps(counts)}", flush=True)
+    if not n_loop:
+        raise AssertionError("no-sync: the loop verify was not speculated")
+    return dict(spec_launches=spec_launches, counts=counts)
+
+
+def same_run(tag, a, b, rerun):
+    """Hold run b to run a: the same closures and trajectory bit for bit.
+    Where they differ, `rerun()` repeats a's configuration: if that pair
+    differs too the card's path is not deterministic, and b is held to
+    PARITY.md's 4 cm envelope instead; if not, the difference is b's own
+    and fails. Returns the largest position difference."""
+    import numpy as np
+
+    if a["closures"] != b["closures"]:
+        raise AssertionError(f"{tag}: {b['closures']} closures against "
+                             f"{a['closures']}")
+    gap = float(np.max(np.hypot(*(a["traj"][:, :2] - b["traj"][:, :2]).T)))
+    if np.array_equal(a["traj"], b["traj"]):
+        print(f"# {tag}: the same trajectory bit for bit", flush=True)
+        return gap
+    again = rerun()
+    det_gap = float(np.max(np.hypot(
+        *(a["traj"][:, :2] - again["traj"][:, :2]).T)))
+    print(f"# {tag}: trajectories differ by up to {gap} m; a repeat of the "
+          f"reference differs from it by up to {det_gap} m", flush=True)
+    if det_gap == 0.0:
+        raise AssertionError(f"{tag}: the card is deterministic here, yet "
+                             f"the trajectories differ by {gap} m")
+    if gap > 0.04:
+        raise AssertionError(f"{tag}: {gap} m outside the 4 cm envelope")
+    return gap
 
 
 def main() -> int:
@@ -1031,25 +1175,71 @@ def main() -> int:
     # 4. the classic path at the bench geometry, cut to 2 laps
     run_mapping(SlamSession(cfg, laser, device=dev), data, "classic")
 
-    # 5. no host synchronization inside a drain's batch loop
+    # 5. no host synchronization in a drain's batch loop and its
+    # speculative launches
     cfg16, laser16, data16 = bench_workload(n_laps=16)
-    scans = []
-    for s, _ in data16[:400]:
-        s = LocalizedScan(laser16, s.ranges, s.odom_pose)
-        if not scans or np.hypot(*(s.odom_pose[:2] - scans[-1].odom_pose[:2])
-                                 ) >= cfg16.minimum_travel_distance:
-            scans.append(s)
-    check_no_sync(cfg16, laser16, scans[:256], dev)
+    no_sync = check_no_sync(cfg16, laser16, data16, dev)
 
-    # 6. the main path: the streaming pipeline on bench.py's full workload
-    main_run = run_mapping(
-        SlamSession(cfg16, laser16, device=dev, streaming=True,
-                    drain_every=256),
-        data16, "streaming")
+    # 6. the main path: the streaming pipeline on bench.py's full workload,
+    # the defaults (speculation on)
+    from slam_toolbox_tpu_torch.mapper import streaming as ts
+
+    def streaming_run(tag, data_=data16, cfg_=cfg16, drain_every=256,
+                      need_closure=True, **switches):
+        old = {k: getattr(ts, k) for k in switches}
+        for k, v in switches.items():
+            setattr(ts, k, v)
+        try:
+            return run_mapping(
+                SlamSession(cfg_, laser16, device=dev, streaming=True,
+                            drain_every=drain_every),
+                data_, tag, need_closure=need_closure)
+        finally:
+            for k, v in old.items():
+                setattr(ts, k, v)
+
+    main_run = streaming_run("streaming")
     if main_run["verifies"] < 1:
         raise AssertionError("streaming: no fused loop verify ran")
+    if main_run["spec"]["spec_chain_hit"] < 1:
+        raise AssertionError("streaming: no speculative near-chain row used")
 
-    # 7. kernels line, card line, result line
+    # 7. the same workload with the speculation off
+    off_run = streaming_run("streaming spec off", SPECULATE=False)
+    same_run("spec on vs off", off_run, main_run,
+             lambda: streaming_run("streaming spec off again",
+                                   SPECULATE=False))
+    print(f"# spec on vs off: {main_run['rate']} and {off_run['rate']} "
+          f"scans/s, ATE {main_run['ate']} and {off_run['ate']} m, "
+          f"{main_run['closures']} closures", flush=True)
+
+    # 8. the serial A/B drain against the pipelined one, 2 laps, drains of
+    # 32, a loop attempt every drain (the reference's terminal attempt
+    # in settle() would add one per serial drain at a cadence above 0)
+    cfg0 = dataclasses.replace(cfg16, loop_attempt_interval_scans=0)
+    two = data   # bench_workload(n_laps=2): the same configuration
+    piped = streaming_run("pipelined 2 laps", two, cfg0, 32)
+    serial = streaming_run("serial 2 laps", two, cfg0, 32, PIPELINED=False)
+    same_run("serial vs pipelined", piped, serial,
+             lambda: streaming_run("pipelined 2 laps again", two, cfg0, 32))
+    print(f"# serial vs pipelined: {serial['rate']} and {piped['rate']} "
+          f"scans/s", flush=True)
+
+    # 9. warm_all, then 2 laps through the warmed session
+    sess = SlamSession(cfg16, laser16, device=dev, streaming=True,
+                       drain_every=256)
+    mc.reset_launch_counts()
+    t0 = time.perf_counter()
+    sess.warm_all()
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    if any(mc.LAUNCHES.values()):
+        raise AssertionError(f"warming was counted: {mc.LAUNCHES}")
+    warm_run = run_mapping(sess, two, "warmed 2 laps", need_closure=False)
+    print(f"# warm_all: {warm_s} s, no launch counted; then "
+          f"{warm_run['rate']} scans/s", flush=True)
+
+    # 10. kernels line, card line, result line
     rows = []
     for name in mc.KERNELS:
         if name == "score_ceiling":
@@ -1068,6 +1258,10 @@ def main() -> int:
             "library_ms": rec["library_ms"],
             "shape": rec["shape"],
         }
+        if name in PATH_KERNELS:
+            row["main_path_spec"] = main_run["spec"]
+            row["spec_off_launches"] = off_run["launches"][name]
+            row["no_sync_spec_route_launches"] = no_sync["spec_launches"][name]
         if loop:
             row["loop"] = {
                 "shape": loop["shape"], "ms": loop["ms"],

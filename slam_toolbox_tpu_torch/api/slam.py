@@ -4,8 +4,9 @@ PyTorch counterpart of slam_toolbox_tpu/api/slam.py, classic synchronous
 mapping subset: scan ingestion gates (shouldProcessScan,
 slam_toolbox_common.cpp:740-786), mode dispatch for mapping (addScan,
 :798-859), map->odom maintenance (setTransformFromPoses, :657-712), pose
-reporting with covariance scaling (publishPose, :862-884), pause domains
-and the managed-node lifecycle. With streaming=False process_scan is
+reporting with covariance scaling (publishPose, :862-884), pause domains,
+the managed-node lifecycle with its bond heartbeat, a watchdog over the
+device fetches, and warming. With streaming=False process_scan is
 synchronous: every scan is matched, linked and loop-closed before it
 returns. With streaming=True scans go through the device-resident
 pipeline (mapper/streaming.py): process_scan returns the propagated
@@ -17,7 +18,10 @@ occupancy maps, and serialize/deserialize.
 """
 from __future__ import annotations
 
+import contextlib
 import enum
+import logging
+import threading
 from typing import Optional, Tuple
 
 import numpy as np
@@ -53,8 +57,6 @@ class PausedState:
     """Thread-safe pause map (PausedState, toolbox_types.hpp:92-117)."""
 
     def __init__(self):
-        import threading
-
         self._lock = threading.Lock()
         self._state = {app: False for app in PausedApplication}
 
@@ -94,6 +96,8 @@ class SlamSession:
         self.streaming = bool(streaming)
         self.drain_every = drain_every
         self._pipe = None
+        self._pipe_lock = threading.Lock()
+        self._warm_thread = None
         self.mode = mode
         self.throttle_scans = max(int(throttle_scans), 1)
         self.minimum_time_interval = float(minimum_time_interval)
@@ -110,15 +114,19 @@ class SlamSession:
         self.last_pose = np.zeros(3)
         self.last_covariance = np.eye(3)
 
-        # managed-node lifecycle (utils/lifecycle.py;
-        # slam_toolbox_common.cpp:99-237). process_scan does not consult
-        # it; it exists for callers that want the managed deployment model.
+        # managed-node lifecycle + bond heartbeat (utils/lifecycle.py;
+        # slam_toolbox_common.cpp:72-96, :99-237). process_scan does not
+        # consult them; they exist for callers that want the managed and
+        # monitored deployment model.
         from slam_toolbox_tpu_torch.utils.lifecycle import Lifecycle
 
+        self._bond = None
+        self._watchdog = None
         self.lifecycle = Lifecycle(hooks={
             "activate": self._on_activate,
             "deactivate": self._on_deactivate,
             "cleanup": self.reset,
+            "shutdown": self._on_shutdown,
         })
 
     # -- gates (shouldProcessScan, slam_toolbox_common.cpp:740-786) ---------
@@ -195,15 +203,19 @@ class SlamSession:
         )
 
     def _ensure_pipe(self):
-        if self._pipe is None:
-            from slam_toolbox_tpu_torch.mapper.streaming import (
-                StreamingPipeline,
-            )
+        """The streaming pipeline, built once (warm_async's thread may ask
+        for it at the same time as process_scan)."""
+        with self._pipe_lock:
+            if self._pipe is None:
+                from slam_toolbox_tpu_torch.mapper.streaming import (
+                    StreamingPipeline,
+                )
 
-            self._pipe = StreamingPipeline(
-                self.mapper, self.laser, drain_every=self.drain_every
-            )
-        return self._pipe
+                self._pipe = StreamingPipeline(
+                    self.mapper, self.laser, drain_every=self.drain_every
+                )
+                self._pipe.watchdog = self._watchdog
+            return self._pipe
 
     def _streaming_online_pose(self, scan) -> np.ndarray:
         """Online pose between drains: the last drained correction
@@ -267,16 +279,31 @@ class SlamSession:
         self.paused_state.set(PausedApplication.NEW_MEASUREMENTS, not cur)
         return not cur
 
-    # -- lifecycle (utils/lifecycle.py) -------------------------------------
+    # -- lifecycle / failure detection (utils/lifecycle.py) -----------------
     def _on_activate(self) -> None:
-        """on_activate (slam_toolbox_common.cpp:143-172)."""
+        """on_activate (slam_toolbox_common.cpp:143-172): resume
+        processing and start the bond heartbeat if one was requested."""
         self.paused_state.set(PausedApplication.NEW_MEASUREMENTS, False)
         self.paused_state.set(PausedApplication.PROCESSING, False)
+        if self._bond is not None:
+            self._bond.start()
 
     def _on_deactivate(self) -> None:
-        """on_deactivate (:174-197): pause ingestion."""
+        """on_deactivate (:174-197): pause ingestion and stop heartbeating
+        (the manager sees the bond break and may restart us)."""
         self.paused_state.set(PausedApplication.NEW_MEASUREMENTS, True)
         self.paused_state.set(PausedApplication.PROCESSING, True)
+        if self._bond is not None:
+            self._bond.break_bond()
+
+    def _on_shutdown(self) -> None:
+        self.destroy_bond()
+        # settle BEFORE stopping the watchdog: the terminal fetches are
+        # what the watchdog exists to flag
+        if self._pipe is not None:
+            self._pipe.settle()
+        if self._watchdog is not None:
+            self._watchdog.stop()
 
     def configure(self):
         return self.lifecycle.configure()
@@ -292,6 +319,128 @@ class SlamSession:
 
     def shutdown(self):
         return self.lifecycle.shutdown()
+
+    def create_bond(self, path: Optional[str] = None,
+                    period: float = 0.10):
+        """createBond (slam_toolbox_common.cpp:72-86): start a heartbeat
+        an external manager can watch (in-process via the returned Bond,
+        across processes via `path`). Idempotent."""
+        from slam_toolbox_tpu_torch.utils.lifecycle import Bond
+
+        if self._bond is None:
+            self._bond = Bond("slam_session", period=period, path=path)
+        elif (path, period) != (self._bond.path, self._bond.period):
+            # a supervisor watching the NEW path would see silence forever
+            raise ValueError(
+                "create_bond called again with different parameters "
+                f"(existing path={self._bond.path!r} period="
+                f"{self._bond.period}); destroy_bond() first"
+            )
+        self._bond.start()
+        return self._bond
+
+    def destroy_bond(self) -> None:
+        """destroyBond (:88-96)."""
+        if self._bond is not None:
+            self._bond.break_bond()
+            self._bond = None
+
+    def enable_watchdog(self, stall_s: float = 30.0, on_stall=None):
+        """Flag device sections (the streaming drain's fetch) in flight
+        longer than `stall_s`; it reports and never interrupts."""
+        from slam_toolbox_tpu_torch.utils.lifecycle import Watchdog
+
+        if self._watchdog is None:
+            self._watchdog = Watchdog(stall_s=stall_s, on_stall=on_stall)
+            self._watchdog.start()
+            if self._pipe is not None:
+                self._pipe.watchdog = self._watchdog
+        elif stall_s != self._watchdog.stall_s:
+            raise ValueError(
+                "enable_watchdog called again with a different stall_s "
+                f"(existing {self._watchdog.stall_s})"
+            )
+        return self._watchdog
+
+    def health(self) -> dict:
+        """One-call liveness summary for supervisors."""
+        h = {
+            "lifecycle": self.lifecycle.state.name,
+            "bond_alive": bool(self._bond is not None and self._bond.alive),
+            "scan_count": self.scan_count,
+        }
+        if self._watchdog is not None:
+            h.update(self._watchdog.health())
+        else:
+            h["status"] = "ok"
+        return h
+
+    def warm_all(self) -> None:
+        """Run every device path the session can take once, on dummy
+        scans, so the first real scans pay no kernel build or allocator
+        growth: the classic matches (sequential, penalized and not; loop
+        coarse), for a streaming session the pipeline's batch (warm()) and
+        the fused loop verify, and the solver at 3 and 257 nodes. The
+        port has no shape buckets, so each runs once. Launches made here
+        are not counted (match_cuda.uncounted)."""
+        from slam_toolbox_tpu_torch.kernels import loop_verify as lv
+        from slam_toolbox_tpu_torch.kernels import match_cuda as mc
+        from slam_toolbox_tpu_torch.solver import PoseGraphSolver
+
+        if self.laser is None:
+            return
+        if not self.mapper.initialized:
+            self.mapper.initialize(self.laser.range_threshold)
+        ranges = np.full(self.laser.n_beams, 2.0)
+        dummy = LocalizedScan(self.laser, ranges, np.zeros(3))
+        base = [LocalizedScan(self.laser, ranges, np.zeros(3))
+                for _ in range(2)]
+        seq = self.mapper.sequential_matcher
+        loop = self.mapper.loop_matcher
+        with mc.uncounted():
+            # what the live pipeline needs soonest first (warm_async)
+            if self.streaming:
+                self._ensure_pipe().warm()
+                lv.dispatch_loop_verify(loop, seq, dummy, [base],
+                                        self.config).numpy()
+            seq.match_scan(dummy, base, penalize=True, refine=True)
+            seq.match_scans_batch(dummy, [base], penalize=False)
+            loop.match_scans_batch(dummy, [base], penalize=False,
+                                   refine=False)
+            for n_nodes in (3, 257):
+                s = PoseGraphSolver(self.config.solver, device=self.device)
+                for i in range(n_nodes):
+                    s.add_node(i, [float(i), 0.0, 0.0])
+                for i in range(n_nodes - 1):
+                    s.add_constraint(i, i + 1, [1, 0, 0], np.eye(3) * 1e-3)
+                s.compute()
+
+    def warm_async(self) -> threading.Thread:
+        """Run warm_all on a daemon thread, on the session's device, so
+        warming overlaps live scan processing; returns the thread (one per
+        session). Warming is best-effort: a failure there leaves the
+        session to build and allocate at first use. The matchers are made
+        here, before the thread starts, so the two threads never both
+        initialize the mapper."""
+        if self._warm_thread is None:
+            if self.laser is not None and not self.mapper.initialized:
+                self.mapper.initialize(self.laser.range_threshold)
+            def work():
+                import torch
+
+                on_card = (torch.cuda.device(self.device)
+                           if self.device.type == "cuda"
+                           else contextlib.nullcontext())
+                try:
+                    with on_card:
+                        self.warm_all()
+                except Exception:
+                    logging.getLogger(__name__).exception("warming failed")
+
+            self._warm_thread = threading.Thread(
+                target=work, name="slam-warm", daemon=True)
+            self._warm_thread.start()
+        return self._warm_thread
 
     def reset(self) -> None:
         self._pipe = None

@@ -996,14 +996,24 @@ class PoseGraph:
         keeps the staged verify."""
         return self.mapper._pack_pool is not None
 
-    def try_close_loop_begin(self, scan, sensor_name):
+    def try_close_loop_begin(self, scan, sensor_name, spec=None):
         """Asynchronous first half of TryCloseLoop for the streaming
         drain: sweep the candidate chains and launch the fused verify
         without waiting on it. Returns a bool when the attempt resolved
         synchronously (no candidates, or the staged blocking path ran),
         else an opaque handle for try_close_loop_finish. The finish runs
         before any later bookkeeping reads or moves poses, so results are
-        those of the blocking call."""
+        those of the blocking call.
+
+        `spec` = (predicted chains, HostCopy of their rows, per chain its
+        members' f32 poses): a speculative verify launched with the drain
+        batch (kernels/loop_verify.dispatch_loop_verify_spec); the caller
+        guarantees the query's f32 pose is the center it read. Each
+        chain's row depends only on its members, their f32 poses and the
+        query, so every swept chain that was predicted with the same
+        members at the same f32 poses reuses its row, and only the others
+        are launched: the rows are those of the non-speculative call."""
+        from slam_toolbox_tpu_torch.kernels import loop_verify as lv
         from slam_toolbox_tpu_torch.utils.metrics import stage_timer
 
         if not self._use_fused_loop():
@@ -1011,9 +1021,59 @@ class PoseGraph:
         chains, start_id = self._sweep_chains(scan, sensor_name, 0)
         if not chains:
             return False
-        with stage_timer(self.mapper.stats, "loop_verify_dispatch"):
+        stats = self.mapper.stats
+        if spec is not None:
+            pred_chains, spec_rows, pose_snap = spec
+            pred_by_ids = {}
+            for ci, chain in enumerate(pred_chains):
+                pred_by_ids.setdefault(
+                    tuple(s.unique_id for s in chain), []).append(ci)
+            assign = []   # per swept chain: its predicted row, or None
+            for chain, poses in zip(chains, lv.chain_poses(chains)):
+                cand = pred_by_ids.get(tuple(s.unique_id for s in chain), [])
+                m = next((ci for ci in cand
+                          if np.array_equal(pose_snap[ci], poses)), None)
+                if m is not None:
+                    cand.remove(m)
+                assign.append(m)
+            missing = [c for c, a in zip(chains, assign) if a is None]
+            if not missing:
+                stats.count("spec_loop_hit")
+                return (scan, sensor_name, chains,
+                        (spec_rows, assign, None), start_id)
+            if len(missing) < len(chains):
+                stats.count("spec_loop_partial")
+                with stage_timer(stats, "loop_verify_dispatch"):
+                    miss_rows = lv.dispatch_loop_verify(
+                        self.mapper.loop_matcher,
+                        self.mapper.sequential_matcher, scan, missing,
+                        self.mapper.config, pool=self.mapper._pack_pool,
+                    )
+                return (scan, sensor_name, chains,
+                        (spec_rows, assign, miss_rows), start_id)
+            stats.count("spec_loop_miss")
+            if stats.enabled:
+                self._diagnose_spec_miss(chains, pred_chains)
+        with stage_timer(stats, "loop_verify_dispatch"):
             dev_rows = self._dispatch_fused(scan, chains)
         return (scan, sensor_name, chains, dev_rows, start_id)
+
+    def _diagnose_spec_miss(self, chains, pred_chains) -> None:
+        """Count, for a speculative verify that missed every chain, whether
+        each swept chain was nearly predicted (a boundary member off: pose
+        prediction), partly, or not at all (the candidate set)."""
+        stats = self.mapper.stats
+        for chain in chains:
+            ids = {s.unique_id for s in chain}
+            best = max((len(ids & {s.unique_id for s in pc})
+                        / max(len(ids | {s.unique_id for s in pc}), 1)
+                        for pc in pred_chains), default=0.0)
+            if best >= 0.7:
+                stats.count("spec_loop_near_miss")
+            elif best > 0.0:
+                stats.count("spec_loop_far_miss")
+            else:
+                stats.count("spec_loop_disjoint")
 
     def _dispatch_fused(self, scan, chains):
         """Launch the fused verify of `chains` without waiting: one block
@@ -1211,10 +1271,21 @@ class PoseGraph:
         gates and the first-passing-chain acceptance, link and optimize.
         A list of (rows, chains slice) blocks (the chunked dispatch) is
         fetched in order and stops at the first acceptance: the reference
-        discards post-acceptance candidates and re-sweeps."""
+        discards post-acceptance candidates and re-sweeps. A tuple
+        (speculative rows, assign, rows of the unassigned chains) is put
+        together in chain order (try_close_loop_begin's reuse)."""
         from slam_toolbox_tpu_torch.utils.metrics import stage_timer
 
         seq = self.mapper.sequential_matcher
+        if isinstance(dev_rows, tuple):
+            spec_rows, assign, miss_rows = dev_rows
+            with stage_timer(self.mapper.stats, "loop_verify_wait"):
+                spec_np = np.asarray(spec_rows.numpy(), np.float64)
+                miss = iter(np.asarray(miss_rows.numpy(), np.float64)
+                            if miss_rows is not None else ())
+            rows = np.stack([spec_np[a] if a is not None else next(miss)
+                             for a in assign])
+            return self._gate_and_close(scan, chains, rows, cfg, seq)
         if isinstance(dev_rows, list):
             for done, (rows_dev, sl) in enumerate(dev_rows):
                 with stage_timer(self.mapper.stats, "loop_verify_wait"):

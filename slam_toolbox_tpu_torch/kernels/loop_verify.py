@@ -1,7 +1,6 @@
 """Fused loop-closure verification and pool-gathered near-chain matches.
 
-PyTorch counterpart of slam_toolbox_tpu/kernels/loop_verify.py (the
-non-speculative half). For every candidate chain of a loop event the
+PyTorch counterpart of slam_toolbox_tpu/kernels/loop_verify.py. For every candidate chain of a loop event the
 coarse match at the loop matcher's geometry, the response/variance gates
 (Mapper.cpp:1523-1525) and the fine verification at the sequential
 matcher's geometry, centered at the coarse pose (the reference's
@@ -29,6 +28,8 @@ from slam_toolbox_tpu_torch.mapper.streaming import _ring_points, scan_pack
 
 # chains per dispatch of the chunked verify
 CHUNK = 8
+# most (query, chain) pairs of one speculative near-chain dispatch
+PAIR_CHUNK = 16
 
 
 def _half_span(matcher) -> float:
@@ -103,40 +104,82 @@ def _chain_match_impl(qpack, packs, poses, center, seq_matcher):
     )
 
 
-def _ensure_pooled(pool, scans) -> None:
+def _pooled(pool, scans) -> bool:
     """Seed pool slots for any of `scans` missing one (priors beyond the
-    eager seeding cap); raises if a scan still has none (its beam count is
+    eager seeding cap); False if a scan still has none (its beam count is
     not the pool's)."""
     missing = [s for s in scans if getattr(s, "_pool_slot", None) is None]
     if missing:
         pool.add_scans(missing)
-    if any(getattr(s, "_pool_slot", None) is None for s in missing):
+    return all(getattr(s, "_pool_slot", None) is not None for s in missing)
+
+
+def _ensure_pooled(pool, scans) -> None:
+    """_pooled, raising where a scan has no slot."""
+    if not _pooled(pool, scans):
         raise ValueError("a scan's beam count differs from the pack pool's")
+
+
+def chain_poses(chains):
+    """Per chain, its members' f32 sensor poses (len, 3): what the device
+    rasterizes them at."""
+    return [np.asarray([sc.sensor_pose for sc in c], np.float32)
+            for c in chains]
+
+
+def _chain_rows(seq_matcher, pool, queries, chains, center_of):
+    """Every (query, chain) pair's near-chain match with packs gathered
+    from the pool; `center_of(p)` is pair p's device center. Returns the
+    (n_pairs, 13) device rows and the chains' f32 member poses."""
+    members = [sc for chain in chains for sc in chain]
+    qpacks = pool.gather([q._pool_slot for q in queries])
+    cpacks = pool.gather([sc._pool_slot for sc in members])
+    snap = chain_poses(chains)
+    poses = upload(np.concatenate(snap), pool.device)
+    rows = []
+    o = 0
+    for p, chain in enumerate(chains):
+        n = len(chain)
+        rows.append(_chain_match_impl(
+            qpacks[p], cpacks[o:o + n], poses[o:o + n], center_of(p),
+            seq_matcher,
+        ))
+        o += n
+    return torch.stack(rows), snap
 
 
 def dispatch_chain_matches(seq_matcher, pairs, pool):
     """pairs: list of (query_scan, chain). Runs every pair's match with
     packs gathered from the pool and returns the (n_pairs, 13) device
     rows in pairs order."""
-    members = [sc for _, chain in pairs for sc in chain]
-    _ensure_pooled(pool, [q for q, _ in pairs] + members)
-    dev = pool.device
-    qpacks = pool.gather([q._pool_slot for q, _ in pairs])
-    cpacks = pool.gather([sc._pool_slot for sc in members])
-    poses = upload(np.stack([sc.sensor_pose for sc in members])
-                   .astype(np.float32), dev)
+    _ensure_pooled(pool, [q for q, _ in pairs]
+                   + [sc for _, chain in pairs for sc in chain])
     centers = upload(np.stack([q.sensor_pose for q, _ in pairs])
-                     .astype(np.float32), dev)
-    rows = []
-    o = 0
-    for p, (_, chain) in enumerate(pairs):
-        n = len(chain)
-        rows.append(_chain_match_impl(
-            qpacks[p], cpacks[o:o + n], poses[o:o + n], centers[p],
-            seq_matcher,
-        ))
-        o += n
-    return torch.stack(rows)
+                     .astype(np.float32), pool.device)
+    rows, _ = _chain_rows(seq_matcher, pool, [q for q, _ in pairs],
+                          [c for _, c in pairs], lambda p: centers[p])
+    return rows
+
+
+def dispatch_chain_matches_spec(seq_matcher, pairs, pool, results):
+    """Speculative near-chain matches of a drain batch in flight. pairs:
+    list of (query_scan, ring_row, chain); `results` is the batch's
+    result ring, and pair p's center is results[ring_row, 1:4], read on
+    the device. Returns (echo, poses): echo is the (R + n_pairs, 13)
+    device tensor of the R ring rows followed by one row per pair, so
+    one host copy brings back both; poses, per pair, the chain members'
+    f32 poses the rows were computed at. None (no raise) when a scan has
+    no pool slot or the batch has more than PAIR_CHUNK pairs: the commit
+    then takes the non-speculative path."""
+    if pool is None or not pairs or len(pairs) > PAIR_CHUNK:
+        return None
+    if not _pooled(pool, [q for q, _, _ in pairs]
+                   + [sc for _, _, chain in pairs for sc in chain]):
+        return None
+    rows, snap = _chain_rows(
+        seq_matcher, pool, [q for q, _, _ in pairs], [c for _, _, c in pairs],
+        lambda p: results[pairs[p][1], 1:4])
+    return torch.cat([results, rows]), snap
 
 
 def _pack_dev(scan, device):
@@ -169,6 +212,38 @@ def dispatch_loop_verify_chunked(loop_matcher, seq_matcher, scan, chains,
     ]
 
 
+def _gates(cfg):
+    return (_f32(cfg.loop_match_minimum_response_coarse),
+            _f32(cfg.loop_match_maximum_variance_coarse))
+
+
+def dispatch_loop_verify_spec(loop_matcher, seq_matcher, scan, ridx, chains,
+                              cfg, pool, results):
+    """Speculative fused verify of the PREDICTED candidate chains of a
+    drain batch's newest scan, launched with the batch: the query's local
+    points and finite mask come from its pool slot (the values
+    _scan_device_cache uploads), the center from the batch's result ring,
+    results[ridx, 1:4], read on the device. Returns (HostCopy of the
+    (n_chains, 27) rows, per chain its members' f32 poses) for the commit
+    to validate, or None (no raise) when a scan has no pool slot."""
+    if pool is None or not chains:
+        return None
+    members = [sc for c in chains for sc in c]
+    if not _pooled(pool, [scan] + members):
+        return None
+    qpack = pool.gather([scan._pool_slot])[0]
+    local = qpack[:, 0:2]
+    finite = (qpack[:, 7].to(torch.int32) & 1) > 0
+    snap = chain_poses(chains)
+    poses = upload(np.concatenate(snap), pool.device)
+    packs = pool.gather([sc._pool_slot for sc in members])
+    rows = _loop_verify_scan_impl(
+        packs, poses, [len(c) for c in chains], local, finite,
+        results[ridx, 1:4], _gates(cfg), loop_matcher, seq_matcher,
+    )
+    return HostCopy(rows), snap
+
+
 def dispatch_loop_verify(loop_matcher, seq_matcher, scan, chains, cfg,
                          pool=None):
     """Launch the fused verify of every candidate chain of this loop event
@@ -178,8 +253,6 @@ def dispatch_loop_verify(loop_matcher, seq_matcher, scan, chains, cfg,
     dev = loop_matcher.device
     center = upload(np.asarray(scan.sensor_pose, np.float32), dev)
     local_dev, finite_dev = _scan_device_cache(scan, dev)
-    gates = (_f32(cfg.loop_match_minimum_response_coarse),
-             _f32(cfg.loop_match_maximum_variance_coarse))
     members = [sc for c in chains for sc in c]
     poses = upload(np.stack([sc.sensor_pose for sc in members])
                    .astype(np.float32), dev)
@@ -190,6 +263,6 @@ def dispatch_loop_verify(loop_matcher, seq_matcher, scan, chains, cfg,
         packs = torch.stack([_pack_dev(sc, dev) for sc in members])
     rows = _loop_verify_scan_impl(
         packs, poses, [len(c) for c in chains], local_dev, finite_dev,
-        center, gates, loop_matcher, seq_matcher,
+        center, _gates(cfg), loop_matcher, seq_matcher,
     )
     return HostCopy(rows)

@@ -26,15 +26,22 @@ GRID_LAUNCHES the same per (kernel, grid side G), which tells the
 sequential matcher's rasters from the loop matcher's. A call made while
 a CUDA graph is being captured records the kernel into the graph and
 launches nothing, so it is not counted; the graph's replays are for its
-owner to count.
+owner to count. Launches a thread makes inside uncounted() (warming) are
+not counted either.
+
+The libraries are built and loaded once per process under a lock, so
+threads that reach a kernel first at the same time (a session warming on
+a second thread) share one build.
 """
 from __future__ import annotations
 
 import collections
+import contextlib
 import ctypes
 import os
 import shutil
 import subprocess
+import threading
 import time
 
 import torch
@@ -61,12 +68,25 @@ NVCC_FLAGS = [
 LAUNCHES = {name: 0 for name in KERNELS}
 GRID_LAUNCHES = collections.Counter()
 _libs = {}
+_build_lock = threading.Lock()
+_uncounted = threading.local()
 
 
 def reset_launch_counts() -> None:
     for name in KERNELS:
         LAUNCHES[name] = 0
     GRID_LAUNCHES.clear()
+
+
+@contextlib.contextmanager
+def uncounted():
+    """Launches this thread makes inside the block are not counted."""
+    prev = getattr(_uncounted, "on", False)
+    _uncounted.on = True
+    try:
+        yield
+    finally:
+        _uncounted.on = prev
 
 
 def _source(name: str) -> str:
@@ -98,7 +118,8 @@ def build_kernels(names=KERNELS, force: bool = False) -> float:
         if (not force and os.path.exists(lib)
                 and os.path.getmtime(lib) >= os.path.getmtime(src)):
             continue
-        tmp = f"{lib}.{os.getpid()}.tmp"
+        # per process and thread: concurrent builds never share a file
+        tmp = f"{lib}.{os.getpid()}.{threading.get_ident()}.tmp"
         procs[name] = (tmp, subprocess.Popen(
             [_nvcc(), *NVCC_FLAGS, "-o", tmp, src],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
@@ -121,18 +142,22 @@ def _lib(name: str):
     lib = _libs.get(name)
     if lib is not None:
         return lib
-    build_kernels((name,))
-    lib = ctypes.CDLL(_lib_path(name))
-    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    fn = getattr(lib, name)
-    fn.restype = i
-    fn.argtypes = {
-        "scatter_occupancy": [p, p, p, f, i, i, p, p],
-        "smear_quantize": [p, p, i, i, p, p],
-        "score_windows": [p, i, p, p, p, i, i, i, i, p, p, p],
-        "score_ceiling": [p, i, p, p, i, i, i, i, p, p],
-    }[name]
-    _libs[name] = lib
+    with _build_lock:
+        lib = _libs.get(name)
+        if lib is not None:
+            return lib
+        build_kernels((name,))
+        lib = ctypes.CDLL(_lib_path(name))
+        p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        fn = getattr(lib, name)
+        fn.restype = i
+        fn.argtypes = {
+            "scatter_occupancy": [p, p, p, f, i, i, p, p],
+            "smear_quantize": [p, p, i, i, p, p],
+            "score_windows": [p, i, p, p, p, i, i, i, i, p, p, p],
+            "score_ceiling": [p, i, p, p, i, i, i, i, p, p],
+        }[name]
+        _libs[name] = lib
     return lib
 
 
@@ -168,7 +193,8 @@ def _raise_if(err: int, name: str) -> None:
 
 
 def _count(name: str, G: int) -> None:
-    if not torch.cuda.is_current_stream_capturing():
+    if not (getattr(_uncounted, "on", False)
+            or torch.cuda.is_current_stream_capturing()):
         LAUNCHES[name] += 1
         GRID_LAUNCHES[name, G] += 1
 

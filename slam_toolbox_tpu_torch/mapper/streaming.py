@@ -13,26 +13,39 @@ state is rebuilt from the host's running buffer whenever bookkeeping
 moved a ring scan by more than RESYNC_EPS, so reference semantics hold
 at drain boundaries.
 
-The reference's environment switches are fixed at their defaults:
-pipelined drains with the adaptive settle-first switch and the
-early-verify ordering, the staleness-gated resync (RESYNC_EPS), eager
-pool seeding up to POOL_SEED_CAP scans. Packs are uploaded once per drain in one pinned,
+Right after a batch, the pipeline speculates (SPECULATE, SPEC_LOOP): it
+predicts each scan's near chains, and the newest scan's loop candidates,
+from odometry, and launches their matches on the device with centers
+read from the batch's result ring, so their rows come back with the
+batch's. The commit keeps a speculative row only where the prediction
+held exactly (the same chains, members and f32 poses, and the query's
+f32 pose the ring row), and launches the rest as it would without
+speculation, so the poses are the same either way.
+
+The reference's switches are module attributes read from its environment
+variables at import: PIPELINED (SLAM_STREAM_PIPELINE; 0 drains serially,
+for A/B), SPECULATE (SLAM_SPEC), SPEC_LOOP (SLAM_SPEC_LOOP), ADAPTIVE
+(SLAM_ADAPTIVE) and EARLY_VERIFY (SLAM_EARLY_VERIFY); the code reads
+them where the reference does. The staleness gate RESYNC_EPS and the
+eager pool seeding up to POOL_SEED_CAP scans are fixed at the
+reference's defaults. Packs are uploaded once per drain in one pinned,
 non-blocking copy (the reference streams 16-scan chunks during
-accumulation). Not ported: the speculative near-chain and loop-verify
-dispatch (their rows are bit-identical to the non-speculative path), the
-serial A/B drain, warm(), the localization post_finish hook and the
-watchdog.
+accumulation). Localization's post_finish hook is called where the
+reference calls it; no caller sets it yet.
 
 Unlike JAX's immutable arrays, the device state is updated in place by
 the batch loop. refresh_state() always allocates a fresh state, so a
 batch that is re-run after a refresh never overwrites rows another
 in-flight batch still has to read, and each dispatched batch snapshots
 its result rows to the host (device.HostCopy) before the next batch can
-write the ring.
+write the ring; the speculative launches read the ring before the next
+batch is launched.
 """
 from __future__ import annotations
 
+import contextlib
 import math
+import os
 import time
 import weakref
 from typing import Dict, List
@@ -53,10 +66,35 @@ POOL_CAP = 2048      # PackPool's initial rows (it doubles when full)
 _F32 = torch.float32
 
 
-class _PendingDrain:
-    """One dispatched-but-uncommitted batch (pipelined drains)."""
+def _switch(name: str) -> bool:
+    return os.environ.get(name, "1") != "0"
 
-    __slots__ = ("scans", "packs", "odoms", "start", "results", "_copy")
+
+# pipelined drains: drain k launches batch k, then runs batch k-1's host
+# bookkeeping while batch k executes; 0 commits each batch inline
+PIPELINED = _switch("SLAM_STREAM_PIPELINE")
+# speculative near-chain matches launched with the batch (rows ride the
+# batch's fetch); 0 matches every near chain at the commit
+SPECULATE = _switch("SLAM_SPEC")
+# settle-first ordering while loop events keep closing loops that move the
+# ring: every batch then runs once, from post-closure state
+ADAPTIVE = _switch("SLAM_ADAPTIVE")
+# speculative loop verify of the newest scan's predicted candidates,
+# launched with the batch; on only where EARLY_VERIFY is off or a
+# post_finish hook is set (localization)
+SPEC_LOOP = _switch("SLAM_SPEC_LOOP")
+# finish the newest scan first and launch its deferred loop verify before
+# the rest of the batch's bookkeeping
+EARLY_VERIFY = _switch("SLAM_EARLY_VERIFY")
+
+
+class _PendingDrain:
+    """One dispatched-but-uncommitted batch, with its speculative
+    launches."""
+
+    __slots__ = ("scans", "packs", "odoms", "start", "results", "_copy",
+                 "spec", "spec_poses", "pred_chains", "spec_offsets",
+                 "spec_loop")
 
     def __init__(self, scans, packs, odoms, start, results):
         self.scans = scans
@@ -65,17 +103,36 @@ class _PendingDrain:
         self.start = start        # first result-ring row of this batch
         self.results = results    # the state's result ring after dispatch
         self._copy = None
+        self.clear_spec()
+
+    def clear_spec(self) -> None:
+        """Drop the speculative launches (they read a ring a re-run
+        replaced)."""
+        self.spec = None          # echo: the ring, then one row per pair
+        self.spec_poses = None    # per pair, the chain's f32 poses
+        self.pred_chains = None   # per scan, the predicted near chains
+        self.spec_offsets = {}    # scan -> (first pair, pairs)
+        # (predicted loop candidates, HostCopy of their verify rows, their
+        # f32 poses): try_close_loop_begin's `spec`
+        self.spec_loop = None
+
+    def _target(self):
+        return self.spec if self.spec is not None else self.results
 
     def prefetch(self) -> None:
-        """Start the result ring's copy to the host without waiting."""
-        self._copy = HostCopy(self.results)
+        """Start the copy of the result ring (with the speculative rows
+        behind it, if any) to the host without waiting."""
+        self._copy = HostCopy(self._target())
 
-    def fetch(self) -> np.ndarray:
-        """The result ring as f64 on the host; a re-run since prefetch()
-        replaced `results`, so that case copies again."""
-        if self._copy is None or self._copy.src is not self.results:
+    def fetch(self):
+        """(result ring, speculative rows or None) as f64 on the host, one
+        copy; a re-run since prefetch() replaced the target, so that case
+        copies again."""
+        if self._copy is None or self._copy.src is not self._target():
             self.prefetch()
-        return np.asarray(self._copy.numpy(), np.float64)
+        comb = np.asarray(self._copy.numpy(), np.float64)
+        cap = self.results.shape[0]
+        return comb[:cap], (comb[cap:] if self.spec is not None else None)
 
 
 def _unpack_scan(pack):
@@ -428,6 +485,14 @@ class StreamingPipeline:
         self._closure_hot = True
         self._scans_since_loop = 0
         self._t_drain_end = None  # accum-window stage timing
+        self.pipelined = PIPELINED
+        # called with each scan after its bookkeeping in a drain
+        # (localization appends to its elastic buffer there); True means
+        # it changed the running buffer, so the device ring must resync
+        self.post_finish = None
+        # utils/lifecycle.Watchdog (SlamSession.enable_watchdog): the
+        # drain's fetch runs inside one of its sections
+        self.watchdog = None
         self.pack_pool = PackPool(self.B, self.device)
         mapper._pack_pool = self.pack_pool  # loop verify gathers from it
         if mapper.sensor_manager is not None:
@@ -461,21 +526,47 @@ class StreamingPipeline:
         if last is not None:
             last_odom = last.odom_pose.astype(np.float32)
             last_corrected = last.corrected_pose.astype(np.float32)
+        self.state = self._device_state(ring_pack, ring_pose, slot_valid,
+                                        len(running), last_odom,
+                                        last_corrected)
+        self._state_epoch += 1
+
+    def _device_state(self, ring_pack, ring_pose, slot_valid, count,
+                      last_odom, last_corrected) -> Dict:
+        """A device state from host arrays, with an empty result ring."""
         dev = self.device
-        self.state = {
+        return {
             "ring_pack": upload(ring_pack, dev),
             "ring_pose": upload(ring_pose, dev),
             "ring_slot_valid": upload(slot_valid, dev),
             "head": torch.zeros((), dtype=torch.int64, device=dev),
-            "count": torch.full((), len(running), dtype=torch.int64,
-                                device=dev),
+            "count": torch.full((), count, dtype=torch.int64, device=dev),
             "last_odom": upload(last_odom, dev),
             "last_corrected": upload(last_corrected, dev),
             "results": torch.zeros((self.result_cap, 13), dtype=_F32,
                                    device=dev),
             "n_results": 0,   # host-side write index of the result ring
         }
-        self._state_epoch += 1
+
+    def warm(self) -> None:
+        """Run one drain-sized batch on a zero state that belongs to no
+        pipeline: on a card this builds and loads the kernels and primes
+        the caching allocator. self.state, the pack pool, the result ring
+        and the kernels' launch counts stay as they were."""
+        from slam_toolbox_tpu_torch.kernels import match_cuda as mc
+
+        K, B, n = self.K + 2, self.B, self.drain_every
+        ring_pack = np.zeros((K, B, 8), np.float32)
+        ring_pack[:, :, 6] = -1.0
+        st = self._device_state(ring_pack, np.zeros((K, 3), np.float32),
+                                np.zeros(K, bool), 0,
+                                np.zeros(3, np.float32),
+                                np.zeros(3, np.float32))
+        with mc.uncounted():
+            self._run_batch(
+                st, torch.zeros((n, B, 8), dtype=_F32, device=self.device),
+                torch.zeros((n, 3), dtype=_F32, device=self.device))
+        st["results"].cpu()   # waits for the batch
 
     # -- ingestion ----------------------------------------------------------
     def process_scan(self, scan) -> bool:
@@ -550,16 +641,29 @@ class StreamingPipeline:
             self._needs_resync = False
 
     def drain(self) -> None:
-        """Dispatch the pending batch. The dispatch happens FIRST, then
-        the PREVIOUS batch's host bookkeeping runs while this batch
-        executes on the device; its own bookkeeping runs at the next
-        drain (or settle()). When the previous commit moved poses the
-        in-flight batch is re-run from the refreshed state before its
-        results are read. While loop events keep producing closures that
-        move ring poses, the order flips to settle-first (commit, settle
-        the deferred verify, then dispatch), so every batch runs once from
-        post-closure state. With drain_every=1 the commit sequence is
-        exactly the classic per-scan path."""
+        """Dispatch the pending batch. Pipelined (PIPELINED): the dispatch
+        happens FIRST, then the PREVIOUS batch's host bookkeeping runs
+        while this batch executes on the device; its own bookkeeping runs
+        at the next drain (or settle()). When the previous commit moved
+        poses the in-flight batch is re-run from the refreshed state
+        before its results are read. While loop events keep producing
+        closures that move ring poses (ADAPTIVE), the order flips to
+        settle-first (commit, settle the deferred verify, then dispatch),
+        so every batch runs once from post-closure state. Serial
+        (PIPELINED off, for A/B): settle, then dispatch, fetch and commit
+        inline. With drain_every=1 the commit sequence is exactly the
+        classic per-scan path."""
+        if not self.pipelined:
+            # settle() first: with loop_attempt_interval_scans > 0 its
+            # terminal loop attempt fires before every serial drain, as in
+            # the reference
+            self.settle()
+            if not self.pending:
+                return
+            scans = self.pending
+            self.pending = []
+            self._drain_serial(scans)
+            return
         if not self.pending:
             return
         stats0 = self.mapper.stats
@@ -580,7 +684,7 @@ class StreamingPipeline:
             and (self._scans_since_loop + len(pd_prev.scans))
             >= cfg_m.loop_attempt_interval_scans
         )
-        settle_first = (
+        settle_first = ADAPTIVE and (
             self._needs_resync
             or ((self._deferred_loop is not None
                  or (self._loop_hot and attempt_next))
@@ -615,10 +719,77 @@ class StreamingPipeline:
                 self._run_batch(self.state, pd.packs, pd.odoms)
                 pd.start = self.state["n_results"] - n
                 pd.results = self.state["results"]
+        # after any re-run and before the next batch writes the ring
+        with stage_timer(stats0, "spec_dispatch"):
+            self._dispatch_spec(pd)
         pd.prefetch()
         self._pending_drain = pd
         if stats0.enabled:
             self._t_drain_end = time.perf_counter()
+
+    def _dispatch_spec(self, pd, loop: bool = True) -> None:
+        """Speculative launches for a dispatched batch, with no host
+        synchronization: each scan's near chains predicted from odometry
+        (graph.predict_near_chains) and matched against centers read from
+        the batch's result ring, their rows appended to the ring in one
+        echo tensor that the commit's single fetch brings back; and, with
+        `loop`, the fused verify of the newest scan's predicted loop
+        candidates. The commit validates every prediction and launches
+        what missed, so the rows it uses are those of the non-speculative
+        path."""
+        cfg = self.mapper.config
+        if len(pd.scans) <= 1 or not SPECULATE or not cfg.use_scan_matching:
+            return
+        anchor = self.mapper.sensor_manager.get_last_scan(
+            pd.scans[0].laser.name)
+        if anchor is None:
+            return
+        from slam_toolbox_tpu_torch.kernels import loop_verify as lv
+
+        graph = self.mapper.graph
+        stats = self.mapper.stats
+        pred_chains = graph.predict_near_chains(pd.scans, anchor)
+        stats.count("spec_pred_unavailable",
+                    sum(1 for c in pred_chains if c is None))
+        cap = self.result_cap
+        spairs = []
+        spec_offsets = {}
+        for i, chains in enumerate(pred_chains):
+            if not chains:
+                continue
+            spec_offsets[i] = (len(spairs), len(chains))
+            spairs.extend((pd.scans[i], (pd.start + i) % cap, c)
+                          for c in chains)
+        if spairs:
+            stats.count("spec_pairs", len(spairs))
+            out = lv.dispatch_chain_matches_spec(
+                self.matcher, spairs, self.pack_pool, pd.results)
+            if out is None:
+                stats.count("spec_dispatch_abort")
+            else:
+                pd.spec, pd.spec_poses = out
+                pd.pred_chains = pred_chains
+                pd.spec_offsets = spec_offsets
+        # the loop verify's speculation only where the early-verify
+        # ordering is off: there the verify's device time would otherwise
+        # sit on the settle-first path (localization keeps it)
+        spec_loop_on = loop and SPEC_LOOP and not (
+            EARLY_VERIFY and self.post_finish is None)
+        will_attempt = (self._scans_since_loop + len(pd.scans)
+                        >= cfg.loop_attempt_interval_scans)
+        if (spec_loop_on and will_attempt and cfg.do_loop_closing
+                and any(c is not None for c in pred_chains)):
+            pred_loop = graph.predict_loop_chains(
+                pd.scans, anchor, pd.scans[-1].laser.name,
+                pred_chains=pred_chains)
+            if pred_loop:
+                out = lv.dispatch_loop_verify_spec(
+                    self.mapper.loop_matcher, self.matcher, pd.scans[-1],
+                    (pd.start + len(pd.scans) - 1) % cap, pred_loop, cfg,
+                    self.pack_pool, pd.results)
+                if out is not None:
+                    pd.spec_loop = (pred_loop, *out)
+                    stats.count("spec_loop_dispatched")
 
     def _settle_deferred(self) -> bool:
         """Finish the deferred loop closure dispatched by the previous
@@ -663,20 +834,32 @@ class StreamingPipeline:
             self._run_batch(self.state, pd.packs, pd.odoms)
             pd.start = 0
             pd.results = self.state["results"]
-        with stage_timer(self.mapper.stats, "drain_fetch"):
-            res_np = pd.fetch()
+            pd.clear_spec()
+        res_np, spec_np = self._fetch(pd)
         with stage_timer(self.mapper.stats, "commit_bookkeep"):
-            moved_uids, any_closed = self._bookkeep(
-                pd.scans, pd.start, res_np,
-            )
-        self._flag_resync(moved_uids, any_closed)
+            moved_uids, any_closed, buffer_changed = self._bookkeep(
+                pd, res_np, spec_np)
+        self._flag_resync(moved_uids, any_closed, buffer_changed)
 
-    def _flag_resync(self, moved_uids, any_closed):
+    def _fetch(self, pd):
+        """The batch's rows on the host, the wait sectioned by the
+        watchdog when one is set (a wedged device shows up there)."""
+        wd = self.watchdog
+        wd_sec = (wd.section("drain_fetch") if wd is not None
+                  else contextlib.nullcontext())
+        with stage_timer(self.mapper.stats, "drain_fetch"), wd_sec:
+            return pd.fetch()
+
+    def _flag_resync(self, moved_uids, any_closed, buffer_changed):
         """Decide whether host bookkeeping diverged from the device ring:
-        pose moves (loop closures, chain fusion) matter only when a
-        ring-mirrored scan moved beyond RESYNC_EPS, since late-run closure
-        corrections are sub-millimeter and a rebuild forces the
-        settle-first drain ordering."""
+        a running-buffer edit by post_finish always does; pose moves (loop
+        closures, chain fusion) matter only when a ring-mirrored scan
+        moved beyond RESYNC_EPS, since late-run closure corrections are
+        sub-millimeter and a rebuild forces the settle-first drain
+        ordering."""
+        if buffer_changed:
+            self._needs_resync = True
+            return
         if not (any_closed or moved_uids):
             return
         stale = self._ring_staleness() > RESYNC_EPS
@@ -709,21 +892,52 @@ class StreamingPipeline:
             worst = max(worst, d + 10.0 * dth)
         return worst
 
-    def _bookkeep(self, scans, start, res_np):
-        """Replay standard graph bookkeeping for a fetched batch in two
-        phases (host links for every scan, then one batched near-chain
-        match and the per-scan link/fuse), with one loop-closure attempt
-        on the newest scan. Returns (moved_uids, any_closed)."""
+    def _drain_serial(self, scans) -> None:
+        """Serial drain (PIPELINED off, for A/B): dispatch, fetch and
+        commit inline, with the near-chain speculation of the pipelined
+        drain (no loop speculation). A resync follows any pose move or
+        closure, without the staleness gate; with a deferred loop closure
+        in flight the decision moves to the next settle."""
+        n = len(scans)
+        stats = self.mapper.stats
+        with stage_timer(stats, "batch_dispatch"):
+            self._dispatch_batch(scans)
+        pd = _PendingDrain(scans, None, None,
+                           start=self.state["n_results"] - n,
+                           results=self.state["results"])
+        self._last_gate_scan = None
+        with stage_timer(stats, "spec_dispatch"):
+            self._dispatch_spec(pd, loop=False)
+        pd.prefetch()
+        res_np, spec_np = self._fetch(pd)
+        moved_uids, any_closed, buffer_changed = self._bookkeep(
+            pd, res_np, spec_np)
+        if moved_uids or any_closed or buffer_changed:
+            self._needs_resync = True
+        if self._deferred_loop is None and self._needs_resync:
+            self.refresh_state()
+            self._needs_resync = False
+
+    def _bookkeep(self, pd, res_np, spec_np):
+        """Replay standard graph bookkeeping for the fetched batch `pd` in
+        two phases (host links for every scan; then the near-chain rows,
+        from the speculation where it held and from one batched match for
+        the rest, and the per-scan link/fuse), with one loop-closure
+        attempt on the newest scan. `res_np` is the result ring and
+        `spec_np` the speculative near-chain rows (None: none). Returns
+        (moved_uids, any_closed, buffer_changed)."""
         from slam_toolbox_tpu_torch.kernels import loop_verify as lv
         from slam_toolbox_tpu_torch.kernels.match import Matcher
 
         stats = self.mapper.stats
+        scans, start = pd.scans, pd.start
         n = len(scans)
         cap = self.result_cap
         cfg = self.mapper.config
         matching = cfg.use_scan_matching
         moved_uids = set()
         any_closed = False
+        buffer_changed = False
         sm = self.mapper.sensor_manager
         graph = self.mapper.graph
 
@@ -749,6 +963,14 @@ class StreamingPipeline:
             scan._dev_pose = np.array(scan.sensor_pose)
             return cov
 
+        def at_ring_row(scan, i) -> bool:
+            """The scan's f32 sensor pose is its ring row's, which the
+            speculative launches read as their center."""
+            row = res_np[(start + i) % cap]
+            return row[0] > 0.0 and np.array_equal(
+                np.asarray(scan.sensor_pose, np.float32),
+                row[1:4].astype(np.float32))
+
         if n == 1:
             # single-scan drain: exactly the classic per-scan sequence
             scan = scans[0]
@@ -757,7 +979,9 @@ class StreamingPipeline:
             any_closed = self.mapper.finish_scan(scan, cov)
             if np.any(np.abs(scan.corrected_pose - pose_before) > 1e-7):
                 moved_uids.add(scan.unique_id)
-            return moved_uids, any_closed
+            if self.post_finish is not None:
+                buffer_changed = bool(self.post_finish(scan))
+            return moved_uids, any_closed, buffer_changed
 
         # phase 1 (per scan): set poses from the fetched ring results, add
         # the vertex + host-side links, and collect the near chains
@@ -776,21 +1000,47 @@ class StreamingPipeline:
                 sm.add_running_scan(scan)
             sm.set_last_scan(scan)
             staged.append((scan, pf))
-        # phase 2: every scan's near chains as one pool-gather program
-        # with a single fetch
-        offsets = []  # per staged entry: (offset, count) into the rows
-        pairs = []
-        for scan, pf in staged:
+        # phase 2: a scan's speculative rows stand where it was predicted
+        # exactly (the same chains, members and f32 poses, and the query
+        # at its ring row's f32 pose); every other scan's near chains run
+        # as one pool-gather program with a single fetch
+        plan = []  # per staged entry: ("none" | "spec" | "miss", off, cnt)
+        miss_pairs = []
+        spec_results = (Matcher.results_from_packed(spec_np)
+                        if spec_np is not None else [])
+        for i, (scan, pf) in enumerate(staged):
             chains = pf[0] if pf is not None else []
-            offsets.append((len(pairs), len(chains)))
-            pairs.extend((scan, c) for c in chains)
-        fetched = []
-        if pairs:
+            if not chains:
+                plan.append(("none", 0, 0))
+                continue
+            hit = False
+            if spec_np is not None and i in pd.spec_offsets:
+                off, cnt = pd.spec_offsets[i]
+                hit = (
+                    [tuple(s.unique_id for s in c) for c in chains]
+                    == [tuple(s.unique_id for s in c)
+                        for c in pd.pred_chains[i]]
+                    and at_ring_row(scan, i)
+                    and all(np.array_equal(snap, poses) for snap, poses in
+                            zip(pd.spec_poses[off:off + cnt],
+                                lv.chain_poses(chains)))
+                )
+            if hit:
+                plan.append(("spec", off, cnt))
+                stats.count("spec_chain_hit")
+            else:
+                plan.append(("miss", len(miss_pairs), len(chains)))
+                miss_pairs.extend((scan, c) for c in chains)
+                if spec_np is not None:
+                    stats.count("spec_chain_miss")
+        fetched_miss = []
+        if miss_pairs:
             with stage_timer(stats, "near_chain_match"):
                 rows = lv.dispatch_chain_matches(
-                    self.matcher, pairs, self.pack_pool
+                    self.matcher, miss_pairs, self.pack_pool
                 )
-                fetched = Matcher.results_from_packed(rows.cpu().numpy())
+                fetched_miss = Matcher.results_from_packed(
+                    rows.cpu().numpy())
         # loop closure once per batch on the newest scan (candidate chains
         # persist across consecutive scans, so closures fire a few scans
         # later at most); loop_attempt_interval_scans > 0 rate-limits it
@@ -803,20 +1053,31 @@ class StreamingPipeline:
             self._scans_since_loop = 0
         names = sm.sensor_names() if attempt_loop else []
 
-        def finish_one(i):
+        def finish_one(i) -> bool:
             scan, pf = staged[i]
-            off, cnt = offsets[i]
+            kind, off, cnt = plan[i]
+            rows = {"spec": spec_results, "miss": fetched_miss}.get(kind, [])
             pose_before = scan.corrected_pose.copy()
             with stage_timer(stats, "graph_edges"):
                 graph.add_edges_finish(scan, pf,
-                                       results=fetched[off:off + cnt])
+                                       results=rows[off:off + cnt])
             if np.any(np.abs(scan.corrected_pose - pose_before) > 1e-7):
                 # near-chain fusion moved this scan
                 moved_uids.add(scan.unique_id)
+            if self.post_finish is not None:
+                return bool(self.post_finish(scan))
+            return False
 
         def begin_loop():
+            # the speculative verify's rows stand only when the center
+            # they read (the newest scan's ring row) is bit for bit its
+            # current f32 sensor pose: a fusion move below the f64
+            # bookkeeping threshold can still flip an f32 ulp
+            spec = (pd.spec_loop if pd.spec_loop is not None
+                    and at_ring_row(scans[-1], n - 1) else None)
             with stage_timer(stats, "loop_closure"):
-                handle = graph.try_close_loop_begin(scans[-1], names[0])
+                handle = graph.try_close_loop_begin(scans[-1], names[0],
+                                                    spec=spec)
             # adaptive hysteresis: candidate chains present -> closures
             # likely -> settle-first ordering next drain
             self._loop_hot = bool(handle) or not isinstance(handle, bool)
@@ -825,16 +1086,22 @@ class StreamingPipeline:
         # early-verify ordering: finish the NEWEST scan first, dispatch
         # the deferred loop verify, then finish the rest, so the verify's
         # device time overlaps the remaining host bookkeeping. The sweep
-        # sees batch-mates at their pre-fusion (phase-1) poses.
+        # sees batch-mates at their pre-fusion (phase-1) poses. Off where
+        # post_finish is set: a mid-batch buffer eviction could remove a
+        # swept chain member before the rest is finished.
+        early_verify = (EARLY_VERIFY and attempt_loop and len(names) == 1
+                        and self.post_finish is None)
         handle = None
-        if attempt_loop and len(names) == 1:
-            finish_one(n - 1)
+        if early_verify:
+            buffer_changed |= finish_one(n - 1)
             handle = begin_loop()
             for i in range(n - 1):
-                finish_one(i)
+                buffer_changed |= finish_one(i)
         else:
             for i in range(n):
-                finish_one(i)
+                buffer_changed |= finish_one(i)
+            if attempt_loop and len(names) == 1:
+                handle = begin_loop()
         if handle is not None:
             if isinstance(handle, bool):
                 any_closed |= handle
@@ -848,4 +1115,4 @@ class StreamingPipeline:
                         any_closed = True
                         hot = True
                 self._loop_hot = hot
-        return moved_uids, any_closed
+        return moved_uids, any_closed, buffer_changed

@@ -83,13 +83,26 @@ def test_unported_modes_raise():
 
 
 def test_port_reads_no_slam_environment():
-    """The JAX package's SLAM_* switches are constants in the port."""
+    """Of the JAX package's SLAM_* switches the port reads only the
+    streaming pipeline's five A/B switches, in mapper/streaming.py; the
+    others (SLAM_FUSED_LOOP, SLAM_RESYNC_EPS, ...) are constants."""
+    import re
+
     root = os.path.join(REPO, "slam_toolbox_tpu_torch")
+    found = {}
     for dirpath, _, files in os.walk(root):
         for name in files:
             if name.endswith((".py", ".cu", ".cpp")):
-                with open(os.path.join(dirpath, name)) as f:
-                    assert "SLAM_" not in f.read(), name
+                path = os.path.join(dirpath, name)
+                with open(path) as f:
+                    for var in re.findall(r"SLAM_\w+", f.read()):
+                        found.setdefault(var, set()).add(
+                            os.path.relpath(path, root))
+    assert found == {
+        var: {os.path.join("mapper", "streaming.py")}
+        for var in ("SLAM_STREAM_PIPELINE", "SLAM_SPEC", "SLAM_SPEC_LOOP",
+                    "SLAM_ADAPTIVE", "SLAM_EARLY_VERIFY")
+    }
 
 
 def test_chip_smoke_fails_without_cuda():
