@@ -65,7 +65,22 @@ Phases, in order; any failure exits non-zero and nothing is caught:
                 loop attempts every drain: the same trajectory;
   9. warm     — warm_all() on a fresh streaming session (launches made
                 while warming are not counted), then 2 laps through it;
- 10. the kernels line (JSON), the card's name and power limit, and the
+ 10. map path — the outputs of phase 6's session: its occupancy grid at
+                0.05 m on the native host route and on the tensor route on
+                the card (bit-equal), 2 more laps and a publish (the
+                incremental fold while the new scans stay inside the
+                extent; equal to the full rebuild either way), its
+                snapshot; resume: 8 laps, serialize, deserialize into a new
+                streaming session, laps 9-16 (ATE below half of
+                odometry's, a closure after the load); merge: 8 submaps of
+                the snapshot 20 m apart, one perturbed by (0.3 m, -0.2 m,
+                3 deg) and auto-aligned back (within 0.1 m and 1 deg, the
+                CPU's correction to 1e-5), merged on both routes
+                (bit-equal); the CLI on the CARMEN fixture, classic and
+                streaming (test_fixture_end_to_end's bars), and `cli
+                merge` of the two; K1-K3 launches of the align and CLI
+                paths by grid;
+ 11. the kernels line (JSON), the card's name and power limit, and the
      last line {"ok": true, "device": {...}}.
 
 It exits non-zero with no result when no CUDA device is present. It imports
@@ -73,10 +88,12 @@ nothing of JAX and nothing of the JAX package.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import subprocess
 import sys
+import tempfile
 import time
 
 MEM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3
@@ -144,22 +161,24 @@ def bench_workload(n_laps: int, resolution: float = 0.01,
     return cfg, laser, data
 
 
-def run_session(sess, data, on_scan=None):
+def run_session(sess, data, on_scan=None, t0: float = 0.0):
     """Feed every scan, then flush; returns (estimates, ground truth,
     odometry, seconds of each accepted call that ran no drain, seconds of
     each call that ran a streaming drain, the flush included). Drains are
     seen through the session's stage counts, so with its stats disabled
     every call is in the first list. `on_scan(k)` runs before the k-th
-    accepted scan's successor is fed (profile windows)."""
+    accepted scan's successor is fed (profile windows). Scan i is stamped
+    t0 + 0.1 i."""
     import numpy as np
 
     counts = sess.stats.counts
     est, gt, odo, lat, drains = [], [], [], [], []
     for i, (scan, tp) in enumerate(data):
         n0 = counts.get("batch_dispatch", 0)
-        t0 = time.perf_counter()
-        out = sess.process_scan(scan.ranges, scan.odom_pose, time=i * 0.1)
-        dt = time.perf_counter() - t0
+        t_call = time.perf_counter()
+        out = sess.process_scan(scan.ranges, scan.odom_pose,
+                                time=t0 + i * 0.1)
+        dt = time.perf_counter() - t_call
         if counts.get("batch_dispatch", 0) != n0:
             drains.append(dt)
         elif out is not None:
@@ -171,10 +190,10 @@ def run_session(sess, data, on_scan=None):
             if on_scan is not None:
                 on_scan(len(est))
     n0 = counts.get("batch_dispatch", 0)
-    t0 = time.perf_counter()
+    t_call = time.perf_counter()
     sess.flush()
     if counts.get("batch_dispatch", 0) != n0:
-        drains.append(time.perf_counter() - t0)
+        drains.append(time.perf_counter() - t_call)
     return (np.stack(est), np.stack(gt), np.stack(odo), np.asarray(lat),
             np.asarray(drains))
 
@@ -200,9 +219,7 @@ def run_mapping(sess, data, tag: str, need_closure: bool = True):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = dict(mc.LAUNCHES)
-    by_grid = {}
-    for (name, G), n in sorted(mc.GRID_LAUNCHES.items()):
-        by_grid.setdefault(name, {})[str(G)] = n
+    by_grid = launches_by_grid()
     traj = sess.trajectory
     if not (np.all(np.isfinite(traj)) and traj.shape == (len(est), 3)):
         raise AssertionError(f"{tag}: non-finite or misshapen trajectory")
@@ -238,7 +255,7 @@ def run_mapping(sess, data, tag: str, need_closure: bool = True):
         raise AssertionError(f"{tag}: kernels never launched: {missing}")
     return dict(launches=launches, by_grid=by_grid, verifies=verifies,
                 ate=ate, scans=len(est), wall=wall, rate=len(est) / wall,
-                traj=traj, closures=len(closures), spec=spec)
+                traj=traj, closures=len(closures), spec=spec, sess=sess)
 
 
 def event_ms(fn, n: int, warm: int = 3) -> float:
@@ -1091,6 +1108,344 @@ def same_run(tag, a, b, rerun):
     return gap
 
 
+def launches_by_grid():
+    """The path kernels' launch counts since the last reset, by grid side:
+    {kernel: {G: n}}."""
+    from slam_toolbox_tpu_torch.kernels import match_cuda as mc
+
+    out = {name: {} for name in PATH_KERNELS}
+    for (name, G), n in sorted(mc.GRID_LAUNCHES.items()):
+        if name in out:
+            out[name][str(G)] = n
+    return out
+
+
+def timed(fn):
+    """(fn(), host seconds with the card synchronized on both sides)."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+@contextlib.contextmanager
+def occupancy_route(native: bool):
+    """Send every render inside the block through one route: the native
+    host Bresenham (native=True) or trace_beams on the card (a CUDA
+    session's own choice)."""
+    import functools
+
+    from slam_toolbox_tpu_torch.kernels import occupancy as occ
+
+    names = ("create_from_scans", "add_scans_incremental")
+    old = {n: getattr(occ, n) for n in names}
+    for n in names:
+        setattr(occ, n, functools.partial(old[n], native=native))
+    try:
+        yield
+    finally:
+        for n in names:
+            setattr(occ, n, old[n])
+
+
+def grid_summary(grid) -> dict:
+    import numpy as np
+
+    from slam_toolbox_tpu_torch.kernels import occupancy as occ
+
+    c = np.bincount(grid.cells.ravel(), minlength=256)
+    return dict(shape=list(grid.cells.shape), free=int(c[occ.FREE]),
+                occupied=int(c[occ.OCCUPIED]), unknown=int(c[occ.UNKNOWN]))
+
+
+def same_grid(tag: str, a, b) -> None:
+    """Bit-equal counters, cells and offset, or fail."""
+    import numpy as np
+
+    for key in ("pass_cnt", "hit_cnt", "cells", "offset"):
+        if not np.array_equal(getattr(a, key), getattr(b, key)):
+            raise AssertionError(f"{tag}: the grids' {key} differ")
+
+
+def continued(data, n_laps: int, seed: int, margin: float = 0.5):
+    """n_laps more laps of the bench world after data's last scan: a new
+    simulation from LAP[0], its odometry carried on from data's last
+    odometry pose (rebased at data's last true pose), noise-free, with
+    every beam that ends within `margin` of the outer walls dropped (NaN).
+    The walls set the map's extent, so these scans stay inside it while
+    their pose errors stay below the margin."""
+    import numpy as np
+
+    from slam_toolbox_tpu_torch.core import geometry
+    from slam_toolbox_tpu_torch.core.scan import LocalizedScan
+    from slam_toolbox_tpu_torch.io.dataset import LidarSimulator, SegmentWorld
+
+    last_scan, last_true = data[-1]
+    w, h = 16.0, 10.0
+    sim = LidarSimulator(
+        SegmentWorld.rooms(w, h), last_scan.laser, range_noise=0.0,
+        odom_noise=(0.015, 0.006), seed=seed,
+    )
+    extra = sim.simulate(np.array(LAP * n_laps + [LAP[0]]), step=0.3)
+    out = []
+    for scan, tp in extra[1:]:
+        ends = LocalizedScan(scan.laser, scan.ranges, tp).points_world()
+        with np.errstate(invalid="ignore"):
+            near = ((np.abs(ends[:, 0]) > w / 2 - margin)
+                    | (np.abs(ends[:, 1]) > h / 2 - margin))
+        ranges = np.where(near, np.nan, scan.ranges)
+        odom = geometry.compose(
+            last_scan.odom_pose,
+            geometry.relative_pose(last_true, scan.odom_pose))
+        out.append((LocalizedScan(scan.laser, ranges, odom), tp))
+    return out
+
+
+def check_cli_kernels(fixture: str, dev):
+    """K1-K3 at the CLI's geometries on the CARMEN fixture: ONLINE_SYNC's
+    sequential and loop matchers for the log's laser (G 2403 and G 633 at
+    271 beams), their inputs formed as phase 2 forms them from the log's
+    scans at their true poses, thinned as the mapper's travel gate thins
+    them, each kernel held bit-equal to its plain version; K2 and K3 also
+    on the adversarial patterns at both (G, hk). Returns ({G: {kernel:
+    record}}, patterns checked)."""
+    import numpy as np
+
+    from slam_toolbox_tpu_torch.core.params import ONLINE_SYNC
+    from slam_toolbox_tpu_torch.core.scan import LocalizedScan
+    from slam_toolbox_tpu_torch.io.carmen import read_carmen
+    from slam_toolbox_tpu_torch.mapper import Mapper
+
+    log = read_carmen(fixture)
+    cfg = ONLINE_SYNC.replace(minimum_time_interval=3600.0)
+    mapper = Mapper(cfg, device=dev)
+    mapper.initialize(log.laser.range_threshold)
+    kept, last = [], None
+    for rec, tp in zip(log.records, log.ground_truth()):
+        if last is None or (
+                np.hypot(*(tp[:2] - last[:2])) >= cfg.minimum_travel_distance
+                or abs(tp[2] - last[2]) >= cfg.minimum_travel_heading):
+            scan = LocalizedScan(log.laser, rec.ranges, rec.odom_pose)
+            scan.set_corrected_pose(tp)
+            kept.append((scan, tp))
+            last = tp
+    chain, q = loop_chain(kept, cfg.loop_search_maximum_distance)
+    ring = cfg.scan_buffer_size + 2
+    out, n_patterns = {}, 0
+    for matcher, base, qi in (
+            (mapper.sequential_matcher, list(range(ring)), ring + 1),
+            (mapper.loop_matcher, chain, q)):
+        tag = f"cli G={matcher.G}"
+        print(f"# {tag}: {len(kept)} scans past the travel gate, "
+              f"{len(base)} base scans, query scan {qi}", flush=True)
+        inp = kernel_inputs(matcher, [kept[i][0] for i in base],
+                            kept[qi][0], dev)
+        out[str(matcher.G)], _ = check_kernels(matcher, inp, tag)
+        n_patterns += check_patterns(matcher.G, matcher.half_kernel,
+                                     matcher._w, dev)[0]
+    return out, n_patterns
+
+
+def map_path(main_run, cfg, laser, data, dev, workdir):
+    """Phase 10, the map outputs on the card: the main path's map on both
+    occupancy routes and its incremental publish, the snapshot of the
+    2,017-scan session, resume from the 8-lap snapshot, the multi-session
+    merge with auto_align, and the CLI on the CARMEN fixture. Returns the
+    K1-K3 launches of the align and CLI paths by grid."""
+    import dataclasses
+    import os
+
+    import numpy as np
+    import torch
+
+    from slam_toolbox_tpu_torch.api import SlamSession, cli
+    from slam_toolbox_tpu_torch.api.merge import MapMerger
+    from slam_toolbox_tpu_torch.io.dataset import ate_rmse
+    from slam_toolbox_tpu_torch.kernels import match_cuda as mc
+    from slam_toolbox_tpu_torch.kernels import occupancy as occ
+
+    t_phase = time.perf_counter()
+    # 1. the main path's map, on both routes, then an incremental publish
+    sess = main_run["sess"]
+    with occupancy_route(True):
+        native, native_s = timed(sess.get_occupancy_grid)
+    sess._grid_cache = None   # the tensor route renders anew
+    with occupancy_route(False):
+        tensor, tensor_s = timed(sess.get_occupancy_grid)
+    same_grid("main-path map, native vs card tensor route", native, tensor)
+    print(f"# map: {len(sess.trajectory)} scans at {native.resolution} m, "
+          f"{json.dumps(grid_summary(native))}, native route {native_s} s, "
+          f"card tensor route {tensor_s} s, bit-equal", flush=True)
+    snap = os.path.join(workdir, "main.npz")
+    _, save_s = timed(lambda: sess.serialize(snap))
+    print(f"# snapshot: {len(sess.trajectory)} scans in {save_s} s, "
+          f"{os.path.getsize(snap)} bytes", flush=True)
+    # two more laps with loop closing off, so no closure moves a pose, and
+    # inside the extent, so the publish folds them into the cached grid
+    cache = sess._grid_cache
+    n_old = cache["n"]
+    sess.mapper.config = sess.config = dataclasses.replace(
+        cfg, do_loop_closing=False)
+    run_session(sess, continued(data, 2, seed=43), t0=0.1 * len(data))
+    scans = sess.mapper.all_processed_scans()
+    new = scans[n_old:]
+    lo = np.min([s.bounding_box[0] for s in new], axis=0)
+    hi = np.max([s.bounding_box[1] for s in new], axis=0)
+    past = float(max(np.max(cache["mins"] - lo), np.max(hi - cache["maxs"])))
+    if past > 0.0 or sess.mapper.graph.pose_revision != cache["rev"]:
+        raise AssertionError(f"map: the 2 more laps reach {past} m past the "
+                             f"extent or moved a pose")
+    full = occ.create_from_scans(scans, cfg.map_resolution,
+                                 cfg.min_pass_through,
+                                 cfg.occupancy_threshold, device=dev,
+                                 native=True)
+    fold_s = {}
+    for native in (True, False):
+        folds = []
+        fold = occ.add_scans_incremental
+
+        def counted_fold(*a, **kw):
+            folds.append(1)
+            return fold(*a, **kw)
+
+        sess._grid_cache = cache
+        occ.add_scans_incremental = counted_fold
+        try:
+            with occupancy_route(native):
+                inc, fold_s["native" if native else "tensor"] = timed(
+                    sess.get_occupancy_grid)
+        finally:
+            occ.add_scans_incremental = fold
+        route = "native" if native else "card tensor"
+        if len(folds) != 1:
+            raise AssertionError(f"map: the {route} publish after 2 more "
+                                 f"laps ran {len(folds)} folds, not 1")
+        same_grid(f"{route} publish after 2 more laps vs full rebuild",
+                  inc, full)
+    print(f"# map: 2 more laps to {len(scans)} scans ({len(new)} new, "
+          f"{-past} m inside the extent at the nearest); the publish folded "
+          f"them once on each route, native {fold_s['native']} s, card "
+          f"tensor {fold_s['tensor']} s, equal to the full rebuild",
+          flush=True)
+    sess.mapper.config = sess.config = cfg
+
+    # 2. resume: 8 laps, serialize, deserialize into a new streaming
+    # session, laps 9-16
+    k = len(data) // 2
+    first = SlamSession(cfg, laser, device=dev, streaming=True,
+                        drain_every=256)
+    est1, gt1, odo1, _, _ = run_session(first, data[:k])
+    half = os.path.join(workdir, "half.npz")
+    _, save_s = timed(lambda: first.serialize(half))
+    second = SlamSession(cfg, laser, device=dev, streaming=True,
+                         drain_every=256)
+    _, load_s = timed(lambda: second.deserialize(half))
+    closures = []
+    second.mapper.listeners.append(closures.append)
+    est2, gt2, odo2, _, _ = run_session(second, data[k:], t0=0.1 * k)
+    traj = second.trajectory
+    gt_all, odo_all = np.concatenate([gt1, gt2]), np.concatenate([odo1, odo2])
+    if traj.shape != (len(gt_all), 3) or not np.all(np.isfinite(traj)):
+        raise AssertionError("resume: misshapen or non-finite trajectory")
+    ate, ate_odom = ate_rmse(traj, gt_all), ate_rmse(odo_all, gt_all)
+    print(f"# resume: {len(est1)} scans, snapshot {os.path.getsize(half)} "
+          f"bytes saved in {save_s} s, loaded in {load_s} s, then "
+          f"{len(est2)} scans: ATE {ate} m vs odometry {ate_odom} m, "
+          f"{len(closures)} loop closures after the load", flush=True)
+    if not ate < 0.5 * ate_odom or not closures:
+        raise AssertionError("resume: ATE or closures off the bar")
+
+    # 3. merge at a multi-session size: 8 submaps 20 m apart, submap 0
+    # perturbed and aligned back against submap 1 (the same map, so the
+    # right correction is the identity)
+    n_sub = 8
+    merger = MapMerger(device=dev)
+    _, load_s = timed(lambda: [merger.add_submap(snap)
+                               for _ in range(n_sub)])
+    for i in range(n_sub):
+        merger.set_correction(i, (20.0 * i, 0.0, 0.0))
+    perturbed = np.array([0.3, -0.2, np.deg2rad(3.0)])
+    merger.set_correction(0, perturbed)
+    mc.reset_launch_counts()
+    response, align_s = timed(lambda: merger.auto_align(1, 0))
+    align_launches = launches_by_grid()
+    corr = merger.corrections[0].copy()
+    cpu = MapMerger(device="cpu")
+    for i in (0, 1):
+        cpu.add_scans(merger.submaps[i])
+    cpu.set_correction(0, perturbed)
+    with mc.uncounted():
+        cpu_response = cpu.auto_align(1, 0)
+    print(f"# align: {n_sub} submaps of {len(merger.submaps[0])} scans "
+          f"loaded in {load_s} s; auto_align {align_s} s, response "
+          f"{response}, correction {corr.tolist()} (card) vs "
+          f"{cpu.corrections[0].tolist()} (CPU, response {cpu_response}); "
+          f"launches {json.dumps(align_launches)}", flush=True)
+    if response is None or np.hypot(*corr[:2]) > 0.1 or abs(
+            corr[2]) > np.deg2rad(1.0):
+        raise AssertionError("align: the perturbation was not recovered")
+    if cpu_response is None or np.max(np.abs(
+            cpu.corrections[0] - corr)) > 1e-5 or abs(
+            cpu_response - response) > 1e-5:
+        raise AssertionError("align: the card and the CPU disagree")
+    if any(not align_launches[k] for k in PATH_KERNELS):
+        raise AssertionError("align: a path kernel was not launched")
+    with occupancy_route(True):
+        m_native, m_native_s = timed(merger.merge)
+    with occupancy_route(False):
+        m_tensor, m_tensor_s = timed(merger.merge)
+    same_grid("merge, native vs card tensor route", m_native, m_tensor)
+    n_scans = sum(len(s) for s in merger.submaps)
+    n_beams = sum(len(s.ranges) for sub in merger.submaps for s in sub)
+    print(f"# merge: {n_sub} submaps, {n_scans} scans, {n_beams} beams, "
+          f"{json.dumps(grid_summary(m_native))}, native route "
+          f"{m_native_s} s, card tensor route {m_tensor_s} s, bit-equal",
+          flush=True)
+
+    # 4. the CLI on the CARMEN fixture, classic and streaming, then merge
+    fixture = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "tests", "data", "loop_rooms.clf.gz")
+    cli_checks, cli_patterns = check_cli_kernels(fixture, dev)
+    cli_launches, outs = {}, []
+    for extra in ([], ["--streaming"]):
+        tag = "streaming" if extra else "classic"
+        out = os.path.join(workdir, f"clf_{tag}")
+        outs.append(out)
+        mc.reset_launch_counts()
+        rc, cli_s = timed(lambda: cli.main(
+            ["run", "--dataset", fixture, "--out", out, "--device",
+             str(dev)] + extra))
+        cli_launches[tag] = launches_by_grid()
+        with open(out + "_metrics.json") as f:
+            m = json.load(f)
+        check = SlamSession(cfg, laser, device=dev)
+        check.deserialize(out + ".posegraph.npz")
+        span = max(abs(e.source.state_id - e.target.state_id)
+                   for e in check.mapper.graph.edges)
+        print(f"# cli run ({tag}): rc {rc}, {cli_s} s, {json.dumps(m)}, "
+              f"longest edge span {span} state ids, launches "
+              f"{json.dumps(cli_launches[tag])}", flush=True)
+        if not (rc == 0 and m["nodes"] > 100 and m["ate_rmse_m"] < 0.30
+                and m["ate_rmse_m"] < m["ate_odom_m"] and span > 20):
+            raise AssertionError(f"cli run ({tag}): off its bars")
+        if not all(os.path.exists(out + ext) for ext in (".pgm", ".yaml",
+                                                          "_trajectory.txt")):
+            raise AssertionError(f"cli run ({tag}): an output is missing")
+    merged = os.path.join(workdir, "clf_merged")
+    rc = cli.main(["merge", outs[0] + ".posegraph.npz",
+                   outs[1] + ".posegraph.npz", "--out", merged,
+                   "--device", str(dev)])
+    if rc != 0 or not os.path.exists(merged + ".pgm"):
+        raise AssertionError("cli merge failed")
+    torch.cuda.synchronize()
+    print(f"# map path phase: {time.perf_counter() - t_phase} s", flush=True)
+    return dict(align=align_launches, cli=cli_launches, checks=cli_checks,
+                patterns=cli_patterns)
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -1239,7 +1594,13 @@ def main() -> int:
     print(f"# warm_all: {warm_s} s, no launch counted; then "
           f"{warm_run['rate']} scans/s", flush=True)
 
-    # 10. kernels line, card line, result line
+    # 10. the map outputs: grids on both routes, snapshots and resume,
+    # the multi-session merge with auto_align, the CLI
+    with tempfile.TemporaryDirectory() as workdir:
+        map_launches = map_path(main_run, cfg16, laser16, data16, dev,
+                                workdir)
+
+    # 11. kernels line, card line, result line
     rows = []
     for name in mc.KERNELS:
         if name == "score_ceiling":
@@ -1259,6 +1620,19 @@ def main() -> int:
             "shape": rec["shape"],
         }
         if name in PATH_KERNELS:
+            row["align_launches_by_grid"] = map_launches["align"][name]
+            row["cli_launches_by_grid"] = {
+                tag: counts[name]
+                for tag, counts in map_launches["cli"].items()}
+            row["cli"] = {}
+            for G, recs in map_launches["checks"].items():
+                r = recs[name]
+                row["max_abs_err"] = max(row["max_abs_err"], r["err"])
+                row["cli"][G] = {
+                    "shape": r["shape"], "ms": r["ms"],
+                    "device_ms": r["device_ms"], "plain_ms": r["plain_ms"],
+                    "bound_ms": r["bound"][0], "bound_by": r["bound"][1],
+                    "library_ms": r["library_ms"]}
             row["main_path_spec"] = main_run["spec"]
             row["spec_off_launches"] = off_run["launches"][name]
             row["no_sync_spec_route_launches"] = no_sync["spec_launches"][name]
@@ -1274,7 +1648,8 @@ def main() -> int:
                     row[key] = rec[key]
                     row["loop"][key] = loop[key]
             if name in ("scatter_occupancy", "smear_quantize"):
-                row["patterns_checked"] = n_patterns
+                row["patterns_checked"] = (n_patterns
+                                           + map_launches["patterns"])
             if name == "smear_quantize":
                 row["dense_device_ms"] = dense_ms
                 row["empty_tile_rows"] = rec["empty_tile_rows"]

@@ -1,3 +1,3 @@
 from slam_toolbox_tpu_torch.api.slam import (  # noqa: F401
-    ProcessType, SlamSession,
+    MatchType, ProcessType, SlamSession,
 )

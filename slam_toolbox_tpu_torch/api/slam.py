@@ -13,8 +13,12 @@ pipeline (mapper/streaming.py): process_scan returns the propagated
 prior at once and corrected poses land at drains (every `drain_every`
 scans, or on flush() and the accessors).
 
-Not ported yet (they raise NotImplementedError): localization mode,
-occupancy maps, and serialize/deserialize.
+The map outputs are here too: get_occupancy_grid (cached, folding new
+scans incrementally), serialize, and deserialize with the UNSET,
+START_AT_FIRST_NODE and START_AT_GIVEN_POSE match types. Not ported yet
+(ROADMAP Queue 1 item 7): localization mode and LOCALIZE_AT_POSE, which
+raise NotImplementedError, and toggle_mode, set_initial_pose, the
+interactive mode, modify_node and manual_loop_closure, which are absent.
 """
 from __future__ import annotations
 
@@ -29,6 +33,7 @@ import numpy as np
 from slam_toolbox_tpu_torch.core import geometry
 from slam_toolbox_tpu_torch.core.params import MapperConfig
 from slam_toolbox_tpu_torch.core.scan import LaserConfig, LocalizedScan
+from slam_toolbox_tpu_torch.kernels import occupancy
 from slam_toolbox_tpu_torch.mapper import Mapper
 
 
@@ -39,6 +44,15 @@ class ProcessType(enum.Enum):
     PROCESS_FIRST_NODE = 1
     PROCESS_NEAR_REGION = 2
     PROCESS_LOCALIZATION = 3
+
+
+class MatchType(enum.Enum):
+    """DeserializePoseGraph.srv match types."""
+
+    UNSET = 0
+    START_AT_FIRST_NODE = 1
+    START_AT_GIVEN_POSE = 2
+    LOCALIZE_AT_POSE = 3
 
 
 class PausedApplication(enum.Enum):
@@ -88,7 +102,8 @@ class SlamSession:
         CPU. streaming=True routes scans through the device-resident
         pipeline, drained every `drain_every` scans."""
         if mode != "mapping":
-            raise NotImplementedError(f"mode {mode!r} is not ported")
+            raise NotImplementedError(
+                f"mode {mode!r} is not ported yet (ROADMAP Queue 1 item 7)")
         self.config = config or MapperConfig()
         self.laser = laser
         self.mapper = Mapper(self.config, device=device)
@@ -96,6 +111,7 @@ class SlamSession:
         self.streaming = bool(streaming)
         self.drain_every = drain_every
         self._pipe = None
+        self._grid_cache = None  # incremental occupancy (get_occupancy_grid)
         self._pipe_lock = threading.Lock()
         self._warm_thread = None
         self.mode = mode
@@ -105,6 +121,7 @@ class SlamSession:
         self.yaw_covariance_scale = yaw_covariance_scale
 
         self.processor_type = ProcessType.PROCESS
+        self.process_near_pose: Optional[np.ndarray] = None
         self.first_measurement = True
         self.paused_state = PausedState()
         self.scan_count = 0
@@ -162,8 +179,8 @@ class SlamSession:
         cov = np.eye(3)
         pt = self.processor_type
         if pt != ProcessType.PROCESS and self._pipe is not None:
-            # mode switch (dock): the classic path must see fully drained
-            # and settled bookkeeping
+            # mode switch (dock, resume at a pose): the classic path must
+            # see fully drained and settled bookkeeping
             self._pipe.drain()
             self._pipe.settle()
         if pt == ProcessType.PROCESS and self.streaming:
@@ -177,6 +194,14 @@ class SlamSession:
             ok = self.mapper.process(scan, covariance_out=cov)
         elif pt == ProcessType.PROCESS_FIRST_NODE:
             ok = self.mapper.process_at_dock(scan, covariance_out=cov)
+            self.processor_type = ProcessType.PROCESS
+        elif pt == ProcessType.PROCESS_NEAR_REGION:
+            # mapping resumes near a given pose (START_AT_GIVEN_POSE)
+            if self.process_near_pose is not None:
+                scan.set_corrected_pose(self.process_near_pose)
+                self.process_near_pose = None
+            ok = self.mapper.process_against_nodes_near_by(
+                scan, covariance_out=cov)
             self.processor_type = ProcessType.PROCESS
         else:
             raise NotImplementedError(f"{pt} is not ported")
@@ -249,15 +274,112 @@ class SlamSession:
         `sess.stats.enabled = True`."""
         return self.mapper.stats
 
-    # -- not ported yet -----------------------------------------------------
+    # -- map rendering (updateMap, :630-654) --------------------------------
     def get_occupancy_grid(self, resolution: Optional[float] = None):
-        raise NotImplementedError("occupancy maps are not ported yet")
+        """Occupancy map of all processed scans, rendered for the
+        session's device. Steady-state publishes are O(new scans): the
+        session caches the grid and its hit/pass counters and folds only
+        newly added scans via add_scans_incremental (equal to the full
+        rebuild). A full re-raster happens only when poses were corrected
+        or scans removed (graph.pose_revision), the resolution changed, or
+        a new scan extends the map extent."""
+        self.flush()
+        scans = self.mapper.all_processed_scans()
+        if not scans:
+            return None
+        res = float(resolution or self.config.map_resolution)
+        g = self.mapper.graph
+        rev = g.pose_revision if g is not None else 0
+        c = self._grid_cache
+        if (
+            c is not None
+            and c["res"] == res
+            and c["rev"] == rev
+            and len(scans) >= c["n"]
+            and scans[c["n"] - 1].unique_id == c["last_uid"]
+        ):
+            new = scans[c["n"]:]
+            if not new:
+                return c["grid"]
+            # the incremental fold is exact only while the map extent is
+            # unchanged (extent = union of scan bounding boxes)
+            if all(
+                np.all(s.bounding_box[0] >= c["mins"])
+                and np.all(s.bounding_box[1] <= c["maxs"])
+                for s in new
+            ):
+                grid = occupancy.add_scans_incremental(
+                    c["grid"], new,
+                    self.config.min_pass_through,
+                    self.config.occupancy_threshold,
+                    device=self.device,
+                )
+                self._grid_cache = dict(
+                    c, grid=grid, n=len(scans),
+                    last_uid=scans[-1].unique_id,
+                )
+                return grid
+        grid = occupancy.create_from_scans(
+            scans, res,
+            self.config.min_pass_through,
+            self.config.occupancy_threshold,
+            device=self.device,
+        )
+        mins = np.full(2, np.inf)
+        maxs = np.full(2, -np.inf)
+        for s in scans:
+            bb = s.bounding_box
+            mins = np.minimum(mins, bb[0])
+            maxs = np.maximum(maxs, bb[1])
+        self._grid_cache = {
+            "res": res, "rev": rev, "n": len(scans),
+            "last_uid": scans[-1].unique_id,
+            "mins": mins, "maxs": maxs, "grid": grid,
+        }
+        return grid
 
+    # -- services -----------------------------------------------------------
     def serialize(self, path: str) -> None:
-        raise NotImplementedError("serialization is not ported yet")
+        from slam_toolbox_tpu_torch.io.serialization import save_snapshot
 
-    def deserialize(self, path: str, *args, **kwargs) -> None:
-        raise NotImplementedError("serialization is not ported yet")
+        self.flush()
+        save_snapshot(self.mapper, path)
+
+    def deserialize(
+        self,
+        path: str,
+        match_type: MatchType = MatchType.UNSET,
+        initial_pose: Optional[np.ndarray] = None,
+    ) -> None:
+        """deserializePoseGraphCallback (slam_toolbox_common.cpp:1020-1079)
+        for mapping: load the snapshot into this session's mapper and
+        continue from its last scan (UNSET), at node 0 (START_AT_FIRST_NODE)
+        or near `initial_pose` (START_AT_GIVEN_POSE)."""
+        from slam_toolbox_tpu_torch.io.serialization import load_snapshot
+
+        if match_type == MatchType.LOCALIZE_AT_POSE:
+            raise NotImplementedError(
+                "LOCALIZE_AT_POSE needs localization mode, which is not "
+                "ported yet (ROADMAP Queue 1 item 7)")
+        self.flush()
+        # the pipeline's device ring, pack pool and slots refer to the
+        # pre-load session; a new one seeds from the loaded running scans
+        self._pipe = None
+        self._grid_cache = None  # new graph object: pose_revision resets
+        load_snapshot(path, self.mapper)
+        scans = self.mapper.all_processed_scans()
+        if scans:
+            self.laser = scans[0].laser
+        self.mapper.solver.compute()
+        # prebuild the incremental query structure here (one-time load
+        # cost) rather than on the first query near an old region
+        if self.mapper.graph is not None:
+            self.mapper.graph._query_structure()
+        if match_type == MatchType.START_AT_FIRST_NODE:
+            self.processor_type = ProcessType.PROCESS_FIRST_NODE
+        elif match_type == MatchType.START_AT_GIVEN_POSE:
+            self.processor_type = ProcessType.PROCESS_NEAR_REGION
+            self.process_near_pose = np.asarray(initial_pose, np.float64)
 
     # -- pause domains (toolbox_types.hpp:77-117) ---------------------------
     @property
@@ -444,6 +566,7 @@ class SlamSession:
 
     def reset(self) -> None:
         self._pipe = None
+        self._grid_cache = None
         self.mapper.reset()
         self.processor_type = ProcessType.PROCESS
         self.scan_count = 0
@@ -463,6 +586,12 @@ class SlamSession:
         if self._pipe is not None:
             self._pipe.settle()
         return self.mapper.solver.get_graph()
+
+    def localization_buffer_uids(self) -> set:
+        """Unique ids of the elastic localization-buffer scans, the
+        vertices the assistant renders in a distinct color
+        (loop_closure_assistant.cpp:157-273); empty while mapping."""
+        return {s.unique_id for s in self.mapper.localization_buffer}
 
     @property
     def trajectory(self) -> np.ndarray:

@@ -20,6 +20,11 @@ import slam_toolbox_tpu_torch.kernels.match_cuda
 import slam_toolbox_tpu_torch.kernels.loop_verify
 import slam_toolbox_tpu_torch.mapper.streaming
 import slam_toolbox_tpu_torch.io.dataset
+import slam_toolbox_tpu_torch.io.carmen
+import slam_toolbox_tpu_torch.io.serialization
+import slam_toolbox_tpu_torch.kernels.occupancy
+import slam_toolbox_tpu_torch.api.cli, slam_toolbox_tpu_torch.api.merge
+import slam_toolbox_tpu_torch.api.viz
 import chip_smoke
 import profile_torch
 print(json.dumps(sorted(

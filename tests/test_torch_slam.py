@@ -107,5 +107,10 @@ def test_session_reports_pose_and_transform():
     nodes, edges = sess.get_graph()
     assert len(nodes) == len(sess.trajectory) and edges
     sess.flush()
+    grid = sess.get_occupancy_grid()
+    assert grid.cells.ndim == 2 and (grid.cells == 100).any()
+    from slam_toolbox_tpu_torch.api import MatchType
+
     with pytest.raises(NotImplementedError):
-        sess.get_occupancy_grid()
+        sess.deserialize("unused.npz", MatchType.LOCALIZE_AT_POSE,
+                         initial_pose=np.zeros(3))
