@@ -80,7 +80,23 @@ Phases, in order; any failure exits non-zero and nothing is caught:
                 streaming (test_fixture_end_to_end's bars), and `cli
                 merge` of the two; K1-K3 launches of the align and CLI
                 paths by grid;
- 11. the kernels line (JSON), the card's name and power limit, and the
+ 11. modes    — config 3's lifelong deployment (scripts/bench_suite.py's
+                warehouse, 1081 beams, seed 11, cut to its first 6,400
+                raw scans) through SlamSession(streaming=True,
+                drain_every=96) with LifelongMapper.stream_hook and
+                marginalize_on_removal: survivors-ATE below half of their
+                odometry's, a closure, second-half growth below 0.02
+                nodes/scan, a marginalized removal; then on that map 200
+                scans in localization and 200 back in mapping,
+                set_initial_pose (relocalized within 0.1 m) and
+                manual_loop_closure (card and CPU equal to 1e-6 m);
+                config 4's localization against a 10,000-node prior (cut
+                from 100,010) over 4 rows out and back, LOCALIZE_AT_POSE
+                with drains of 16: rmse below 0.35 m, the graph bounded by
+                prior + buffer, an accepted closure, a windowed solve, and
+                with SPEC_LOOP off the same trajectory bit for bit; K1-K3
+                launches by grid, every grid one that phase 2 checked;
+ 12. the kernels line (JSON), the card's name and power limit, and the
      last line {"ok": true, "device": {...}}.
 
 It exits non-zero with no result when no CUDA device is present. It imports
@@ -91,6 +107,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import json
+import os
 import subprocess
 import sys
 import tempfile
@@ -198,6 +215,13 @@ def run_session(sess, data, on_scan=None, t0: float = 0.0):
             np.asarray(drains))
 
 
+def stage_times(sess) -> dict:
+    """The session's per-stage host times: {stage: {calls, ms}}."""
+    st = sess.stats
+    return {k: {"calls": st.counts[k], "ms": 1e3 * v}
+            for k, v in sorted(st.seconds.items())}
+
+
 def run_mapping(sess, data, tag: str, need_closure: bool = True):
     """The main-path run of one session on the card: launch counts from 0,
     the scans, the flush, the counts read. Prints rate, latency, ATE,
@@ -225,8 +249,7 @@ def run_mapping(sess, data, tag: str, need_closure: bool = True):
         raise AssertionError(f"{tag}: non-finite or misshapen trajectory")
     ate, ate_odom = ate_rmse(traj, gt), ate_rmse(odo, gt)
     st = sess.stats
-    stages = {k: {"calls": st.counts[k], "ms": 1e3 * v}
-              for k, v in sorted(st.seconds.items())}
+    stages = stage_times(sess)
     verifies = st.counts["loop_verify_dispatch"] + st.counts["loop_verify"]
     print(f"# {tag}: {len(data)} scans in, {len(est)} accepted, {wall} s, "
           f"{len(est) / wall} scans/s, latency of the {len(lat)} calls "
@@ -1446,6 +1469,633 @@ def map_path(main_run, cfg, laser, data, dev, workdir):
                 patterns=cli_patterns)
 
 
+# -- phase 11: the modes ------------------------------------------------------
+# Own copies of scripts/bench_suite.py's config-3 and config-4 worlds,
+# laser, configuration and prior snapshot (that file imports the JAX
+# package inside its functions), on the port's io/dataset and serialization.
+
+MODES_LIFELONG_SCANS = 6400    # config 3's first 6,400 of 19,241 raw scans
+MODES_SWITCH_SCANS = 200       # per mode in the switch check
+MODES_PRIOR_NODES = 10000      # config 4's prior, cut from 100,010 nodes
+MODES_LOOP_ROWS = 4            # config 4's circuit: 4 rows out and back
+# config 3's steady-state trigger as CONFIG3.json's bounded variants ran
+# it (SLAM_SS_MIN=20 there); LifelongConfig's default 0 is the reference's
+# decay alone, which does not plateau (0.78 nodes/scan in that record)
+MODES_SS_MIN = 20
+
+
+def warehouse(aisles: int = 4, length: float = 30.0, pitch: float = 4.0):
+    """bench_suite._warehouse: aisles of racks with a mid-aisle gap and
+    rack clutter every ~7 m, outer walls (no freestanding clutter, its
+    default)."""
+    from slam_toolbox_tpu_torch.io.dataset import SegmentWorld
+
+    w = aisles * pitch + 4.0
+    h = length + 4.0
+    segs = [(-2, -2, w - 2, -2), (w - 2, -2, w - 2, h - 2),
+            (w - 2, h - 2, -2, h - 2), (-2, h - 2, -2, -2)]
+    for a in range(aisles):
+        x = a * pitch + pitch / 2
+        segs.append((x, 0.5, x, length / 2 - 1.5))
+        segs.append((x, length / 2 + 1.5, x, length - 0.5))
+        y0 = 2.0 + 1.3 * a
+        while y0 < length - 2.0:
+            d = 0.25 + 0.15 * ((a + int(y0)) % 3)
+            segs.append((x - d, y0, x, y0))
+            segs.append((x - d, y0, x - d, y0 + 0.6))
+            segs.append((x - d, y0 + 0.6, x, y0 + 0.6))
+            y0 += 6.5 + 0.9 * ((a * 7 + int(y0)) % 3)
+    return SegmentWorld(segs), aisles, length, pitch
+
+
+def serpentine(aisles, length, pitch):
+    """bench_suite._serpentine: up one aisle, down the next."""
+    import numpy as np
+
+    wps = []
+    for a in range(aisles):
+        x = a * pitch
+        wps += [(x, 0.0), (x, length)] if a % 2 == 0 else [(x, length),
+                                                            (x, 0.0)]
+    return np.array(wps)
+
+
+def rows_world(n_rows: int, width: float = 62.0):
+    """bench_suite._rows_world: horizontal broken-shelving rows every 2 m
+    with per-row gap phases and boxes, walls at both x ends."""
+    import numpy as np
+
+    from slam_toolbox_tpu_torch.io.dataset import SegmentWorld
+
+    segs = []
+    for row in range(n_rows):
+        y = row * 2.0 - 1.0
+        phase = (row * 1.7) % 7.0
+        for x0 in np.arange(-1.0 + phase - 7.0, width, 7.0):
+            a = max(x0, 2.5)
+            b = min(x0 + 5.5, width - 2.5)
+            if b > a:
+                segs.append((a, y, b, y))
+        xb = 3.5 + ((row * 13) % 11)
+        while xb < width - 3.5:
+            d = 0.3 + 0.15 * ((row + int(xb)) % 3)
+            segs.append((xb, y, xb, y + d))
+            segs.append((xb, y + d, xb + 0.7, y + d))
+            segs.append((xb + 0.7, y + d, xb + 0.7, y))
+            xb += 6.3 + ((row * 7 + int(xb) * 3) % 5)
+    segs.append((-1.0, -1.0, -1.0, n_rows * 2.0))
+    segs.append((width, -1.0, width, n_rows * 2.0))
+    return SegmentWorld(np.array(segs, dtype=np.float64))
+
+
+def window(world, lo, hi, margin: float):
+    """The segments of `world` whose bounding boxes come within `margin`
+    of the box [lo, hi]: a raycast from inside the box to at most
+    `margin` hits exactly what it hits in the whole world."""
+    import numpy as np
+
+    from slam_toolbox_tpu_torch.io.dataset import SegmentWorld
+
+    s = world.segments
+    keep = ((np.maximum(s[:, 0], s[:, 2]) >= lo[0] - margin)
+            & (np.minimum(s[:, 0], s[:, 2]) <= hi[0] + margin)
+            & (np.maximum(s[:, 1], s[:, 3]) >= lo[1] - margin)
+            & (np.minimum(s[:, 1], s[:, 3]) <= hi[1] + margin))
+    return SegmentWorld(s[keep])
+
+
+def suite_laser(beam_deg: float = 1.0 / 3):
+    """bench_suite._laser: 1081 beams over 360 degrees at its default."""
+    import numpy as np
+
+    from slam_toolbox_tpu_torch.core.scan import LaserConfig
+
+    return LaserConfig(min_range=0.05, max_range=12.0, range_threshold=10.0,
+                       angular_resolution=np.deg2rad(beam_deg))
+
+
+def suite_cfg(**kw):
+    """bench_suite._cfg: bench.py's mapper settings (G 2051 and 561)."""
+    from slam_toolbox_tpu_torch.core.params import MapperConfig
+
+    base = dict(
+        minimum_travel_distance=0.2, minimum_time_interval=3600.0,
+        scan_buffer_size=10,
+        link_match_minimum_response_fine=0.1,
+        link_scan_maximum_distance=1.5,
+        loop_search_maximum_distance=3.0,
+        loop_match_minimum_response_coarse=0.35,
+        loop_match_minimum_response_fine=0.45,
+        loop_match_maximum_variance_coarse=3.0,
+        correlation_search_space_dimension=0.5,
+        correlation_search_space_resolution=0.01,
+        correlation_search_space_smear_deviation=0.1,
+        distance_variance_penalty=0.5, angle_variance_penalty=1.0,
+    )
+    base.update(kw)
+    return MapperConfig(**base)
+
+
+def loc_cfg(**kw):
+    """bench_suite's config-4 localization settings (its _loc_cfg): the
+    self-similarity gates, the windowed solve, a loop attempt every 16
+    scans."""
+    return suite_cfg(**{**dict(
+        minimum_travel_distance=0.2,
+        loop_match_maximum_variance_coarse=0.16,
+        loop_match_maximum_variance_fine=0.09,
+        loop_closure_maximum_jump=1.0,
+        localization_solve_radius=20.0,
+        loop_attempt_interval_scans=16), **kw})
+
+
+def build_prior_snapshot(path, n_nodes, laser, seed=7, dev="cpu"):
+    """bench_suite.build_prior_snapshot: a config-4-scale prior written
+    directly (simulated scans at serpentine poses over rows_world, an
+    odometry chain plus a cross-row edge every 8th node, corrected poses
+    with residual noise), saved with the port's save_snapshot. Each row's
+    ranges come from its own simulator (seed 100 + row), raycast against
+    the segments within the range of the pose, which hit what the whole
+    world would. Returns (world, build s, save s)."""
+    import numpy as np
+
+    from slam_toolbox_tpu_torch.core.params import MapperConfig
+    from slam_toolbox_tpu_torch.core.scan import LocalizedScan
+    from slam_toolbox_tpu_torch.io.dataset import LidarSimulator
+    from slam_toolbox_tpu_torch.io.serialization import save_snapshot
+    from slam_toolbox_tpu_torch.mapper import Mapper
+
+    step, width = 0.3, 62.0
+    per_row = int(60.0 / step)
+    n_rows = (n_nodes + per_row - 1) // per_row + 1
+    world = rows_world(n_rows, width)
+    rng = np.random.default_rng(seed)
+    reach = laser.max_range + 0.5
+    t0 = time.perf_counter()
+    m = Mapper(MapperConfig(use_scan_matching=False), device=dev)
+    m.initialize(laser.range_threshold)
+    sm = m.sensor_manager
+    cov_odom = np.diag([1e-3, 1e-3, 1e-4])
+    cov_loop = np.diag([4e-3, 4e-3, 4e-4])
+    prev, scans, sim, row_world = None, [], None, None
+    for i in range(n_nodes):
+        row, k = divmod(i, per_row)
+        if k == 0:
+            y = row * 2.0
+            row_world = window(world, (0.0, y), (width, y), reach)
+            sim = LidarSimulator(row_world, laser, range_noise=0.01,
+                                 seed=100 + row)
+        y = row * 2.0
+        x = 1.0 + k * step if row % 2 == 0 else 1.0 + (per_row - 1 - k) * step
+        gt = np.array([x, y, 0.0 if row % 2 == 0 else np.pi])
+        sim.world = window(row_world, gt[:2], gt[:2], reach)
+        r = sim.scan_at(gt)
+        corrected = gt + rng.normal(0, [0.015, 0.015, 0.004])
+        odom = gt + rng.normal(0, [0.05, 0.05, 0.01])
+        s = LocalizedScan(laser, r, odom, time=float(i))
+        s.set_corrected_pose(corrected)
+        sm.add_scan(s)
+        m.graph.add_vertex(s)
+        if prev is not None:
+            m.graph.link_scans(prev, s, s.sensor_pose, cov_odom)
+        if row > 0 and k % 8 == 0:
+            j = (row - 1) * per_row + (k if row % 2 == 1
+                                       else per_row - 1 - k)
+            if 0 <= j < len(scans):
+                m.graph.link_scans(scans[j], s, s.sensor_pose, cov_loop)
+        scans.append(s)
+        sm.set_last_scan(s)
+        prev = s
+    for s in scans[-8:]:
+        sm.add_running_scan(s)
+    t1 = time.perf_counter()
+    save_snapshot(m, path)
+    return world, t1 - t0, time.perf_counter() - t1
+
+
+def loc_circuit(world, laser, lap_rows: int = MODES_LOOP_ROWS, seed=29):
+    """bench_suite's config-4 circuit: a serpentine over the first
+    `lap_rows` rows and back (closed), fresh noise, simulated against the
+    segments within range of the rows it drives."""
+    import numpy as np
+
+    from slam_toolbox_tpu_torch.io.dataset import LidarSimulator
+
+    wps = []
+    for row in range(lap_rows):
+        y = row * 2.0
+        wps += ([(1.0, y), (60.7, y)] if row % 2 == 0
+                else [(60.7, y), (1.0, y)])
+    for row in range(lap_rows - 1, -1, -1):
+        y = row * 2.0
+        wps += ([(60.7, y), (1.0, y)] if row % 2 == 0
+                else [(1.0, y), (60.7, y)])
+    near = window(world, (0.0, 0.0), (62.0, 2.0 * (lap_rows - 1)),
+                  laser.max_range + 0.5)
+    sim = LidarSimulator(near, laser, range_noise=0.01,
+                         odom_noise=(0.012, 0.005), seed=seed)
+    return sim.simulate(np.array(wps), step=0.3)
+
+
+def timed_host(fn):
+    """(fn(), host seconds) for host work (simulation, snapshot
+    building)."""
+    t0 = time.perf_counter()
+    out = fn()
+    return out, time.perf_counter() - t0
+
+
+def survivors_ate(sess, gts, odos):
+    """(ATE of the surviving nodes' corrected poses, of their odometry)
+    against ground truth, raw RMSE in the map frame as bench_suite's
+    config 3 takes it (unique_id is the accepted order)."""
+    import numpy as np
+
+    surv = [s for s in sess.mapper.all_processed_scans()
+            if s.unique_id < len(gts)]
+    gt = np.stack([gts[s.unique_id][:2] for s in surv])
+    est = np.stack([s.corrected_pose[:2] for s in surv])
+    odo = np.stack([odos[s.unique_id][:2] for s in surv])
+    rms = lambda d: float(np.sqrt(np.mean(np.sum(d * d, axis=1))))
+    return rms(est - gt), rms(odo - gt), len(surv)
+
+
+def counted(fn, box: dict, key: str, when=lambda out: True):
+    """fn wrapped to add one to box[key] per call whose result passes
+    `when`."""
+    def wrapped(*a, **kw):
+        out = fn(*a, **kw)
+        if when(out):
+            box[key] = box.get(key, 0) + 1
+        return out
+    return wrapped
+
+
+def lifelong_run(dev, data, cfg, laser, n_scans, check_grids):
+    """Config 3 on the card: the first n_scans of the lapped warehouse
+    through SlamSession(streaming=True, drain_every=96) with
+    LifelongMapper.stream_hook as the pipeline's post_finish, removals
+    marginalized. Prints the node curve and the bars' numbers; returns
+    the session, the ground truth and odometry of the accepted scans, and
+    the launches by grid."""
+    import numpy as np
+    import torch
+
+    from slam_toolbox_tpu_torch.api import SlamSession
+    from slam_toolbox_tpu_torch.kernels import match_cuda as mc
+    from slam_toolbox_tpu_torch.mapper.lifelong import (
+        LifelongConfig, LifelongMapper,
+    )
+
+    sess = SlamSession(cfg, laser, streaming=True, drain_every=96,
+                       device=dev)
+    sess.stats.enabled = True
+    closures = []
+    sess.mapper.listeners.append(closures.append)
+    ll = LifelongMapper(
+        sess.mapper, LifelongConfig(steady_state_min_candidates=MODES_SS_MIN))
+    decay_s = [0.0]
+
+    def hook(scan):   # stream_hook, timed
+        t = time.perf_counter()
+        try:
+            return ll.stream_hook(scan)
+        finally:
+            decay_s[0] += time.perf_counter() - t
+
+    sess._ensure_pipe().post_finish = hook
+    curve, gts, odos, errs = [], [], [], []
+    half_nodes = None
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    mc.reset_launch_counts()
+    t0 = time.perf_counter()
+    for i, (scan, tp) in enumerate(data[:n_scans]):
+        out = sess.process_scan(scan.ranges, scan.odom_pose, time=i * 0.1)
+        if out is not None:
+            gts.append(tp)
+            odos.append(scan.odom_pose)
+            errs.append(float(np.hypot(*(out[0][:2] - tp[:2]))))
+        if i % 800 == 0:
+            curve.append((i, sess.mapper.solver.n_nodes))
+        if i == n_scans // 2:
+            half_nodes = sess.mapper.solver.n_nodes
+    sess.flush()
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    by_grid = launches_by_grid()
+    check_grids("lifelong", by_grid)
+    nodes = sess.mapper.solver.n_nodes
+    curve.append((n_scans, nodes))
+    growth = (nodes - half_nodes) / (n_scans - n_scans // 2)
+    ate, ate_odo, n_surv = survivors_ate(sess, gts, odos)
+    e = np.asarray(errs)
+    counts = sess.stats.counts
+    marg = {k: counts[k] for k in ("marginal_factor_added",
+                                   "marginal_factor_dup_skipped")}
+    print(f"# lifelong: {n_scans} of the warehouse's raw scans (cut from "
+          f"19,241 for the time limit), {len(gts)} accepted, {wall} s, "
+          f"{len(gts) / wall} scans/s; nodes every 800 scans "
+          f"{json.dumps(curve)}, final {nodes}, second-half growth "
+          f"{growth} nodes/scan", flush=True)
+    print(f"# lifelong: survivors-ATE {ate} m over {n_surv} survivors vs "
+          f"their odometry's {ate_odo} m, online error p50 "
+          f"{np.percentile(e, 50)} m p95 {np.percentile(e, 95)} m, "
+          f"{len(closures)} loop closures, {json.dumps(marg)}, launches "
+          f"by grid {by_grid}", flush=True)
+    print(f"# lifelong stages (calls, host ms): "
+          f"{json.dumps(stage_times(sess))}; the decay (stream_hook) "
+          f"{1e3 * decay_s[0]} ms", flush=True)
+    if not ate < 0.5 * ate_odo:
+        raise AssertionError(f"lifelong: survivors-ATE {ate} not below "
+                             f"half of {ate_odo}")
+    if not closures:
+        raise AssertionError("lifelong: no loop closure fired")
+    if not growth < 0.02:
+        raise AssertionError(f"lifelong: growth {growth} nodes/scan")
+    if marg["marginal_factor_added"] < 1:
+        raise AssertionError("lifelong: no marginalized removal")
+    missing = [k for k in PATH_KERNELS if not by_grid[k]]
+    if missing:
+        raise AssertionError(f"lifelong: kernels never launched: {missing}")
+    return dict(sess=sess, gts=gts, odos=odos, by_grid=by_grid,
+                raw_scans=n_scans)
+
+
+class GateCounter:
+    """A mapper event listener counting the loop-closure checks by gate:
+    candidates (coarse checks), past the coarse gates (fine checks),
+    rejected by the fine response, the fine variance or the jump, and
+    closed."""
+
+    def __init__(self):
+        self.counts = dict(candidates=0, past_coarse=0, rejected_fine=0,
+                           rejected_variance=0, rejected_jump=0, closed=0)
+
+    def info(self, msg):
+        pass
+
+    debug = begin_loop_closure = info
+
+    def loop_closure_check(self, msg):
+        c = self.counts
+        if msg.startswith("COARSE RESPONSE"):
+            c["candidates"] += 1
+        elif msg.startswith("FINE RESPONSE"):
+            c["past_coarse"] += 1
+        elif msg.startswith("REJECTED (fine variance)"):
+            c["rejected_variance"] += 1
+        elif msg.startswith("REJECTED (jump"):
+            c["rejected_jump"] += 1
+        elif msg.startswith("REJECTED!"):
+            c["rejected_fine"] += 1
+
+    def end_loop_closure(self, msg):
+        self.counts["closed"] += 1
+
+
+def localization_run(tag, dev, snap, circuit, laser, cfg, n_prior,
+                     check_grids, **switches):
+    """Config 4 on the card: SlamSession(mode="localization",
+    streaming=True, drain_every=16) loads the prior with LOCALIZE_AT_POSE
+    at the circuit's first true pose, primes on its first scan and runs
+    the rest, with the streaming module's `switches` set. Prints the
+    numbers; returns the online poses, the trajectory and the counts."""
+    import numpy as np
+    import torch
+
+    from slam_toolbox_tpu_torch.api import MatchType, SlamSession
+    from slam_toolbox_tpu_torch.kernels import match_cuda as mc
+    from slam_toolbox_tpu_torch.mapper import streaming as ts
+
+    old = {k: getattr(ts, k) for k in switches}
+    for k, v in switches.items():
+        setattr(ts, k, v)
+    try:
+        sess = SlamSession(cfg, laser, mode="localization", streaming=True,
+                           drain_every=16, device=dev)
+        sess.stats.enabled = True
+        _, load_s = timed_host(lambda: sess.deserialize(
+            snap, MatchType.LOCALIZE_AT_POSE, initial_pose=circuit[0][1]))
+        if sess.mapper.solver.n_nodes != n_prior:
+            raise AssertionError(f"{tag}: loaded {sess.mapper.solver.n_nodes}"
+                                 f" of {n_prior} nodes")
+        gates = GateCounter()
+        sess.mapper.add_listener(gates)
+        solves = {}
+        solver = sess.mapper.solver
+        solver.compute_window = counted(solver.compute_window, solves,
+                                        "windowed", lambda o: o is not None)
+        solver.compute = counted(solver.compute, solves, "full")
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        mc.reset_launch_counts()
+        poses, errs = [], []
+        t0 = time.perf_counter()
+        for i, (scan, tp) in enumerate(circuit):
+            out = sess.process_scan(scan.ranges, scan.odom_pose, time=i * 0.1)
+            if i == 0:
+                prime_s = time.perf_counter() - t0
+            if out is not None:
+                poses.append(np.array(out[0]))
+                errs.append(float(np.hypot(*(out[0][:2] - tp[:2]))))
+        sess.flush()
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        by_grid = launches_by_grid()
+        check_grids(tag, by_grid)
+    finally:
+        for k, v in old.items():
+            setattr(ts, k, v)
+    e = np.asarray(errs)
+    rmse = float(np.sqrt(np.mean(e * e)))
+    nodes = sess.mapper.solver.n_nodes
+    counts = sess.stats.counts
+    spec = {k: counts[k] for k in SPEC_COUNTS}
+    print(f"# {tag}: prior {n_prior} nodes loaded in {load_s} s, prime "
+          f"{prime_s} s, {len(poses)} of {len(circuit)} scans in {wall} s "
+          f"(prime included), {len(poses) / wall} scans/s; error p50 "
+          f"{np.percentile(e, 50)} m p95 {np.percentile(e, 95)} m max "
+          f"{e.max()} m rmse {rmse} m; nodes {nodes} (prior + buffer "
+          f"{n_prior + cfg.scan_buffer_size}); solves {json.dumps(solves)}; "
+          f"loop gates {json.dumps(gates.counts)}", flush=True)
+    print(f"# {tag} speculation: {json.dumps(spec)}, launches by grid "
+          f"{by_grid}", flush=True)
+    print(f"# {tag} stages (calls, host ms): "
+          f"{json.dumps(stage_times(sess))}", flush=True)
+    if not rmse < 0.35:
+        raise AssertionError(f"{tag}: rmse {rmse} m")
+    if nodes > n_prior + cfg.scan_buffer_size + 1:
+        raise AssertionError(f"{tag}: {nodes} nodes, prior {n_prior}")
+    if gates.counts["closed"] < 1:
+        raise AssertionError(f"{tag}: no localization closure accepted")
+    if solves.get("windowed", 0) < 1:
+        raise AssertionError(f"{tag}: no windowed solve")
+    missing = [k for k in PATH_KERNELS if not by_grid[k]]
+    if missing:
+        raise AssertionError(f"{tag}: kernels never launched: {missing}")
+    return dict(poses=np.stack(poses), traj=sess.trajectory, spec=spec,
+                by_grid=by_grid, rate=len(poses) / wall, rmse=rmse)
+
+
+def mode_switches(ll, data, laser, dev, workdir):
+    """The mode switches on the lifelong session's map: 200 scans in
+    localization (the buffer bounds the graph), 200 back in mapping (the
+    buffer's nodes stay); set_initial_pose 0.15 m and 0.03 rad off a
+    fresh scan's pose next to a surviving node, which relocalizes within
+    0.1 m of where the map puts it; manual_loop_closure moving one node
+    0.5 m, on the card and on the CPU from the same snapshot (poses equal
+    to 1e-6 m)."""
+    import numpy as np
+
+    from slam_toolbox_tpu_torch.api import SlamSession
+    from slam_toolbox_tpu_torch.core import geometry
+    from slam_toolbox_tpu_torch.io.dataset import LidarSimulator
+
+    sess, n0, start = ll["sess"], len(ll["gts"]), ll["raw_scans"]
+    if len(data) < start + 2 * MODES_SWITCH_SCANS:
+        raise AssertionError("switch: the simulation is too short")
+    t_phase = time.perf_counter()
+    nodes = [sess.mapper.solver.n_nodes]
+    sess.toggle_mode("localization")
+    chunk = data[start:start + MODES_SWITCH_SCANS]
+    run_session(sess, chunk, t0=0.1 * start)
+    buffered = len(sess.localization_buffer_uids())
+    nodes.append(sess.mapper.solver.n_nodes)
+    sess.toggle_mode("mapping")
+    if sess.localization_buffer_uids():
+        raise AssertionError("switch: the buffer did not empty")
+    nodes.append(sess.mapper.solver.n_nodes)
+    chunk = data[start + MODES_SWITCH_SCANS:start + 2 * MODES_SWITCH_SCANS]
+    est, _, _, _, _ = run_session(sess, chunk,
+                                  t0=0.1 * (start + MODES_SWITCH_SCANS))
+    nodes.append(sess.mapper.solver.n_nodes)
+    if not (nodes[1] <= nodes[0] + sess.config.scan_buffer_size + 1
+            and nodes[2] == nodes[1] and nodes[3] > nodes[2]):
+        raise AssertionError(f"switch: node counts {nodes}")
+    # set_initial_pose next to a surviving node of the first lap's middle
+    surv = {s.unique_id: s for s in sess.mapper.all_processed_scans()}
+    uid = min(surv, key=lambda u: abs(u - n0 // 20))
+    node_true, node_map = ll["gts"][uid], np.array(surv[uid].corrected_pose)
+    true_pose = node_true + np.array([0.12, 0.06, 0.02])
+    sim = LidarSimulator(warehouse()[0], laser, range_noise=0.01, seed=97)
+    expect = np.asarray(geometry.compose(
+        node_map, geometry.relative_pose(node_true, true_pose)))
+    guess = expect + np.array([0.15, -0.1, 0.03])
+    sess.set_initial_pose(guess)
+    pose, _ = sess.process_scan(sim.scan_at(true_pose), guess,
+                                time=0.1 * (start + 2 * MODES_SWITCH_SCANS))
+    reloc = float(np.hypot(*(pose[:2] - expect[:2])))
+    print(f"# switch: nodes {nodes[0]}, after {MODES_SWITCH_SCANS} scans in "
+          f"localization {nodes[1]} ({buffered} buffered), back in mapping "
+          f"{nodes[2]}, after {len(est)} more {nodes[3]}; set_initial_pose "
+          f"0.18 m off next to node {uid}: relocalized {reloc} m from the "
+          f"map's pose", flush=True)
+    if not reloc < 0.1:
+        raise AssertionError(f"switch: relocalized {reloc} m off")
+    # manual_loop_closure: the same call on the card and on the CPU, both
+    # from the snapshot of this map
+    snap = os.path.join(workdir, "switched.npz")
+    sess.serialize(snap)
+    out, moved = {}, {}
+    scans = sess.mapper.all_processed_scans()
+    mid = scans[len(scans) // 2].unique_id
+    for where in ((dev, "cpu") if dev.type == "cuda" else ("cpu",)):
+        s2 = SlamSession(sess.config, laser, device=where)
+        s2.deserialize(snap)
+        before = {s.unique_id: np.array(s.corrected_pose)
+                  for s in s2.mapper.all_processed_scans()}
+        target = [before[mid][0] + 0.5, before[mid][1], 0.0]
+        s2.manual_loop_closure([(mid, target)])
+        after = {s.unique_id: np.array(s.corrected_pose)
+                 for s in s2.mapper.all_processed_scans()}
+        d = {u: float(np.hypot(*(after[u][:2] - before[u][:2])))
+             for u in after}
+        out[str(where)] = after
+        moved[str(where)] = (d[mid], max(d.values()),
+                             sum(v > 1e-3 for v in d.values()))
+    gap = 0.0
+    if len(out) == 2:
+        a, b = out.values()
+        gap = max(float(np.hypot(*(a[u][:2] - b[u][:2]))) for u in a)
+    print(f"# switch: manual_loop_closure moving node {mid} 0.5 m: after the "
+          f"solve it sits {moved[str(dev)][0]} m from its pose before the "
+          f"move (its edges pull it back), the largest move "
+          f"{moved[str(dev)][1]} m, {moved[str(dev)][2]} nodes moved over "
+          f"1 mm; card vs CPU max position difference {gap} m; phase part "
+          f"{time.perf_counter() - t_phase} s", flush=True)
+    if gap > 1e-6:
+        raise AssertionError(f"switch: card and CPU differ by {gap} m")
+
+
+def modes_path(dev, workdir, checked_grids,
+               lifelong_scans=MODES_LIFELONG_SCANS,
+               prior_nodes=MODES_PRIOR_NODES, loop_rows=MODES_LOOP_ROWS,
+               resolution=0.01, beam_deg=1.0 / 3, laps=15):
+    """Phase 11, the modes: config 3's lifelong deployment (cut in
+    length), config 4's localization (a smaller prior) with SPEC_LOOP on
+    and off, and the mode switches on the lifelong map. `checked_grids`
+    are the grid sides phase 2 held K1-K3 at; a run at another fails.
+    Returns the K1-K3 launches by grid of the lifelong and localization
+    runs."""
+    import numpy as np
+
+    from slam_toolbox_tpu_torch.io.dataset import LidarSimulator
+
+    t_phase = time.perf_counter()
+
+    def check_grids(tag, by_grid):
+        seen = {int(G) for k in PATH_KERNELS for G in by_grid[k]}
+        if not seen <= set(checked_grids):
+                raise AssertionError(
+                f"{tag}: K1-K3 ran at grids {seen - set(checked_grids)} "
+                f"that no phase held to their plain versions")
+
+    laser = suite_laser(beam_deg)
+    world, aisles, length, pitch = warehouse()
+    sim = LidarSimulator(world, laser, range_noise=0.01,
+                         odom_noise=(0.012, 0.005), seed=11)
+    data, sim_s = timed_host(lambda: sim.simulate(
+        np.concatenate([serpentine(aisles, length, pitch)] * laps),
+        step=0.3))
+    print(f"# modes: the warehouse's {laps} laps, {len(data)} raw scans "
+          f"simulated in {sim_s} s", flush=True)
+    ll = lifelong_run(
+        dev, data, suite_cfg(loop_match_minimum_chain_size=5,
+                             marginalize_on_removal=True,
+                             correlation_search_space_resolution=resolution),
+        laser, lifelong_scans, check_grids)
+    mode_switches(ll, data, laser, dev, workdir)
+
+    snap = os.path.join(workdir, "prior.npz")
+    (world4, build_s, save_s), _ = timed_host(
+        lambda: build_prior_snapshot(snap, prior_nodes, laser, dev=dev))
+    circuit, circ_s = timed_host(lambda: loc_circuit(world4, laser, loop_rows))
+    print(f"# localization prior: {prior_nodes} nodes built in {build_s} s, "
+          f"saved in {save_s} s, {os.path.getsize(snap)} bytes; circuit "
+          f"{len(circuit)} scans ({loop_rows} rows out and back) simulated "
+          f"in {circ_s} s", flush=True)
+    cfg4 = loc_cfg(correlation_search_space_resolution=resolution)
+    loc = localization_run("localization", dev, snap, circuit, laser, cfg4,
+                           prior_nodes, check_grids)
+    off = localization_run("localization spec_loop off", dev, snap, circuit,
+                           laser, cfg4, prior_nodes, check_grids,
+                           SPEC_LOOP=False)
+    same = (np.array_equal(loc["traj"], off["traj"])
+            and np.array_equal(loc["poses"], off["poses"]))
+    print(f"# localization spec_loop on vs off: "
+          f"{'the same trajectory bit for bit' if same else 'DIFFERENT'}; "
+          f"{loc['rate']} and {off['rate']} scans/s, rmse {loc['rmse']} and "
+          f"{off['rmse']} m", flush=True)
+    if not same:
+        raise AssertionError("localization: SPEC_LOOP changed the result")
+    print(f"# modes phase: {time.perf_counter() - t_phase} s", flush=True)
+    return dict(lifelong=ll["by_grid"], loc=loc["by_grid"],
+                loc_spec=loc["spec"])
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -1600,7 +2250,13 @@ def main() -> int:
         map_launches = map_path(main_run, cfg16, laser16, data16, dev,
                                 workdir)
 
-    # 11. kernels line, card line, result line
+    # 11. the modes: config 3's lifelong deployment, config 4's
+    # localization, the mode switches; K1-K3 at the grids phase 2 checked
+    with tempfile.TemporaryDirectory() as workdir:
+        modes = modes_path(dev, workdir, (mapper.sequential_matcher.G,
+                                          mapper.loop_matcher.G))
+
+    # 12. kernels line, card line, result line
     rows = []
     for name in mc.KERNELS:
         if name == "score_ceiling":
@@ -1633,6 +2289,9 @@ def main() -> int:
                     "device_ms": r["device_ms"], "plain_ms": r["plain_ms"],
                     "bound_ms": r["bound"][0], "bound_by": r["bound"][1],
                     "library_ms": r["library_ms"]}
+            row["lifelong_launches_by_grid"] = modes["lifelong"][name]
+            row["loc_launches_by_grid"] = modes["loc"][name]
+            row["loc_spec"] = modes["loc_spec"]
             row["main_path_spec"] = main_run["spec"]
             row["spec_off_launches"] = off_run["launches"][name]
             row["no_sync_spec_route_launches"] = no_sync["spec_launches"][name]

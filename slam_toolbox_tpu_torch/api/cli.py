@@ -6,12 +6,12 @@ Usage:
   python -m slam_toolbox_tpu_torch.api.cli demo --out /tmp/run  # synthetic
   python -m slam_toolbox_tpu_torch.api.cli run --dataset scans.npz \
       --out /tmp/run
+  python -m slam_toolbox_tpu_torch.api.cli localize \
+      --snapshot run.posegraph.npz --dataset scans.npz --out /tmp/loc
   python -m slam_toolbox_tpu_torch.api.cli merge a.npz b.npz --out merged
 
 Every command runs on the card (`--device cuda`, the default) and raises
 without one; `--device cpu` runs the plain versions on the CPU.
-`localize` keeps its arguments and raises NotImplementedError until
-localization is ported (ROADMAP Queue 1 item 7).
 
 Dataset format (npz): ranges (N, B), odom (N, 3), times (N,), plus laser
 intrinsics as scalars (min_range, max_range, range_threshold, min_angle,
@@ -178,9 +178,57 @@ def _finish(sess, out_prefix, dt, n, est, gt, odo):
 
 def cmd_localize(args) -> int:
     """Elastic localization against a serialized prior graph (the
-    deserialize + LOCALIZE_AT_POSE service flow): not ported yet."""
-    raise NotImplementedError(
-        "localization is not ported yet (ROADMAP Queue 1 item 7)")
+    deserialize + LOCALIZE_AT_POSE service flow). Writes the localized
+    poses to <out>_localization.txt and the metrics to <out>_metrics.json
+    (with the per-scan error against the dataset's `gt` where it has one)."""
+    from slam_toolbox_tpu_torch.api import SlamSession
+    from slam_toolbox_tpu_torch.api.slam import MatchType
+    from slam_toolbox_tpu_torch.core.params import LOCALIZATION
+    from slam_toolbox_tpu_torch.core.scan import LaserConfig
+
+    z = np.load(args.dataset)
+    laser = LaserConfig(
+        min_range=float(z["min_range"]), max_range=float(z["max_range"]),
+        range_threshold=float(z["range_threshold"]),
+        min_angle=float(z["min_angle"]), max_angle=float(z["max_angle"]),
+        angular_resolution=float(z["angular_resolution"]),
+    )
+    cfg = LOCALIZATION.replace(minimum_time_interval=0.0)
+    sess = SlamSession(cfg, laser, mode="localization",
+                       streaming=args.streaming, drain_every=args.drain,
+                       device=args.device)
+    init = (np.asarray([float(v) for v in args.initial_pose.split(",")])
+            if args.initial_pose else np.asarray(z["odom"][0], np.float64))
+    sess.deserialize(args.snapshot, MatchType.LOCALIZE_AT_POSE,
+                     initial_pose=init)
+    t0 = time.time()
+    poses, errs = [], []
+    gt = z["gt"] if "gt" in z else None
+    for i in range(len(z["ranges"])):
+        t = float(z["times"][i]) if "times" in z else i * 0.1
+        out = sess.process_scan(z["ranges"][i], z["odom"][i], time=t)
+        if out is not None:
+            poses.append(out[0])
+            if gt is not None:
+                errs.append(float(np.hypot(*(out[0][:2] - gt[i][:2]))))
+    sess.flush()
+    dt = time.time() - t0
+    poses = np.stack(poses) if poses else np.zeros((0, 3))
+    np.savetxt(args.out + "_localization.txt", poses)
+    metrics = {
+        "scans_localized": len(poses),
+        "wall_time_s": round(dt, 2),
+        "scans_per_sec": round(len(poses) / dt, 2) if dt > 0 else None,
+        "buffer_nodes": len(sess.mapper.localization_buffer),
+    }
+    if errs:
+        e = np.asarray(errs)
+        metrics["err_rmse_m"] = round(float(np.sqrt(np.mean(e * e))), 4)
+        metrics["err_p90_m"] = round(float(np.percentile(e, 90)), 4)
+    with open(args.out + "_metrics.json", "w") as f:
+        json.dump(metrics, f, indent=2)
+    print(json.dumps(metrics))
+    return 0
 
 
 def cmd_merge(args) -> int:

@@ -1,24 +1,26 @@
 """User-facing driver mirroring the reference's ROS node + service surface.
 
-PyTorch counterpart of slam_toolbox_tpu/api/slam.py, classic synchronous
-mapping subset: scan ingestion gates (shouldProcessScan,
-slam_toolbox_common.cpp:740-786), mode dispatch for mapping (addScan,
-:798-859), map->odom maintenance (setTransformFromPoses, :657-712), pose
-reporting with covariance scaling (publishPose, :862-884), pause domains,
-the managed-node lifecycle with its bond heartbeat, a watchdog over the
-device fetches, and warming. With streaming=False process_scan is
-synchronous: every scan is matched, linked and loop-closed before it
-returns. With streaming=True scans go through the device-resident
-pipeline (mapper/streaming.py): process_scan returns the propagated
-prior at once and corrected poses land at drains (every `drain_every`
-scans, or on flush() and the accessors).
+PyTorch counterpart of slam_toolbox_tpu/api/slam.py: scan ingestion
+gates (shouldProcessScan, slam_toolbox_common.cpp:740-786), mode dispatch
+(addScan, :798-859) for mapping and elastic localization, map->odom
+maintenance (setTransformFromPoses, :657-712), pose reporting with
+covariance scaling (publishPose, :862-884), the pause domains and the
+interactive mode, the managed-node lifecycle with its bond heartbeat, a
+watchdog over the device fetches, and warming. With streaming=False
+process_scan is synchronous: every scan is matched, linked and
+loop-closed before it returns. With streaming=True scans go through the
+device-resident pipeline (mapper/streaming.py): process_scan returns the
+propagated prior at once and corrected poses land at drains (every
+`drain_every` scans, or on flush() and the accessors). Localization
+keeps a rolling buffer of its newest scans in the graph (the oldest is
+removed as each new one lands), through the pipeline's post_finish hook
+when streaming.
 
-The map outputs are here too: get_occupancy_grid (cached, folding new
-scans incrementally), serialize, and deserialize with the UNSET,
-START_AT_FIRST_NODE and START_AT_GIVEN_POSE match types. Not ported yet
-(ROADMAP Queue 1 item 7): localization mode and LOCALIZE_AT_POSE, which
-raise NotImplementedError, and toggle_mode, set_initial_pose, the
-interactive mode, modify_node and manual_loop_closure, which are absent.
+The services: get_occupancy_grid (cached, folding new scans
+incrementally), serialize, deserialize with every match type
+(LOCALIZE_AT_POSE switches the session to localization), toggle_mode,
+set_initial_pose, clear_localization_buffer, modify_node and
+manual_loop_closure (the loop-closure assistant's edits).
 """
 from __future__ import annotations
 
@@ -101,9 +103,6 @@ class SlamSession:
         is present; pass device="cpu" to run the plain versions on the
         CPU. streaming=True routes scans through the device-resident
         pipeline, drained every `drain_every` scans."""
-        if mode != "mapping":
-            raise NotImplementedError(
-                f"mode {mode!r} is not ported yet (ROADMAP Queue 1 item 7)")
         self.config = config or MapperConfig()
         self.laser = laser
         self.mapper = Mapper(self.config, device=device)
@@ -120,10 +119,11 @@ class SlamSession:
         self.position_covariance_scale = position_covariance_scale
         self.yaw_covariance_scale = yaw_covariance_scale
 
-        self.processor_type = ProcessType.PROCESS
+        self.processor_type = self._steady_processor()
         self.process_near_pose: Optional[np.ndarray] = None
         self.first_measurement = True
         self.paused_state = PausedState()
+        self.interactive_mode = False
         self.scan_count = 0
         self.last_scan_time = -np.inf
         self.last_scan_odom: Optional[np.ndarray] = None
@@ -178,12 +178,19 @@ class SlamSession:
 
         cov = np.eye(3)
         pt = self.processor_type
-        if pt != ProcessType.PROCESS and self._pipe is not None:
-            # mode switch (dock, resume at a pose): the classic path must
-            # see fully drained and settled bookkeeping
+        streaming_path = self.streaming and (
+            pt == ProcessType.PROCESS
+            or (pt == ProcessType.PROCESS_LOCALIZATION
+                and not self.first_measurement)
+        )
+        if not streaming_path and self._pipe is not None:
+            # mode switch (relocalize, dock, initial pose): the classic
+            # path must see fully drained and settled bookkeeping
             self._pipe.drain()
             self._pipe.settle()
-        if pt == ProcessType.PROCESS and self.streaming:
+        if streaming_path:
+            # mapping, or steady-state elastic localization: the buffer's
+            # append and evict ride the drain (post_finish)
             ok = self._ensure_pipe().process_scan(scan)
             if not ok:
                 return None
@@ -196,15 +203,22 @@ class SlamSession:
             ok = self.mapper.process_at_dock(scan, covariance_out=cov)
             self.processor_type = ProcessType.PROCESS
         elif pt == ProcessType.PROCESS_NEAR_REGION:
-            # mapping resumes near a given pose (START_AT_GIVEN_POSE)
+            # relocalize near a given pose (START_AT_GIVEN_POSE,
+            # LOCALIZE_AT_POSE, set_initial_pose)
             if self.process_near_pose is not None:
                 scan.set_corrected_pose(self.process_near_pose)
                 self.process_near_pose = None
             ok = self.mapper.process_against_nodes_near_by(
-                scan, covariance_out=cov)
-            self.processor_type = ProcessType.PROCESS
+                scan,
+                add_to_buffer=self.mode == "localization",
+                covariance_out=cov,
+            )
+            self.processor_type = self._steady_processor()
+        elif pt == ProcessType.PROCESS_LOCALIZATION:
+            # the first measurement of a localization session: classic
+            ok = self.mapper.process_localization(scan, covariance_out=cov)
         else:
-            raise NotImplementedError(f"{pt} is not ported")
+            return None
 
         if not ok:
             return None
@@ -227,9 +241,15 @@ class SlamSession:
             )
         )
 
+    def _steady_processor(self) -> ProcessType:
+        """The processor a session of this mode returns to."""
+        return (ProcessType.PROCESS_LOCALIZATION
+                if self.mode == "localization" else ProcessType.PROCESS)
+
     def _ensure_pipe(self):
         """The streaming pipeline, built once (warm_async's thread may ask
-        for it at the same time as process_scan)."""
+        for it at the same time as process_scan); in localization its
+        post_finish hook keeps the rolling buffer."""
         with self._pipe_lock:
             if self._pipe is None:
                 from slam_toolbox_tpu_torch.mapper.streaming import (
@@ -239,6 +259,8 @@ class SlamSession:
                 self._pipe = StreamingPipeline(
                     self.mapper, self.laser, drain_every=self.drain_every
                 )
+                if self.mode == "localization":
+                    self._pipe.post_finish = self._loc_post_finish
                 self._pipe.watchdog = self._watchdog
             return self._pipe
 
@@ -259,6 +281,23 @@ class SlamSession:
         )
         self.last_pose = np.array(pose)
         return pose
+
+    def _loc_post_finish(self, scan) -> bool:
+        """Elastic-buffer bookkeeping per drained scan
+        (AddScanToLocalizationBuffer, Mapper.cpp:2911-2962). Returns True
+        only when eviction removed a node that was still in the RUNNING
+        buffer: the device ring mirrors the running buffer, and evicting
+        an old node elsewhere in the map does not touch it (a resync there
+        would re-upload the ring every drain for nothing)."""
+        m = self.mapper
+        was_running = False
+        if len(m.localization_buffer) >= m.config.scan_buffer_size:
+            old = m.localization_buffer[0]
+            was_running = old in m.sensor_manager.get_running_scans(
+                old.laser.name
+            )
+        m.add_scan_to_localization_buffer(scan)
+        return was_running
 
     def flush(self) -> None:
         """Drain the streaming pipeline (no-op on the synchronous path) and
@@ -351,16 +390,14 @@ class SlamSession:
         match_type: MatchType = MatchType.UNSET,
         initial_pose: Optional[np.ndarray] = None,
     ) -> None:
-        """deserializePoseGraphCallback (slam_toolbox_common.cpp:1020-1079)
-        for mapping: load the snapshot into this session's mapper and
-        continue from its last scan (UNSET), at node 0 (START_AT_FIRST_NODE)
-        or near `initial_pose` (START_AT_GIVEN_POSE)."""
+        """deserializePoseGraphCallback (slam_toolbox_common.cpp:1020-1079):
+        load the snapshot into this session's mapper and continue from its
+        last scan (UNSET), at node 0 (START_AT_FIRST_NODE), mapping near
+        `initial_pose` (START_AT_GIVEN_POSE), or localizing in it from
+        `initial_pose` (LOCALIZE_AT_POSE: the session turns to
+        localization mode)."""
         from slam_toolbox_tpu_torch.io.serialization import load_snapshot
 
-        if match_type == MatchType.LOCALIZE_AT_POSE:
-            raise NotImplementedError(
-                "LOCALIZE_AT_POSE needs localization mode, which is not "
-                "ported yet (ROADMAP Queue 1 item 7)")
         self.flush()
         # the pipeline's device ring, pack pool and slots refer to the
         # pre-load session; a new one seeds from the loaded running scans
@@ -372,7 +409,8 @@ class SlamSession:
             self.laser = scans[0].laser
         self.mapper.solver.compute()
         # prebuild the incremental query structure here (one-time load
-        # cost) rather than on the first query near an old region
+        # cost) rather than on the first relocalization query: at a large
+        # prior its rebuild dominates the "where am I" latency
         if self.mapper.graph is not None:
             self.mapper.graph._query_structure()
         if match_type == MatchType.START_AT_FIRST_NODE:
@@ -380,6 +418,44 @@ class SlamSession:
         elif match_type == MatchType.START_AT_GIVEN_POSE:
             self.processor_type = ProcessType.PROCESS_NEAR_REGION
             self.process_near_pose = np.asarray(initial_pose, np.float64)
+        elif match_type == MatchType.LOCALIZE_AT_POSE:
+            self.mode = "localization"
+            self.processor_type = ProcessType.PROCESS_NEAR_REGION
+            self.process_near_pose = np.asarray(initial_pose, np.float64)
+
+    def toggle_mode(self, mode: str) -> None:
+        """Runtime mapping<->localization switch (the map-and-localization
+        node's toggle service, slam_toolbox_map_and_localization.cpp:82-115).
+        Entering localization starts the elastic buffer from the next
+        scan; returning to mapping folds the buffered scans into the
+        permanent graph (they simply stop being evicted)."""
+        if mode not in ("mapping", "localization"):
+            raise ValueError(mode)
+        if mode == self.mode:
+            return
+        self.flush()
+        if mode == "mapping":
+            # buffered scans become permanent graph nodes
+            self.mapper.localization_buffer.clear()
+        self.mode = mode
+        self.processor_type = self._steady_processor()
+        if self._pipe is not None:
+            self._pipe.post_finish = (
+                self._loc_post_finish if mode == "localization" else None
+            )
+
+    def set_initial_pose(self, pose) -> None:
+        """/initialpose (localizePoseCallback,
+        slam_toolbox_localization.cpp:240-270): the next scan is matched
+        against the graph's nodes near `pose`."""
+        self.process_near_pose = np.asarray(pose, np.float64)
+        self.processor_type = ProcessType.PROCESS_NEAR_REGION
+        self.first_measurement = True
+
+    def clear_localization_buffer(self) -> None:
+        """Remove every buffered localization scan from the graph and
+        forget the running scans (clear_localization_buffer service)."""
+        self.mapper.clear_localization_buffer()
 
     # -- pause domains (toolbox_types.hpp:77-117) ---------------------------
     @property
@@ -400,6 +476,22 @@ class SlamSession:
         cur = self.paused_state.get(PausedApplication.NEW_MEASUREMENTS)
         self.paused_state.set(PausedApplication.NEW_MEASUREMENTS, not cur)
         return not cur
+
+    def pause_processing(self, state: bool) -> None:
+        """Stop the sync consumer while letting scans queue
+        (slam_toolbox_sync.cpp:40; api/queue_modes.SyncQueue.pump)."""
+        self.paused_state.set(PausedApplication.PROCESSING, state)
+
+    def toggle_interactive_mode(self) -> bool:
+        """ToggleInteractive: entering interactive mode pauses processing
+        and graph visualization so nodes can be inspected and moved
+        (modify_node, manual_loop_closure); leaving resumes both."""
+        self.interactive_mode = not self.interactive_mode
+        self.pause_processing(self.interactive_mode)
+        self.paused_state.set(
+            PausedApplication.VISUALIZING_GRAPH, self.interactive_mode
+        )
+        return self.interactive_mode
 
     # -- lifecycle / failure detection (utils/lifecycle.py) -----------------
     def _on_activate(self) -> None:
@@ -568,7 +660,7 @@ class SlamSession:
         self._pipe = None
         self._grid_cache = None
         self.mapper.reset()
-        self.processor_type = ProcessType.PROCESS
+        self.processor_type = self._steady_processor()
         self.scan_count = 0
         self.first_measurement = True
         self.map_to_odom = np.zeros(3)
@@ -592,6 +684,22 @@ class SlamSession:
         vertices the assistant renders in a distinct color
         (loop_closure_assistant.cpp:157-273); empty while mapping."""
         return {s.unique_id for s in self.mapper.localization_buffer}
+
+    def modify_node(self, unique_id: int, pose) -> None:
+        """Move one node in the solver (the assistant's interactive edit);
+        the graph's scans keep their poses until the next solve."""
+        if self._pipe is not None:
+            self._pipe.settle()
+        self.mapper.solver.modify_node(unique_id, pose)
+
+    def manual_loop_closure(self, moved_nodes) -> None:
+        """loop_closure_assistant.cpp:276-319: apply manual node moves
+        [(unique_id, pose)], then re-optimize and write the poses back."""
+        if self._pipe is not None:
+            self._pipe.settle()
+        for uid, pose in moved_nodes:
+            self.mapper.solver.modify_node(uid, pose)
+        self.mapper.graph.correct_poses()
 
     @property
     def trajectory(self) -> np.ndarray:

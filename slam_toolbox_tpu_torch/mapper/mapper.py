@@ -7,7 +7,8 @@ ProcessAgainstNodesNearBy / ProcessLocalization.
 
 Copy of slam_toolbox_tpu/mapper/mapper.py for the PyTorch port: the
 matchers and the dense solver run on the mapper's `device` (default
-"cuda"); marginalize-on-removal is not ported yet.
+"cuda"); node removal marginalizes onto the neighbors where the config
+asks for it (graph/marginal.py).
 """
 from __future__ import annotations
 
@@ -378,10 +379,13 @@ class Mapper:
                 self.config, "marginalize_on_removal", False
             )
         if marginalize:
-            raise NotImplementedError(
-                "marginalize_on_removal is not ported yet"
+            from slam_toolbox_tpu_torch.graph.marginal import (
+                marginalize_and_remove,
             )
-        ok = self.graph.remove_vertex(scan)
+
+            ok = marginalize_and_remove(self.graph, scan)
+        else:
+            ok = self.graph.remove_vertex(scan)
         self.sensor_manager.remove_scan(scan)
         if self._pack_pool is not None:
             self._pack_pool.release(scan)

@@ -1,8 +1,8 @@
 """CARMEN logs (io/carmen.py) and the command-line driver (api/cli.py) of
 the port against the JAX package on the CPU: the recorded fixture parsed
 the same, the two round trips of tests/test_carmen.py, `cli run` on a
-small simulated dataset against the JAX CLI, `cli merge`, and the entry
-points' device rules."""
+small simulated dataset against the JAX CLI, `cli merge`, `cli localize`
+against a prior of the fixture, and the entry points' device rules."""
 import json
 import os
 import subprocess
@@ -215,10 +215,70 @@ def test_cli_merge_of_two_snapshots(cli_runs, tmp_path, capsys):
         assert a == f.read()
 
 
-def test_cli_localize_is_not_ported(dataset, tmp_path):
-    with pytest.raises(NotImplementedError, match="item 7"):
-        cli.main(["localize", "--snapshot", str(tmp_path / "none.npz"),
-                  "--dataset", dataset, "--device", "cpu"])
+def _carmen_prior_and_stream(tmp_path, n_prior=120, n_loc=5):
+    """The CARMEN fixture as a localization case: a prior snapshot written
+    by the JAX package from every other record of the first `n_prior` at
+    its true pose (a skeleton graph, odometry-chain edges, no matching:
+    build_prior_snapshot's technique), and the `n_loc` records between
+    them from the start in the CLI's .npz format, with ground truth."""
+    from slam_toolbox_tpu.core.params import MapperConfig as JaxConfig
+    from slam_toolbox_tpu.core.scan import LocalizedScan as JaxScan
+    from slam_toolbox_tpu.io.serialization import save_snapshot
+    from slam_toolbox_tpu.mapper import Mapper as JaxMapper
+
+    log = jcarmen.read_carmen(FIXTURE)
+    laser, gt = log.laser, log.ground_truth()
+    m = JaxMapper(JaxConfig(use_scan_matching=False))
+    m.initialize(laser.range_threshold)
+    prev = None
+    for rec, tp in list(zip(log.records, gt))[:n_prior:2]:
+        s = JaxScan(laser, rec.ranges, rec.odom_pose, time=rec.timestamp)
+        s.set_corrected_pose(tp)
+        m.sensor_manager.add_scan(s)
+        m.graph.add_vertex(s)
+        if prev is not None:
+            m.graph.link_scans(prev, s, s.sensor_pose,
+                               np.diag([1e-3, 1e-3, 1e-4]))
+        m.sensor_manager.set_last_scan(s)
+        prev = s
+    snap = str(tmp_path / "carmen_prior.npz")
+    save_snapshot(m, snap)
+    recs = log.records[1:2 * n_loc:2]
+    ds = str(tmp_path / "carmen_loc.npz")
+    np.savez(
+        ds, ranges=np.stack([r.ranges for r in recs]),
+        odom=np.stack([r.odom_pose for r in recs]),
+        times=np.array([r.timestamp for r in recs]),
+        gt=gt[1:2 * n_loc:2], min_range=laser.min_range,
+        max_range=laser.max_range, range_threshold=laser.range_threshold,
+        min_angle=laser.min_angle, max_angle=laser.max_angle,
+        angular_resolution=laser.angular_resolution)
+    return snap, ds
+
+
+def test_cli_localize_is_not_ported(tmp_path, capsys):
+    """`cli localize --device cpu` (classic) against a prior of the CARMEN
+    fixture, beside the JAX CLI on the same snapshot and scans: the same
+    scans localized and buffer nodes (the LOCALIZATION preset's 3), the
+    error against ground truth within 0.01 m of the JAX CLI's, and the
+    same files written."""
+    snap, ds = _carmen_prior_and_stream(tmp_path)
+    out = {}
+    for name, main, extra in (("jax", jcli.main, []),
+                              ("port", cli.main, ["--device", "cpu"])):
+        prefix = str(tmp_path / name)
+        out[name] = (prefix, _run_cli(
+            main, ["localize", "--snapshot", snap, "--dataset", ds,
+                   "--out", prefix] + extra, capsys))
+    (prefix, got), (_, ref) = out["port"], out["jax"]
+    assert got["scans_localized"] == ref["scans_localized"] == 5
+    assert got["buffer_nodes"] == ref["buffer_nodes"] == 3
+    assert abs(got["err_rmse_m"] - ref["err_rmse_m"]) <= 0.01
+    assert got["err_rmse_m"] < 0.1
+    poses = np.loadtxt(prefix + "_localization.txt")
+    assert poses.shape == (5, 3) and np.all(np.isfinite(poses))
+    with open(prefix + "_metrics.json") as f:
+        assert json.load(f) == got
 
 
 def test_cli_defaults_to_the_card(dataset, tmp_path):

@@ -25,6 +25,10 @@ import slam_toolbox_tpu_torch.io.serialization
 import slam_toolbox_tpu_torch.kernels.occupancy
 import slam_toolbox_tpu_torch.api.cli, slam_toolbox_tpu_torch.api.merge
 import slam_toolbox_tpu_torch.api.viz
+import slam_toolbox_tpu_torch.api.queue_modes
+import slam_toolbox_tpu_torch.core.laser_utils
+import slam_toolbox_tpu_torch.graph.marginal
+import slam_toolbox_tpu_torch.mapper.lifelong
 import chip_smoke
 import profile_torch
 print(json.dumps(sorted(
@@ -76,15 +80,27 @@ def test_default_device_entry_points_raise_without_cuda():
 
 
 def test_unported_modes_raise():
-    """Localization, with or without the streaming pipeline, is not
-    ported; streaming mapping is."""
-    from slam_toolbox_tpu_torch.api import SlamSession
+    """Localization, with or without the streaming pipeline, is ported: a
+    localization session builds on the CPU and starts in
+    PROCESS_LOCALIZATION, a mapping one in PROCESS; an unknown mode is
+    refused where the JAX package refuses it (toggle_mode), and without a
+    card the default device still raises."""
+    from slam_toolbox_tpu_torch.api import ProcessType, SlamSession
 
-    with pytest.raises(NotImplementedError):
-        SlamSession(streaming=True, mode="localization", device="cpu")
-    with pytest.raises(NotImplementedError):
-        SlamSession(mode="localization", device="cpu")
+    for streaming in (True, False):
+        sess = SlamSession(streaming=streaming, mode="localization",
+                           device="cpu")
+        assert sess.mode == "localization" and sess.streaming == streaming
+        assert sess.processor_type == ProcessType.PROCESS_LOCALIZATION
+        assert sess.localization_buffer_uids() == set()
+        sess.toggle_mode("mapping")
+        assert sess.processor_type == ProcessType.PROCESS
+        with pytest.raises(ValueError):
+            sess.toggle_mode("surveying")
     assert SlamSession(streaming=True, device="cpu").streaming
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError):
+            SlamSession(mode="localization")
 
 
 def test_port_reads_no_slam_environment():

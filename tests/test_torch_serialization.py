@@ -161,12 +161,36 @@ def test_continue_mapping_matches_jax(short_run, match):
 
 
 def test_localize_at_pose_is_not_ported(short_run):
+    """LOCALIZE_AT_POSE from the JAX-written snapshot in both packages,
+    then a short drive back over the box: the same accepted scans, buffer
+    unique ids and node counts (the graph bounded by the snapshot plus
+    the buffer), positions within 4 cm."""
     laser, cfg = _config()
+    cfg = cfg.replace(scan_buffer_size=4)
+    init = short_run["data"][-1][0].corrected_pose
+    jsess = JaxSession(cfg, laser)
     tsess = SlamSession(*_port(cfg, laser), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 7"):
-        tsess.deserialize(short_run["jax"], MatchType.LOCALIZE_AT_POSE,
-                          initial_pose=np.zeros(3))
-    assert tsess.mapper.all_processed_scans() == []
+    for sess, match in ((jsess, JaxMatchType), (tsess, MatchType)):
+        sess.deserialize(short_run["jax"], match.LOCALIZE_AT_POSE,
+                         initial_pose=init)
+        assert sess.mode == "localization"
+    n0 = tsess.mapper.solver.n_nodes
+    assert n0 == jsess.mapper.solver.n_nodes
+    sim = LidarSimulator(SegmentWorld.box(5.0), laser, range_noise=0.01,
+                         seed=5)
+    last_true = short_run["data"][-1][1]
+    more = sim.simulate(
+        np.array([last_true[:2], (last_true[0], last_true[1] - 3.0)]),
+        step=0.45)
+    n_ok = _feed(tsess, more, t0=100.0)
+    assert n_ok == _feed(jsess, more, t0=100.0) > 4
+    assert (tsess.localization_buffer_uids()
+            == jsess.localization_buffer_uids())
+    assert len(tsess.localization_buffer_uids()) == 4
+    assert tsess.mapper.solver.n_nodes == jsess.mapper.solver.n_nodes == \
+        n0 + 4
+    gap = np.hypot(*(tsess.trajectory[:, :2] - jsess.trajectory[:, :2]).T)
+    assert gap.max() < 0.04, gap.max()
 
 
 def _resume_data(seed, waypoints):

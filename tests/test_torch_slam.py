@@ -89,7 +89,7 @@ def test_classic_session_matches_jax_bench_geometry():
     assert len(got["est"]) >= 100
 
 
-def test_session_reports_pose_and_transform():
+def test_session_reports_pose_and_transform(tmp_path):
     cfg, laser, data = _workload(0.05, 1.0, LAP[:2], 0.6)
     sess = TorchSession(config_from_dict(dataclasses.asdict(cfg)),
                         laser_from_dict(dataclasses.asdict(laser)),
@@ -111,6 +111,20 @@ def test_session_reports_pose_and_transform():
     assert grid.cells.ndim == 2 and (grid.cells == 100).any()
     from slam_toolbox_tpu_torch.api import MatchType
 
-    with pytest.raises(NotImplementedError):
-        sess.deserialize("unused.npz", MatchType.LOCALIZE_AT_POSE,
-                         initial_pose=np.zeros(3))
+    # LOCALIZE_AT_POSE: a new session loads the snapshot, turns to
+    # localization and relocalizes the next scan near its true pose; the
+    # scan joins the graph as the buffer's first node
+    path = str(tmp_path / "session.npz")
+    sess.serialize(path)
+    loc = TorchSession(config_from_dict(dataclasses.asdict(cfg)),
+                       laser_from_dict(dataclasses.asdict(laser)),
+                       device="cpu")
+    scan, truth = data[8]
+    loc.deserialize(path, MatchType.LOCALIZE_AT_POSE,
+                    initial_pose=truth + np.array([0.05, -0.05, 0.01]))
+    assert loc.mode == "localization"
+    n0 = loc.mapper.solver.n_nodes
+    pose, _ = loc.process_scan(scan.ranges, scan.odom_pose, time=0.8)
+    assert np.hypot(*(pose[:2] - truth[:2])) < 0.1
+    assert loc.mapper.solver.n_nodes == n0 + 1
+    assert len(loc.localization_buffer_uids()) == 1

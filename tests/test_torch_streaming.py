@@ -354,7 +354,7 @@ def test_streaming_drain1_matches_classic():
 def test_streaming_session_surface():
     """The online pose between drains is the propagated prior; flush()
     drains and settles; accessors see every scan; localization through
-    the pipeline is not ported."""
+    the pipeline keeps the graph at the mapped scans plus the buffer."""
     cfg, laser, data = _workload(0.05, 1.0, LAP[:2], 0.6)
     tcfg, tlaser = _port(cfg, laser)
     sess = TorchSession(tcfg, tlaser, device="cpu", streaming=True,
@@ -370,9 +370,18 @@ def test_streaming_session_surface():
     assert len(sess.trajectory) == 10
     nodes, edges = sess.get_graph()
     assert len(nodes) == 10 and edges
-    with pytest.raises(NotImplementedError):
-        TorchSession(tcfg, tlaser, device="cpu", streaming=True,
-                     mode="localization")
+    # localization through the pipeline: after toggle_mode the buffer's
+    # append and evict ride the drains (post_finish), bounding the graph
+    sess.toggle_mode("localization")
+    assert sess._pipe.post_finish == sess._loc_post_finish
+    more = _workload(0.05, 1.0, LAP[1:3], 0.6)[2]
+    for i, (s, _) in enumerate(more):
+        sess.process_scan(s.ranges, s.odom_pose, time=(10 + i) * 0.1)
+    sess.flush()
+    buffer = sess.localization_buffer_uids()
+    assert len(buffer) == min(len(more), tcfg.scan_buffer_size)
+    assert sess.mapper.solver.n_nodes == 10 + len(buffer)
+    assert not sess._pipe.pending
 
 
 def test_smear_taps_do_not_change_the_bench_raster():
