@@ -96,7 +96,22 @@ Phases, in order; any failure exits non-zero and nothing is caught:
                 prior + buffer, an accepted closure, a windowed solve, and
                 with SPEC_LOOP off the same trajectory bit for bit; K1-K3
                 launches by grid, every grid one that phase 2 checked;
- 12. the kernels line (JSON), the card's name and power limit, and the
+ 12. dist     — under a world-size-1 NCCL group on the card: the PCG tier
+                (lm_solve past the dense ceiling, f32, padded to 16,384
+                nodes: the PCR chain preconditioner) on scripts/
+                bench_dist.py's 12,288-node snake graph against
+                host_sparse_lm (chi2 within 0.2% of the host solution's on
+                the same f32 arrays; positions within PCG_TIER_MAX_DXY), the
+                Thomas sweeps against PCR at n = 2,100 (rtol 1e-4, atol
+                1e-5); distributed_lm_solve on that graph in f32 and f64
+                (within 1 cm of the host solve, no LM step at the CG cap)
+                and with schwarz=False; match_chains_sharded on the bench
+                workload's loop chains (rows bit-equal to
+                match_scans_batch, K1-K3 launches at G 561 counted); the
+                sharded raster of phase 10's main-path map (2,017 scans) and
+                merge (16,136 scans) bit-equal to create_from_scans on the
+                card, and the halo refresh's windows;
+ 13. the kernels line (JSON), the card's name and power limit, and the
      last line {"ok": true, "device": {...}}.
 
 It exits non-zero with no result when no CUDA device is present. It imports
@@ -1277,7 +1292,8 @@ def map_path(main_run, cfg, laser, data, dev, workdir):
     occupancy routes and its incremental publish, the snapshot of the
     2,017-scan session, resume from the 8-lap snapshot, the multi-session
     merge with auto_align, and the CLI on the CARMEN fixture. Returns the
-    K1-K3 launches of the align and CLI paths by grid."""
+    K1-K3 launches of the align and CLI paths by grid, and the card tensor
+    route's grids of the main path and the merge with their scans."""
     import dataclasses
     import os
 
@@ -1298,6 +1314,7 @@ def map_path(main_run, cfg, laser, data, dev, workdir):
     sess._grid_cache = None   # the tensor route renders anew
     with occupancy_route(False):
         tensor, tensor_s = timed(sess.get_occupancy_grid)
+    main_scans = sess.mapper.all_processed_scans()
     same_grid("main-path map, native vs card tensor route", native, tensor)
     print(f"# map: {len(sess.trajectory)} scans at {native.resolution} m, "
           f"{json.dumps(grid_summary(native))}, native route {native_s} s, "
@@ -1466,7 +1483,10 @@ def map_path(main_run, cfg, laser, data, dev, workdir):
     torch.cuda.synchronize()
     print(f"# map path phase: {time.perf_counter() - t_phase} s", flush=True)
     return dict(align=align_launches, cli=cli_launches, checks=cli_checks,
-                patterns=cli_patterns)
+                patterns=cli_patterns, grids={
+                    "main": (main_scans, tensor.resolution, tensor),
+                    "merge": (merger.merged_scans(), m_tensor.resolution,
+                              m_tensor)})
 
 
 # -- phase 11: the modes ------------------------------------------------------
@@ -2096,6 +2116,358 @@ def modes_path(dev, workdir, checked_grids,
                 loc_spec=loc["spec"])
 
 
+# -- phase 12: dist/ and the PCG tier -----------------------------------------
+# chip_smoke's own copies of scripts/bench_dist.py's snake graph and
+# tests/test_chain_precond.py's random chain (both import jax)
+DIST_NODES = 12288
+# the CPU meshes' CG iterations per LM step on this graph (DIST_SCALING.json
+# mesh 1, DIST_SCALING_F64.json mesh 2), printed beside the card's
+DIST_CPU_CG = {"f32": [11, 18, 21, 23, 23, 24, 26],
+               "f64": [22, 27, 29, 30, 30, 30, 30]}
+# the PCG tier's bar against the host solve on the snake graph: its CG stops
+# at the 200 cap on most LM steps (the chain preconditioner leaves the
+# aisles' loop coupling to CG), so it ends 0.16 m from the host optimum, as
+# the JAX package's tier does on the CPU
+# (test_torch_chain_precond.py::test_pcr_tier_snake_12k_matches_jax); its
+# chi2 ends within 0.06% of the host solution's
+PCG_TIER_MAX_DXY = 0.2
+PCG_TIER_MAX_CHI2_REL = 0.002
+
+
+def build_snake_graph(n_nodes, aisle_len=60, spacing=0.5, seed=0,
+                      drift=0.01):
+    """Snake path through warehouse aisles: odometry chain + loop edges
+    between spatially adjacent nodes of neighboring aisles (every 4th
+    node), with odometry drift (scripts/bench_dist.py)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    gt = np.zeros((n_nodes, 3))
+    for i in range(1, n_nodes):
+        aisle, k = divmod(i, aisle_len)
+        x = k * spacing if aisle % 2 == 0 else (aisle_len - 1 - k) * spacing
+        gt[i, :2] = (x, aisle * 1.0)
+    edges = []
+    cov_odom = np.diag([1e-3, 1e-3, 1e-4])
+    cov_loop = np.diag([4e-3, 4e-3, 4e-4])
+
+    def rel_pose(a, b):
+        c, s = np.cos(a[2]), np.sin(a[2])
+        d = b[:2] - a[:2]
+        return np.array([c * d[0] + s * d[1], -s * d[0] + c * d[1],
+                         np.arctan2(np.sin(b[2] - a[2]),
+                                    np.cos(b[2] - a[2]))])
+
+    init = gt.copy()
+    for i in range(n_nodes - 1):
+        rp = rel_pose(gt[i], gt[i + 1])
+        rp[:2] += rng.normal(0, drift, 2)
+        edges.append((i, i + 1, rp, cov_odom))
+        c, s = np.cos(init[i, 2]), np.sin(init[i, 2])
+        init[i + 1, :2] = init[i, :2] + np.array(
+            [c * rp[0] - s * rp[1], s * rp[0] + c * rp[1]])
+        init[i + 1, 2] = init[i, 2] + rp[2]
+    for aisle in range(1, n_nodes // aisle_len):
+        for k in range(0, aisle_len, 4):
+            i = aisle * aisle_len + k
+            if aisle % 2 == 1:
+                j = (aisle - 1) * aisle_len + (aisle_len - 1 - k)
+            else:
+                j = (aisle - 1) * aisle_len + k
+            if i < n_nodes and j < n_nodes:
+                rp = rel_pose(gt[i], gt[j])
+                rp[:2] += rng.normal(0, 0.002, 2)
+                edges.append((i, j, rp, cov_loop))
+    return gt, init, edges
+
+
+def pack_graph(init, edges, n_pad, e_pad):
+    """Padded arrays of a graph as the port's solvers take them: poses
+    (n_pad, 3) f32, src/dst at the last node for padding edges, whitened
+    by the solver's own sqrt-information, emask, free (node 0 the gauge,
+    padding nodes not free)."""
+    import numpy as np
+
+    from slam_toolbox_tpu_torch.solver.se2_solver import _sqrt_info_3x3
+
+    n = len(init)
+    poses = np.zeros((n_pad, 3), np.float32)
+    poses[:n] = init
+    src = np.full(e_pad, n_pad - 1, np.int64)
+    dst = np.full(e_pad, n_pad - 1, np.int64)
+    rel = np.zeros((e_pad, 3), np.float32)
+    si = np.zeros((e_pad, 3, 3), np.float32)
+    em = np.zeros(e_pad, bool)
+    for k, (i, j, rp, cov) in enumerate(edges):
+        src[k], dst[k], rel[k] = i, j, rp
+        si[k] = _sqrt_info_3x3(np.asarray(cov, np.float64))
+        em[k] = True
+    free = np.ones(n_pad, np.float32)
+    free[n:] = 0.0
+    free[0] = 0.0
+    return poses, src, dst, rel, si, em, free
+
+
+def random_spd_chain(n, seed=0):
+    """(D (n,3,3), U (n-1,3,3)) of a random SPD block-tridiagonal system
+    (tests/test_chain_precond.py)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    U = rng.normal(0, 0.3, (n - 1, 3, 3))
+    D = np.zeros((n, 3, 3))
+    for i in range(n):
+        a = rng.normal(0, 1, (3, 3))
+        D[i] = a @ a.T + 4.0 * np.eye(3)
+    return D, U
+
+
+def loop_chains(data, radius: float):
+    """(chains, query) indices into `data` built as loop_chain builds a
+    loop chain, every run kept: the second-lap query whose first-lap scans
+    within `radius` form the most runs of consecutive scans (the longest
+    runs at a tie)."""
+    import numpy as np
+
+    xy = np.array([tp[:2] for _, tp in data])
+    half = len(xy) // 2
+    best, best_q = [], half
+    for q in range(half, len(xy)):
+        near = np.hypot(*(xy[:half] - xy[q]).T) < radius
+        runs, start = [], 0
+        for i in range(half + 1):
+            if i == half or not near[i]:
+                if i > start:
+                    runs.append(list(range(start, i)))
+                start = i + 1
+        key = (len(runs), sum(map(len, runs)))
+        if key > (len(best), sum(map(len, best))):
+            best, best_q = runs, q
+    return best, best_q
+
+
+def dist_path(mapper, scan_at, data, loop_radius, grids):
+    """Phase 12: dist/ and the PCG tier on the card under a world-size-1
+    NCCL group (see dist_checks). Returns the K1-K3 launches of the sharded
+    chain match by grid."""
+    import socket
+
+    import torch
+    import torch.distributed as tdist
+
+    from slam_toolbox_tpu_torch.dist import multihost
+
+    t_phase = time.perf_counter()
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    torch.cuda.set_device(multihost.rank_device(0, "nccl"))
+    tdist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{port}",
+                             rank=0, world_size=1)
+    try:
+        mesh = multihost.global_mesh()
+        if (mesh.size, mesh.device.type, tdist.get_backend()) != (
+                1, "cuda", "nccl"):
+            raise AssertionError(f"dist: unexpected mesh {mesh}")
+        out = dist_checks(mesh, mapper, scan_at, data, loop_radius, grids)
+    finally:
+        tdist.destroy_process_group()
+    print(f"# dist phase: {time.perf_counter() - t_phase} s", flush=True)
+    return out
+
+
+def dist_checks(mesh, mapper, scan_at, data, loop_radius, grids):
+    """The PCG tier (lm_solve past the ceiling) against host_sparse_lm on
+    the 12,288-node snake graph, and the Thomas sweeps against PCR; the
+    distributed solve on that graph in f32, f64 and with schwarz=False;
+    the sharded chain match on loop chains of the bench workload, bit-equal
+    to match_scans_batch; the sharded raster of `grids` ({tag: (scans,
+    resolution, create_from_scans' grid on the card)}), bit-equal, and the
+    halo refresh's windows."""
+    import numpy as np
+    import torch
+
+    from slam_toolbox_tpu_torch.core.params import SolverConfig
+    from slam_toolbox_tpu_torch.dist import submap
+    from slam_toolbox_tpu_torch.dist.match_dist import match_chains_sharded
+    from slam_toolbox_tpu_torch.dist.solver_dist import distributed_lm_solve
+    from slam_toolbox_tpu_torch.kernels import match_cuda as mc
+    from slam_toolbox_tpu_torch.solver import chain_precond as cp
+    from slam_toolbox_tpu_torch.solver import se2_solver as ts
+
+    cfg = SolverConfig()
+    dev = mesh.device
+    _, init, edges = build_snake_graph(DIST_NODES)
+    n, e = len(init), len(edges)
+
+    # the host reference: host_sparse_lm in f64 on the same edges, unpadded
+    h_free = np.ones(n)
+    h_free[0] = 0.0
+    (host, host_chi2, host_iters), host_s = timed(lambda: ts.host_sparse_lm(
+        init.copy(), np.array([ed[0] for ed in edges]),
+        np.array([ed[1] for ed in edges]), np.stack([ed[2] for ed in edges]),
+        np.stack([ts._sqrt_info_3x3(ed[3]) for ed in edges]), h_free, cfg))
+
+    def parity(poses):
+        d = poses[:n] - host
+        dh = np.arctan2(np.sin(d[:, 2]), np.cos(d[:, 2]))
+        return (float(np.max(np.hypot(d[:, 0], d[:, 1]))),
+                float(np.max(np.abs(dh))))
+
+    # 1. the PCG tier: lm_solve past the dense ceiling, padded as compute()
+    # pads (16,384 nodes: the PCR chain preconditioner), f32 on the card
+    n_pad, e_pad = ts._pad_pow2(n, 256), ts._pad_pow2(e, 512)
+    args = pack_graph(init, edges, n_pad, e_pad)
+    poses, src, dst, rel, si, em, free = (torch.from_numpy(a).to(dev)
+                                          for a in args)
+    cg_log = []
+    step = ts.pcg_step
+
+    def logged(*a, **kw):
+        x = step(*a, **kw)
+        cg_log.append(ts.pcg_step.last_cg_iters)
+        return x
+
+    ts.pcg_step = logged
+    try:
+        f32 = np.float32
+        (p_out, p_chi2, p_iters), pcg_s = timed(lambda: ts.lm_solve(
+            poses, src, dst, rel, si, free,
+            float(f32(cfg.initial_lm_lambda)),
+            float(f32(cfg.function_tolerance)),
+            float(f32(cfg.gradient_tolerance)),
+            float(f32(cfg.parameter_tolerance)), cfg.max_iterations,
+            cg_tol=float(f32(cfg.cg_tolerance)),
+            cg_iters=cfg.cg_max_iterations))
+    finally:
+        ts.pcg_step = step
+    p_out = p_out.cpu().numpy()
+    p_chi2 = float(p_chi2)
+    host_pad = np.zeros((n_pad, 3), np.float32)
+    host_pad[:n] = host
+    # the host solution's chi2 in the tier's own f32 arithmetic on the same
+    # padded arrays (the f32 problem's rel and weights are rounded)
+    host_chi2_f32 = float(ts.chi2_only(torch.from_numpy(host_pad).to(dev),
+                                       src, dst, rel, si, em))
+    chi2_0 = float(ts.chi2_only(poses, src, dst, rel, si, em))
+    dxy, dth = parity(p_out)
+    print(f"# pcg tier: {n} nodes, {e} edges padded to ({n_pad}, {e_pad}), "
+          f"f32 on the card: {p_iters} LM iterations, CG iterations per step "
+          f"{cg_log}, chi2 {chi2_0} -> {p_chi2} (the host solve's {host_chi2}"
+          f" in f64, {host_chi2_f32} on the tier's f32 arrays), largest "
+          f"difference to the host solve {dxy} m {dth} rad, {pcg_s} s (host "
+          f"sparse {host_s} s, {host_iters} LM iterations)", flush=True)
+    if not (np.all(np.isfinite(p_out)) and p_chi2 < chi2_0):
+        raise AssertionError("pcg tier: no progress or non-finite poses")
+    if abs(p_chi2 - host_chi2_f32) > PCG_TIER_MAX_CHI2_REL * host_chi2_f32:
+        raise AssertionError(f"pcg tier: chi2 {p_chi2} not within "
+                             f"{PCG_TIER_MAX_CHI2_REL:.1%} of {host_chi2_f32}")
+    if dxy > PCG_TIER_MAX_DXY:
+        raise AssertionError(f"pcg tier: {dxy} m from the host solve")
+
+    # the Thomas sweeps once at n = 2,100 against PCR on the same system
+    D, U = random_spd_chain(2100, seed=8)
+    cfree = np.ones(2100)
+    cfree[0] = 0.0
+    r = np.random.default_rng(5).normal(0, 1, (2100, 3))
+    Um = U * (cfree[:-1] * cfree[1:])[:, None, None]
+    Dt, Ut, rt, ft = (torch.from_numpy(a).to(dev, torch.float32)
+                      for a in (D, Um, r, cfree))
+    z_thomas, thomas_s = timed(lambda: cp.apply(*cp.factorize(Dt, Ut, ft),
+                                                rt, ft))
+    z_pcr, pcr_s = timed(lambda: cp.pcr_solve(Dt, Ut, rt, ft, 13))
+    z_thomas, z_pcr = z_thomas.cpu().numpy(), z_pcr.cpu().numpy()
+    err = float(np.max(np.abs(z_thomas - z_pcr)))
+    print(f"# pcg thomas: n 2100, factorize + apply {thomas_s} s, PCR "
+          f"{pcr_s} s, largest difference {err}", flush=True)
+    np.testing.assert_allclose(z_pcr, z_thomas, rtol=1e-4, atol=1e-5)
+
+    # 2. the distributed solve on the same graph: f32, f64, and the chain
+    # preconditioner (schwarz=False) in f32
+    packed = pack_graph(init, edges, ts._pad_pow2(n, 1), e)
+    for tag, dtype, schwarz in (("f32", np.float32, True),
+                                ("f64", np.float64, True),
+                                ("f32 schwarz=False", np.float32, False)):
+        (d_out, d_chi2), d_s = timed(lambda: distributed_lm_solve(
+            mesh, *packed, cg_iters=200, dtype=dtype, schwarz=schwarz))
+        cg = list(distributed_lm_solve.last_cg_iters)
+        dxy, dth = parity(d_out)
+        print(f"# dist solve ({tag}): CG iterations per LM step {cg} (CPU "
+              f"mesh {DIST_CPU_CG.get(tag)}), chi2 {d_chi2}, largest "
+              f"difference to the host solve {dxy} m {dth} rad, {d_s} s",
+              flush=True)
+        if not np.all(np.isfinite(d_out)):
+            raise AssertionError(f"dist solve ({tag}): non-finite poses")
+        if schwarz and (dxy >= 0.01 or max(cg) >= 200):
+            raise AssertionError(f"dist solve ({tag}): parity {dxy} m or a "
+                                 f"step at the CG cap {cg}")
+
+    # 3. the sharded chain match on loop chains of the bench workload (G 561)
+    chain_ids, q = loop_chains(data, loop_radius)
+    if len(chain_ids) < 2:
+        raise AssertionError("dist match: fewer than 2 loop chains")
+    query = scan_at(q)
+    chains = [[scan_at(i) for i in c] for c in chain_ids]
+    matcher = mapper.loop_matcher
+    torch.cuda.synchronize()
+    mc.reset_launch_counts()
+    got, match_s = timed(lambda: match_chains_sharded(matcher, query, chains,
+                                                      mesh))
+    by_grid = launches_by_grid()
+    with mc.uncounted():
+        ref = matcher.match_scans_batch(query, chains, penalize=False,
+                                        refine=False)
+
+    def rows(res):
+        return np.array([[x.response, *x.sensor_pose, *x.covariance.ravel()]
+                         for x in res])
+
+    same = np.array_equal(rows(got), rows(ref))
+    print(f"# dist match: {len(chains)} chains of {[len(c) for c in chains]} "
+          f"scans for query scan {q}, {match_s} s, rows bit-equal to "
+          f"match_scans_batch: {same}, launches {json.dumps(by_grid)}",
+          flush=True)
+    if not same:
+        raise AssertionError("dist match: rows differ from match_scans_batch")
+    if any(by_grid[k].get(str(matcher.G), 0) < len(chains)
+           for k in PATH_KERNELS):
+        raise AssertionError("dist match: a path kernel missed a chain")
+
+    # 4. the sharded raster against create_from_scans on the card
+    for tag, (scans, res, ref_grid) in grids.items():
+        grid, raster_s = timed(lambda: submap.sharded_occupancy(
+            mesh, scans, res))
+        same_grid(f"dist raster ({tag})", grid, ref_grid)
+        print(f"# dist raster ({tag}): {len(scans)} scans at {res} m, "
+              f"{json.dumps(grid_summary(grid))}, {raster_s} s, bit-equal to "
+              f"create_from_scans on the card", flush=True)
+    scans, res, ref_grid = grids["main"]
+    height, width = ref_grid.pass_cnt.shape
+    halo = int(np.ceil(max(s.laser.range_threshold for s in scans) / res)) + 2
+    band, _ = submap._band_geometry(height, mesh.size, halo)
+    padded = np.zeros((band * mesh.size, width), np.int32)
+    padded[:height] = ref_grid.pass_cnt
+    owned = torch.from_numpy(padded[:band]).to(dev)
+    view = submap.make_halo_refresh(mesh, band, halo, width)(owned)
+    view = view.cpu().numpy()
+    rows_checked = []
+    for s in scans[::500]:
+        mid = int(occ_row(s, ref_grid))
+        lo, hi = max(mid - 80, 0), min(mid + 80, height)
+        win, _ = submap.local_window(view, view, band, halo, 0, lo, hi)
+        if not np.array_equal(win, padded[lo:hi]):
+            raise AssertionError(f"dist halo: window [{lo}, {hi}) differs")
+        rows_checked.append(mid)
+    print(f"# dist halo: band {band}, halo {halo}, windows of 160 rows at "
+          f"rows {rows_checked} equal to the full counters", flush=True)
+    return by_grid
+
+
+def occ_row(scan, grid):
+    """The grid row of a scan's sensor."""
+    return grid.world_to_grid(scan.sensor_pose[:2])[1]
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -2256,7 +2628,14 @@ def main() -> int:
         modes = modes_path(dev, workdir, (mapper.sequential_matcher.G,
                                           mapper.loop_matcher.G))
 
-    # 12. kernels line, card line, result line
+    # 12. dist/ and the PCG tier under a world-size-1 NCCL group: the
+    # solver tiers on the snake graph, the sharded chain match (K1-K3 at
+    # G 561), the sharded raster of phase 10's grids
+    dist_launches = dist_path(mapper, scan_at, data,
+                              cfg.loop_search_maximum_distance,
+                              map_launches["grids"])
+
+    # 13. kernels line, card line, result line
     rows = []
     for name in mc.KERNELS:
         if name == "score_ceiling":
@@ -2289,6 +2668,7 @@ def main() -> int:
                     "device_ms": r["device_ms"], "plain_ms": r["plain_ms"],
                     "bound_ms": r["bound"][0], "bound_by": r["bound"][1],
                     "library_ms": r["library_ms"]}
+            row["dist_launches_by_grid"] = dist_launches[name]
             row["lifelong_launches_by_grid"] = modes["lifelong"][name]
             row["loc_launches_by_grid"] = modes["loc"][name]
             row["loc_spec"] = modes["loc_spec"]

@@ -17,7 +17,7 @@ import numpy as np
 from slam_toolbox_tpu_torch.core import geometry
 from slam_toolbox_tpu_torch.core.scan import LocalizedScan
 from slam_toolbox_tpu_torch.device import resolve_device
-from slam_toolbox_tpu_torch.kernels import occupancy
+from slam_toolbox_tpu_torch.dist.submap import maybe_sharded_create_from_scans
 
 
 class MapMerger:
@@ -126,11 +126,14 @@ class MapMerger:
     def merge(
         self, resolution: float = 0.05,
         min_pass_through: int = 2, occupancy_threshold: float = 0.1,
+        sharded: str = "auto",
     ):
         """mergeMapCallback (:251-291): one global occupancy raster on
-        the merger's device."""
+        the merger's device, or under a process group of several ranks
+        the row-band sharded raster (`sharded`, see dist/submap.py
+        maybe_sharded_create_from_scans; bit-equal)."""
         scans = self.merged_scans()
-        return occupancy.create_from_scans(
+        return maybe_sharded_create_from_scans(
             scans, resolution, min_pass_through, occupancy_threshold,
-            device=self.device,
+            device=self.device, sharded=sharded,
         )

@@ -35,6 +35,7 @@ import numpy as np
 from slam_toolbox_tpu_torch.core import geometry
 from slam_toolbox_tpu_torch.core.params import MapperConfig
 from slam_toolbox_tpu_torch.core.scan import LaserConfig, LocalizedScan
+from slam_toolbox_tpu_torch.dist.submap import maybe_sharded_create_from_scans
 from slam_toolbox_tpu_torch.kernels import occupancy
 from slam_toolbox_tpu_torch.mapper import Mapper
 
@@ -314,14 +315,17 @@ class SlamSession:
         return self.mapper.stats
 
     # -- map rendering (updateMap, :630-654) --------------------------------
-    def get_occupancy_grid(self, resolution: Optional[float] = None):
+    def get_occupancy_grid(self, resolution: Optional[float] = None,
+                           sharded: str = "auto"):
         """Occupancy map of all processed scans, rendered for the
         session's device. Steady-state publishes are O(new scans): the
         session caches the grid and its hit/pass counters and folds only
         newly added scans via add_scans_incremental (equal to the full
         rebuild). A full re-raster happens only when poses were corrected
         or scans removed (graph.pose_revision), the resolution changed, or
-        a new scan extends the map extent."""
+        a new scan extends the map extent; under a process group of
+        several ranks it may take the row-band sharded raster (`sharded`,
+        see dist/submap.py maybe_sharded_create_from_scans; bit-equal)."""
         self.flush()
         scans = self.mapper.all_processed_scans()
         if not scans:
@@ -358,11 +362,11 @@ class SlamSession:
                     last_uid=scans[-1].unique_id,
                 )
                 return grid
-        grid = occupancy.create_from_scans(
+        grid = maybe_sharded_create_from_scans(
             scans, res,
             self.config.min_pass_through,
             self.config.occupancy_threshold,
-            device=self.device,
+            device=self.device, sharded=sharded,
         )
         mins = np.full(2, np.inf)
         maxs = np.full(2, -np.inf)

@@ -26,6 +26,15 @@ def resolve_device(device=None) -> torch.device:
     return dev
 
 
+def world_size() -> int:
+    """Ranks of the default process group, 1 when none is up: the gate of
+    the distributed routes (dist/), which costs one call and creates
+    nothing."""
+    d = torch.distributed
+    return d.get_world_size() if d.is_available() and d.is_initialized() \
+        else 1
+
+
 def upload(a, device: torch.device) -> torch.Tensor:
     """Host array -> tensor on `device`. To a card the copy goes through
     pinned memory and does not wait (a pageable copy synchronizes the

@@ -21,6 +21,7 @@ from typing import Dict, List, Optional
 import numpy as np
 
 from slam_toolbox_tpu_torch.core import geometry
+from slam_toolbox_tpu_torch.device import world_size
 
 
 class Edge:
@@ -1133,9 +1134,21 @@ class PoseGraph:
                     continue  # poses moved: re-sweep remaining candidates
                 return closed
             with stage_timer(self.mapper.stats, "loop_coarse_match"):
-                coarse_results = self.mapper.loop_matcher.match_scans_batch(
-                    scan, chains, penalize=False, refine=False
-                )
+                if len(chains) > 1 and world_size() > 1:
+                    # under a process group of several ranks every rank
+                    # runs this session in lockstep: the chains are split
+                    # over the ranks and their rows gathered
+                    # (dist/match_dist.py); a fault there raises
+                    from slam_toolbox_tpu_torch.dist.match_dist import (
+                        match_chains_sharded,
+                    )
+
+                    coarse_results = match_chains_sharded(
+                        self.mapper.loop_matcher, scan, chains)
+                else:
+                    coarse_results = (
+                        self.mapper.loop_matcher.match_scans_batch(
+                            scan, chains, penalize=False, refine=False))
             # coarse gates (Mapper.cpp:1523-1525); fine verification for
             # every passing chain is DISPATCHED at once and fetched with a
             # single completion wait — the reference verifies sequentially,

@@ -261,7 +261,6 @@ def _accumulate(scans, offset, scale, width, height, pass0, hit0, chunk,
     bit for bit."""
     rt = min(s.laser.range_threshold for s in scans)
     max_steps = int(np.ceil(rt * scale)) + 8
-    B = scans[0].laser.n_beams
     if _use_native(device, native):
         from slam_toolbox_tpu_torch import native
 
@@ -275,22 +274,37 @@ def _accumulate(scans, offset, scale, width, height, pass0, hit0, chunk,
                 st, en, bv, ev, width, height, pass_np, hit_np
             )
         return pass_np, hit_np
-    pass_cnt = upload(np.asarray(pass0, np.int32), device)
-    hit_cnt = upload(np.asarray(hit0, np.int32), device)
+    pass_cnt, hit_cnt = _trace_scans(
+        scans, offset, scale, width, height,
+        upload(np.asarray(pass0, np.int32), device),
+        upload(np.asarray(hit0, np.int32), device), chunk, max_steps,
+    )
+    return pass_cnt.cpu().numpy(), hit_cnt.cpu().numpy()
+
+
+def _trace_scans(scans, offset, scale, width, height, pass_cnt, hit_cnt,
+                 chunk, max_steps, row0=0):
+    """The tensor route's chunked trace: `chunk` scans at a time, their
+    beams prepared on the host per chunk and padded to chunk * the first
+    scan's beams (one trace shape per render), traced into the (height,
+    W) counters on their device. `row0` is the global grid row of the
+    counters' row 0: the beams are shifted down by it (Bresenham is
+    translation invariant) and cells outside the window are dropped, which
+    lets the sharded raster trace one row band. Returns (pass, hit)."""
+    dev = pass_cnt.device
+    n_pad = chunk * scans[0].laser.n_beams
+    shift = np.array([0, row0], np.int32)
     for c0 in range(0, len(scans), chunk):
         st, en, bv, ev = _beam_cells(scans[c0:c0 + chunk], offset, scale)
-        # every chunk padded to chunk * the first scan's beams, as the
-        # reference pads (one trace shape per render)
-        n_pad = chunk * B
         pass_cnt, hit_cnt = trace_beams(
             pass_cnt, hit_cnt,
-            upload(_pad2(st, n_pad), device),
-            upload(_pad2(en, n_pad), device),
-            upload(_pad1(bv, n_pad), device),
-            upload(_pad1(ev, n_pad), device),
+            upload(_pad2(st - shift, n_pad), dev),
+            upload(_pad2(en - shift, n_pad), dev),
+            upload(_pad1(bv, n_pad), dev),
+            upload(_pad1(ev, n_pad), dev),
             width, height, max_steps,
         )
-    return pass_cnt.cpu().numpy(), hit_cnt.cpu().numpy()
+    return pass_cnt, hit_cnt
 
 
 def _grid(pass_np, hit_np, offset, resolution, min_pass_through,

@@ -15,12 +15,15 @@ ScanSolver interface (Mapper.h:954-1066): AddNode / AddConstraint /
 RemoveNode / RemoveConstraint / Compute / GetCorrections / ModifyNode /
 Clear / Reset / GetGraph.
 
-Two tiers: the native host block-sparse Cholesky (host_sparse_lm, numpy +
-native/graph_ops.cpp; the default, since host_sparse_min_nodes = 0), and
-the dense-Cholesky LM loop (lm_solve) in f32 on the solver's device for
-graphs up to DENSE_MAX_NODES. The chain-preconditioned PCG tier that the
-JAX package runs past that ceiling without the native library is not
-ported yet: compute() raises NotImplementedError there.
+Tiers: the native host block-sparse Cholesky (host_sparse_lm, numpy +
+native/graph_ops.cpp; the default, since host_sparse_min_nodes = 0); the
+LM loop (lm_solve) in f32 on the solver's device, with a dense Cholesky
+step up to DENSE_MAX_NODES and past it a PCG step preconditioned by the
+odometry chain (solver/chain_precond.py: parallel cyclic reduction from
+4,096 padded nodes, the block Thomas sweeps below); and, when a process
+group of more than one rank is up and the graph has dist_edge_threshold
+edges, the edge-sharded distributed solve (dist/solver_dist.py), which
+every rank runs in lockstep on the same graph.
 """
 from __future__ import annotations
 
@@ -30,13 +33,22 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from slam_toolbox_tpu_torch.device import resolve_device
+from slam_toolbox_tpu_torch.device import resolve_device, world_size
+from slam_toolbox_tpu_torch.solver import chain_precond as cp
 
 _F32 = torch.float32
 
 
-def edge_residual(poses, src, dst, rel, sqrt_info):
-    """Whitened residuals (E,3) for all edges."""
+def _pad_pow2(n: int, floor: int = 16) -> int:
+    p = floor
+    while p < n:
+        p <<= 1
+    return p
+
+
+def edge_residual(poses, src, dst, rel, sqrt_info, emask=None):
+    """Whitened residuals (E,3) for all edges; rows where `emask` is False
+    are zero."""
     pa = poses[src]  # (E,3)
     pb = poses[dst]
     ca, sa = torch.cos(pa[:, 2]), torch.sin(pa[:, 2])
@@ -47,11 +59,15 @@ def edge_residual(poses, src, dst, rel, sqrt_info):
     dth = pb[:, 2] - pa[:, 2] - rel[:, 2]
     rth = torch.atan2(torch.sin(dth), torch.cos(dth))
     r = torch.stack([rx, ry, rth], dim=-1)
-    return torch.einsum("eij,ej->ei", sqrt_info, r)
+    r = torch.einsum("eij,ej->ei", sqrt_info, r)
+    if emask is None:
+        return r
+    return torch.where(emask[:, None], r, 0.0)
 
 
-def edge_jacobians(poses, src, dst, sqrt_info):
-    """Whitened Jacobian blocks (E,3,3) wrt pose a and pose b."""
+def edge_jacobians(poses, src, dst, sqrt_info, emask=None):
+    """Whitened Jacobian blocks (E,3,3) wrt pose a and pose b; blocks
+    where `emask` is False are zero."""
     pa = poses[src]
     pb = poses[dst]
     ca, sa = torch.cos(pa[:, 2]), torch.sin(pa[:, 2])
@@ -80,7 +96,10 @@ def edge_jacobians(poses, src, dst, sqrt_info):
     )
     ja = torch.einsum("eij,ejk->eik", sqrt_info, ja)
     jb = torch.einsum("eij,ejk->eik", sqrt_info, jb)
-    return ja, jb
+    if emask is None:
+        return ja, jb
+    m = emask[:, None, None]
+    return torch.where(m, ja, 0.0), torch.where(m, jb, 0.0)
 
 
 def build_normal_blocks(poses, src, dst, rel, sqrt_info):
@@ -103,12 +122,113 @@ def build_normal_blocks(poses, src, dst, rel, sqrt_info):
     return diag, hab, grad, chi2
 
 
+def chi2_only(poses, src, dst, rel, sqrt_info, emask=None):
+    r = edge_residual(poses, src, dst, rel, sqrt_info, emask)
+    return torch.sum(r * r)
+
+
+def _hx(x, diag_damped, hab, src, dst, free):
+    """H @ x with the gauge row/col projected out."""
+    x = x * free[:, None]
+    out = torch.einsum("nij,nj->ni", diag_damped, x)
+    out = out.index_add(0, src, torch.einsum("eij,ej->ei", hab, x[dst]))
+    out = out.index_add(0, dst, torch.einsum("eji,ej->ei", hab, x[src]))
+    return out * free[:, None]
+
+
+def _damped(diag, lam):
+    eye = torch.eye(3, dtype=diag.dtype, device=diag.device)
+    damp = lam * torch.einsum("nii->n", diag)[:, None, None] * eye / 3.0
+    return diag + damp + 1e-8 * eye
+
+
+def solve_pcg(diag, hab, grad, src, dst, free, lm_lambda, cg_iters: int,
+              cg_tol):
+    """Block-Jacobi preconditioned CG on (H + λ·diagH) x = b. The stop
+    test reads one device scalar per iteration."""
+    eye = torch.eye(3, dtype=diag.dtype, device=diag.device)
+    diag_d = _damped(diag, lm_lambda)
+    # preconditioner: inverse of damped diagonal blocks
+    minv = torch.linalg.inv(diag_d + 1e-6 * eye)
+    b = grad * free[:, None]
+
+    def mv(x):
+        return _hx(x, diag_d, hab, src, dst, free)
+
+    def prec(r):
+        return torch.einsum("nij,nj->ni", minv, r) * free[:, None]
+
+    x = torch.zeros_like(b)
+    r = b - mv(x)
+    p = prec(r)
+    rz = torch.sum(r * p)
+    stop = cg_tol * torch.clamp_min(torch.sum(b * b), 1e-30)
+    i = 0
+    while i < cg_iters and bool(torch.sum(r * r) > stop):
+        hp = mv(p)
+        alpha = rz / torch.clamp_min(torch.sum(p * hp), 1e-30)
+        x = x + alpha * p
+        r = r - alpha * hp
+        z = prec(r)
+        rz_new = torch.sum(r * z)
+        p = z + rz_new / torch.clamp_min(rz, 1e-30) * p
+        rz = rz_new
+        i += 1
+    return x
+
+
+def pcg_step(diag, hab, grad, src, dst, free, lam, cg_iters: int, cg_tol):
+    """lm_solve's step past the dense ceiling: CG on the damped normal
+    equations preconditioned by the odometry chain, which it solves
+    exactly, so CG iterates only on the loop-closure coupling. From
+    4,096 nodes parallel cyclic reduction, below them the block Thomas
+    factorization (reused across CG iterations). The true residual is
+    recomputed every 64 iterations against f32 recurrence drift; the stop
+    test reads one device scalar per iteration."""
+    n = diag.shape[0]
+    diag_d = _damped(diag, lam)
+    b = grad * free[:, None]
+
+    def mv(x):
+        return _hx(x, diag_d, hab, src, dst, free)
+
+    U = cp.build_chain_offdiag(hab, src, dst, n, free)
+    if n >= 4096:
+        steps = int(math.ceil(math.log2(n))) + 1
+
+        def prec(r):
+            return cp.pcr_solve(diag_d, U, r, free, steps)
+    else:
+        Sinv, T, W = cp.factorize(diag_d, U, free)
+
+        def prec(r):
+            return cp.apply(Sinv, T, W, r, free)
+
+    x = torch.zeros_like(b)
+    r = b - mv(x)
+    p = prec(r)
+    rz = torch.sum(r * p)
+    stop = cg_tol * torch.clamp_min(torch.sum(b * b), 1e-30)
+    i = 0
+    while i < cg_iters and bool(torch.sum(r * r) > stop):
+        hp = mv(p)
+        alpha = rz / torch.clamp_min(torch.sum(p * hp), 1e-30)
+        x = x + alpha * p
+        restart = i % 64 == 63
+        r = b - mv(x) if restart else r - alpha * hp
+        z = prec(r)
+        rz_new = torch.sum(r * z)
+        p = z if restart else z + rz_new / torch.clamp_min(rz, 1e-30) * p
+        rz = rz_new
+        i += 1
+    pcg_step.last_cg_iters = i
+    return x
+
+
 def dense_step(diag, hab, grad, src, dst, free, lam):
     """Exact damped-normal-equations solve via dense Cholesky."""
     n = diag.shape[0]
-    eye = torch.eye(3, dtype=diag.dtype, device=diag.device)
-    damp = lam * torch.einsum("nii->n", diag)[:, None, None] * eye / 3.0
-    diag_d = diag + damp + 1e-8 * eye
+    diag_d = _damped(diag, lam)
     ii = torch.arange(3, device=diag.device)
     H = diag.new_zeros((3 * n, 3 * n))
     nidx = torch.arange(n, device=diag.device)
@@ -139,14 +259,22 @@ def lm_solve(
     poses, src, dst, rel, sqrt_info, free,
     initial_lambda: float, function_tolerance: float,
     gradient_tolerance: float, parameter_tolerance: float,
-    max_iterations: int,
+    max_iterations: int, cg_tol: float = 1e-8, cg_iters: int = 200,
 ):
-    """Levenberg-Marquardt with dense-Cholesky steps, in the dtype and on
-    the device of `poses`. Same acceptance and termination rules as the
-    JAX package's lm_solve; the loop runs on the host, one device sync per
-    iteration for its termination test."""
+    """Levenberg-Marquardt in the dtype and on the device of `poses`:
+    dense-Cholesky steps up to DENSE_MAX_NODES nodes, chain-preconditioned
+    PCG steps (pcg_step, at most cg_iters iterations to cg_tol) past it.
+    Same acceptance and termination rules as the JAX package's lm_solve;
+    the loop runs on the host, one device sync per iteration for its
+    termination test."""
     def chi2_of(p):
         return torch.sum(edge_residual(p, src, dst, rel, sqrt_info) ** 2)
+
+    def solve_step(diag, hab, grad, lam):
+        if poses.shape[0] <= DENSE_MAX_NODES:
+            return dense_step(diag, hab, grad, src, dst, free, lam)
+        return pcg_step(diag, hab, grad, src, dst, free, lam, cg_iters,
+                        cg_tol)
 
     chi2 = chi2_of(poses)
     lam = torch.tensor(initial_lambda, dtype=poses.dtype,
@@ -156,7 +284,7 @@ def lm_solve(
         diag, hab, grad, _ = build_normal_blocks(
             poses, src, dst, rel, sqrt_info)
         gnorm = torch.max(torch.abs(grad * free[:, None]))
-        step = dense_step(diag, hab, grad, src, dst, free, lam)
+        step = solve_step(diag, hab, grad, lam)
         new_poses = poses + step
         new_poses[:, 2] = torch.atan2(
             torch.sin(new_poses[:, 2]), torch.cos(new_poses[:, 2]))
@@ -308,8 +436,7 @@ def host_sparse_lm(poses, src, dst, rel, sqrt_info, free, cfg):
 
 # below this node count the normal equations are solved densely (one
 # Cholesky per LM step; Ceres similarly prefers dense solvers for small
-# problems). Past it the JAX package runs a chain-preconditioned PCG,
-# which this package does not have yet.
+# problems); past it lm_solve runs the chain-preconditioned PCG
 DENSE_MAX_NODES = 2048
 
 
@@ -480,36 +607,46 @@ class PoseGraphSolver:
             ]
             return self.corrections
 
+        # large graphs under a process group of several ranks take the
+        # edge-sharded distributed solve (dist/solver_dist.py); a fault
+        # there raises rather than falling through
+        if e >= self.config.dist_edge_threshold and world_size() > 1:
+            return self._compute_distributed(n, e)
+
         import time as _time
 
         # native host sparse Cholesky (see host_sparse_lm): the default
-        # everywhere (host_sparse_min_nodes=0) and mandatory past the
-        # dense ceiling; the device path serves the rest and the case
+        # everywhere (host_sparse_min_nodes=0) and the first choice past
+        # the dense ceiling; the device path serves the rest and the case
         # where the native lib is unavailable
         if n >= self.config.host_sparse_min_nodes or n > DENSE_MAX_NODES:
             res = self._compute_host_sparse(n, e)
             if res is not None:
                 return res
-            if n > DENSE_MAX_NODES:
-                raise NotImplementedError(
-                    f"{n} nodes exceed the dense ceiling ({DENSE_MAX_NODES})"
-                    " and the native sparse solver is unavailable; the PCG"
-                    " tier is not ported yet"
-                )
 
         t0 = _time.perf_counter()
         cfg = self.config
         dev = self.device
-        src = np.zeros(e, np.int64)
-        dst = np.zeros(e, np.int64)
-        rel = np.zeros((e, 3), np.float32)
-        sqrt_info = np.zeros((e, 3, 3), np.float32)
+        # past the dense ceiling the PCG tier runs on padded arrays, as the
+        # JAX package pads them: nodes to a power of two from 256 (so at
+        # least 4,096 here, and the chain preconditioner is the PCR),
+        # edges from 512; padding nodes are not free and padding edges
+        # have zero weight
+        pad = n > DENSE_MAX_NODES
+        n_pad, e_pad = (_pad_pow2(n, 256), _pad_pow2(e, 512)) if pad else (n, e)
+        poses = np.zeros((n_pad, 3), np.float32)
+        poses[:n] = np.stack(self._poses)
+        src = np.full(e_pad, n_pad - 1, np.int64)
+        dst = np.full(e_pad, n_pad - 1, np.int64)
+        rel = np.zeros((e_pad, 3), np.float32)
+        sqrt_info = np.zeros((e_pad, 3, 3), np.float32)
         for k, ((i1, i2), (rp, si)) in enumerate(self._edges.items()):
             src[k] = self._id_to_idx[i1]
             dst[k] = self._id_to_idx[i2]
             rel[k] = rp
             sqrt_info[k] = si
-        free = np.ones(n, np.float32)
+        free = np.ones(n_pad, np.float32)
+        free[n:] = 0.0
         if self._first_id in self._id_to_idx:
             free[self._id_to_idx[self._first_id]] = 0.0
 
@@ -517,18 +654,20 @@ class PoseGraphSolver:
             return torch.from_numpy(a).to(dev)
 
         poses_out, chi2, iters = lm_solve(
-            t(np.stack(self._poses).astype(np.float32)),
-            t(src), t(dst), t(rel), t(sqrt_info), t(free),
+            t(poses), t(src), t(dst), t(rel), t(sqrt_info), t(free),
             float(np.float32(cfg.initial_lm_lambda)),
             float(np.float32(cfg.function_tolerance)),
             float(np.float32(cfg.gradient_tolerance)),
             float(np.float32(cfg.parameter_tolerance)),
             cfg.max_iterations,
+            cg_tol=float(np.float32(cfg.cg_tolerance)),
+            cg_iters=cfg.cg_max_iterations,
         )
-        result = poses_out.cpu().numpy().astype(np.float64)
+        result = poses_out[:n].cpu().numpy().astype(np.float64)
         self.last_stats = {
             "n": n, "e": e, "lm_iters": iters, "chi2": float(chi2),
-            "dense_ms": round(1e3 * (_time.perf_counter() - t0), 2),
+            "device_ms": round(1e3 * (_time.perf_counter() - t0), 2),
+            "tier": "pcg" if pad else "dense",
         }
         self.corrections = [
             (node_id, result[i].copy()) for i, node_id in enumerate(self._ids)
@@ -649,4 +788,56 @@ class PoseGraphSolver:
         ]
         for i in range(n):
             self._poses[i] = poses_out[i].copy()
+        return self.corrections
+
+    def _compute_distributed(self, n: int, e: int):
+        """Edge-sharded solve over the process group's ranks; every rank
+        calls it on the same graph and ends with the same poses."""
+        from slam_toolbox_tpu_torch.dist import multihost
+        from slam_toolbox_tpu_torch.dist.solver_dist import (
+            distributed_lm_solve,
+        )
+
+        cfg = self.config
+        mesh = multihost.global_mesh(self.device)
+        n_dev = mesh.size
+        # every rank's node slice a power of two, so the Schwarz block
+        # (512 nodes, or the whole slice below that) divides it at any
+        # rank count; on a power-of-two group past 16 nodes, _pad_pow2(n)
+        n_pad = _pad_pow2(-(-n // n_dev), 1) * n_dev
+        e_pad = ((_pad_pow2(e) + n_dev - 1) // n_dev) * n_dev
+        poses = np.zeros((n_pad, 3), np.float32)
+        poses[:n] = np.stack(self._poses)
+        src = np.full(e_pad, n_pad - 1, np.int64)
+        dst = np.full(e_pad, n_pad - 1, np.int64)
+        rel = np.zeros((e_pad, 3), np.float64)
+        sqrt_info = np.zeros((e_pad, 3, 3), np.float64)
+        emask = np.zeros(e_pad, bool)
+        for k, ((i1, i2), (rp, si)) in enumerate(self._edges.items()):
+            src[k] = self._id_to_idx[i1]
+            dst[k] = self._id_to_idx[i2]
+            rel[k] = rp
+            sqrt_info[k] = si
+            emask[k] = True
+        free = np.ones(n_pad, np.float32)
+        free[n:] = 0.0
+        if self._first_id in self._id_to_idx:
+            free[self._id_to_idx[self._first_id]] = 0.0
+        out, chi2 = distributed_lm_solve(
+            mesh, poses, src, dst, rel, sqrt_info, emask, free,
+            max_iterations=cfg.max_iterations,
+            initial_lambda=cfg.initial_lm_lambda,
+            function_tolerance=cfg.function_tolerance,
+            cg_iters=cfg.cg_max_iterations,
+        )
+        self.last_stats = {
+            "n": n, "e": e, "chi2": chi2, "ranks": n_dev,
+            "cg_iters": list(distributed_lm_solve.last_cg_iters),
+        }
+        result = np.asarray(out[:n], dtype=np.float64)
+        self.corrections = [
+            (nid, result[i].copy()) for i, nid in enumerate(self._ids)
+        ]
+        for i in range(n):
+            self._poses[i] = result[i].copy()
         return self.corrections

@@ -29,6 +29,11 @@ import slam_toolbox_tpu_torch.api.queue_modes
 import slam_toolbox_tpu_torch.core.laser_utils
 import slam_toolbox_tpu_torch.graph.marginal
 import slam_toolbox_tpu_torch.mapper.lifelong
+import slam_toolbox_tpu_torch.dist, slam_toolbox_tpu_torch.dist.multihost
+import slam_toolbox_tpu_torch.dist.solver_dist
+import slam_toolbox_tpu_torch.dist.match_dist
+import slam_toolbox_tpu_torch.dist.submap
+import slam_toolbox_tpu_torch.solver.chain_precond
 import chip_smoke
 import profile_torch
 print(json.dumps(sorted(
@@ -105,8 +110,11 @@ def test_unported_modes_raise():
 
 def test_port_reads_no_slam_environment():
     """Of the JAX package's SLAM_* switches the port reads only the
-    streaming pipeline's five A/B switches, in mapper/streaming.py; the
-    others (SLAM_FUSED_LOOP, SLAM_RESYNC_EPS, ...) are constants."""
+    streaming pipeline's five A/B switches, in mapper/streaming.py, and
+    the multi-process deployment's three (SLAM_COORD, SLAM_NPROCS,
+    SLAM_PROC_ID), in dist/multihost.py; the others (SLAM_FUSED_LOOP,
+    SLAM_RESYNC_EPS, ...) are constants, and SLAM_SHARDED_RASTER is the
+    `sharded=` keyword of dist/submap.py."""
     import re
 
     root = os.path.join(REPO, "slam_toolbox_tpu_torch")
@@ -119,11 +127,14 @@ def test_port_reads_no_slam_environment():
                     for var in re.findall(r"SLAM_\w+", f.read()):
                         found.setdefault(var, set()).add(
                             os.path.relpath(path, root))
-    assert found == {
+    want = {
         var: {os.path.join("mapper", "streaming.py")}
         for var in ("SLAM_STREAM_PIPELINE", "SLAM_SPEC", "SLAM_SPEC_LOOP",
                     "SLAM_ADAPTIVE", "SLAM_EARLY_VERIFY")
     }
+    want.update({var: {os.path.join("dist", "multihost.py")}
+                 for var in ("SLAM_COORD", "SLAM_NPROCS", "SLAM_PROC_ID")})
+    assert found == want
 
 
 def test_chip_smoke_fails_without_cuda():
