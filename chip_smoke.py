@@ -42,7 +42,8 @@ Phases, in order; any failure exits non-zero and nothing is caught:
                 SlamSession(device="cuda"): ATE below half of odometry's,
                 at least one loop closure, every path kernel launched;
   5. no sync  — on a pipeline that has committed the bench workload's
-                first drain, the second drain's batch loop (256 scans) and
+                first drain, the second drain's batch (256 replays of the
+                step graph the first drain captured) and
                 its speculative launches (the near-chain matches of its
                 predicted chains, here 16 pairs of its scans with chains
                 of committed scans, and the fused verify of its newest
@@ -51,12 +52,22 @@ Phases, in order; any failure exits non-zero and nothing is caught:
                 torch.cuda.set_sync_debug_mode("error"); the speculative
                 rows bit-equal to the non-speculative path's, and the
                 commit then uses the speculative rows;
+ 5b. graph    — that second drain's batch from one saved state, eagerly
+                (the Python loop), as replays of the pipeline's step
+                graph and of a graph of UNROLL (16) steps, in turns:
+                every state tensor bit-equal, the tallies' launches equal
+                to the loop's;
+                capture ms, host us per replay, device ms per step and
+                each route's batch launch on the host (`# graph:`);
   6. streaming — bench.py's full workload (16 laps, about 2,030 scans)
                 through SlamSession(streaming=True, drain_every=256,
                 device="cuda") with the defaults (speculation on), the main
                 path: ATE below half of odometry's, at least one loop
                 closure and one fused verify, speculative near-chain rows
-                used, every path kernel launched;
+                used, every path kernel launched (counted by the step
+                graph's tally per replay); then again with the pipeline's
+                batches run by the eager loop: the same trajectory,
+                closures and launches;
   7. spec off — the same workload with SPECULATE off: the same trajectory
                 and closures (bit for bit; or, if the card's path proves
                 nondeterministic by a second spec-off run, within 4 cm),
@@ -1013,25 +1024,13 @@ def spec_pairs_for(batch, committed, n_pairs: int = 16, half: int = 5):
     return out
 
 
-def check_no_sync(cfg, laser, data, dev):
-    """Phase 5. A streaming session commits the bench workload's first
-    drain; its second drain's batch (256 scans) is then launched with its
-    speculative launches under sync_debug_mode("error"), so any host
-    synchronization between the batch's first scan and the last
-    speculative launch raises: the pipeline's own _dispatch_spec (with
-    EARLY_VERIFY off, so the newest scan's predicted loop candidates are
-    verified too) and a near-chain speculation of 16 pairs of batch scans
-    with committed chains. Then the speculative near-chain rows are held
-    bit-equal to the non-speculative dispatch at the ring's centers, the
-    batch is committed, and the speculative route's kernel launches and
-    the commit's speculation counts are returned."""
-    import numpy as np
-    import torch
-
+def second_drain(cfg, laser, data, dev):
+    """A streaming session (drains of 256) that has committed the bench
+    workload's first drain, with its second drain's 256 scans taken out
+    of `pending`, not dispatched: (session, pipeline, those scans, the
+    committed scans). The pipeline's step graph was captured at the first
+    drain."""
     from slam_toolbox_tpu_torch.api import SlamSession
-    from slam_toolbox_tpu_torch.kernels import loop_verify as lv
-    from slam_toolbox_tpu_torch.kernels import match_cuda as mc
-    from slam_toolbox_tpu_torch.mapper import streaming as ts
 
     sess = SlamSession(cfg, laser, device=dev, streaming=True,
                        drain_every=256)
@@ -1055,6 +1054,33 @@ def check_no_sync(cfg, laser, data, dev):
         if len(pipe.pending) == 256:
             break
     scans, pipe.pending = pipe.pending, []
+    if pipe._graph is None:
+        raise AssertionError("the first drain captured no step graph")
+    return sess, pipe, scans, committed
+
+
+def check_no_sync(cfg, laser, data, dev):
+    """Phase 5. A streaming session commits the bench workload's first
+    drain (second_drain); its second drain's batch (256 scans, replays of
+    the step graph that the first drain captured) is then launched with
+    its speculative launches under sync_debug_mode("error"), so any host
+    synchronization between the batch's first replay and the last
+    speculative launch raises: the pipeline's own _dispatch_spec (with
+    EARLY_VERIFY off, so the newest scan's predicted loop candidates are
+    verified too) and a near-chain speculation of 16 pairs of batch scans
+    with committed chains. Then the speculative near-chain rows are held
+    bit-equal to the non-speculative dispatch at the ring's centers, the
+    batch is committed, and the speculative route's kernel launches and
+    the commit's speculation counts are returned."""
+    import numpy as np
+    import torch
+
+    from slam_toolbox_tpu_torch.kernels import loop_verify as lv
+    from slam_toolbox_tpu_torch.kernels import match_cuda as mc
+    from slam_toolbox_tpu_torch.mapper import streaming as ts
+
+    sess, pipe, scans, committed = second_drain(cfg, laser, data, dev)
+    graph = pipe._graph
     n = len(scans)
     pairs = spec_pairs_for(scans, committed)
     early = ts.EARLY_VERIFY
@@ -1078,6 +1104,10 @@ def check_no_sync(cfg, laser, data, dev):
         torch.cuda.set_sync_debug_mode("default")
         ts.EARLY_VERIFY = early
     spec_launches = {k: v - batch_launches[k] for k, v in mc.LAUNCHES.items()}
+    if pipe._graph is not graph or any(batch_launches[k] != n
+                                       for k in PATH_KERNELS):
+        raise AssertionError(f"the batch did not run as {n} replays of the "
+                             f"first drain's step graph: {batch_launches}")
     rows = pd.results.cpu().numpy()
     if not np.all(np.isfinite(rows[:n])):
         raise AssertionError("no-sync batch gave non-finite results")
@@ -1106,7 +1136,8 @@ def check_no_sync(cfg, laser, data, dev):
     pipe.drain_every = 256
     sess.flush()
     counts = {k: sess.stats.counts[k] for k in SPEC_COUNTS}
-    print(f"# no sync: a {n}-scan drain batch, its speculative launches "
+    print(f"# no sync: a {n}-scan drain batch (step graph replays), its "
+          f"speculative launches "
           f"(the loop verify of {n_loop} predicted candidates) and "
           f"{len(pairs)} speculative near-chain matches ran "
           f"with no host synchronization; launches of the batch "
@@ -1116,6 +1147,139 @@ def check_no_sync(cfg, laser, data, dev):
     if not n_loop:
         raise AssertionError("no-sync: the loop verify was not speculated")
     return dict(spec_launches=spec_launches, counts=counts)
+
+
+# phase 5b times a graph of this many steps beside the pipeline's
+# one-step graph
+UNROLL = 16
+
+
+def check_graph(cfg, laser, data, dev):
+    """Phase 5b. The second drain's 256-scan batch (second_drain) run from
+    one saved copy of the pipeline's state, in turns: eagerly (the Python
+    loop, the CPU route), as replays of the pipeline's step graph
+    (_StepGraph, one step per replay, captured here on its own state),
+    and as replays of a graph of UNROLL steps. Every state tensor after
+    each graphed run bit-equal to the eager run's, and the launches
+    counted by the graphs' tallies equal to the eager loop's. Timed in
+    this call: each capture (the step graph's eager step on a scratch
+    state included), the host time of each route's launch of the batch
+    (what batch_dispatch holds: the batch's two copies and the replays,
+    or the Python loop), the host time per replay, and the device time
+    per step (CUDA events over the batch). Prints `# graph:`."""
+    import numpy as np
+    import torch
+
+    from slam_toolbox_tpu_torch.device import upload
+    from slam_toolbox_tpu_torch.kernels import match_cuda as mc
+    from slam_toolbox_tpu_torch.mapper import streaming as ts
+
+    _, pipe, scans, _ = second_drain(cfg, laser, data, dev)
+    n = len(scans)
+    packs = upload(np.stack([ts.scan_pack(s) for s in scans]), dev)
+    odoms = upload(np.stack([s.odom_pose for s in scans]).astype(
+        np.float32), dev)
+    state = pipe.state
+    saved = {k: v.clone() if isinstance(v, torch.Tensor) else v
+             for k, v in state.items()}
+
+    def restore():
+        for k, v in saved.items():
+            if isinstance(v, torch.Tensor):
+                state[k].copy_(v)
+            else:
+                state[k] = v
+
+    capture_ms = {}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    step_graph = ts._StepGraph(state, pipe._step)
+    torch.cuda.synchronize()
+    capture_ms["graph"] = 1e3 * (time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    unrolled, tally = ts._capture(lambda: pipe._step(state), UNROLL)
+    torch.cuda.synchronize()
+    capture_ms["unrolled"] = 1e3 * (time.perf_counter() - t0)
+
+    def replay_unrolled():
+        ts._load_batch(state, packs, odoms)
+        for _ in range(n // UNROLL):
+            unrolled.replay()
+        mc.count_replay(tally, n // UNROLL)
+        state["n_results"] += n
+
+    launch = {
+        "eager": lambda: pipe._run_eager(state, packs, odoms),
+        "graph": lambda: pipe._run_batch(state, packs, odoms),
+        "unrolled": replay_unrolled,
+    }
+
+    def run(route):
+        """One batch from the saved state: (host ms of the launch, device
+        ms, launches, the state after)."""
+        restore()
+        torch.cuda.synchronize()
+        mc.reset_launch_counts()
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        t0 = time.perf_counter()
+        launch[route]()
+        host_ms = 1e3 * (time.perf_counter() - t0)
+        e1.record()
+        torch.cuda.synchronize()
+        out = {k: v.clone() if isinstance(v, torch.Tensor) else v
+               for k, v in state.items()}
+        return host_ms, e0.elapsed_time(e1), dict(mc.LAUNCHES), out
+
+    if n % UNROLL:
+        raise AssertionError(f"a {n}-scan batch is no multiple of {UNROLL}")
+    pipe._graph = step_graph
+    order = ["eager", "graph", "unrolled", "unrolled", "graph", "eager"]
+    times = {route: [] for route in order}
+    ref = None
+    for route in order:
+        host_ms, dev_ms, launches, out = run(route)
+        times[route].append((host_ms, dev_ms))
+        if ref is None:
+            ref = (launches, out)
+            continue
+        if launches != ref[0]:
+            raise AssertionError(f"{route}: launches {launches} against "
+                                 f"the eager loop's {ref[0]}")
+        for k, v in out.items():
+            same = (torch.equal(v, ref[1][k]) if isinstance(v, torch.Tensor)
+                    else v == ref[1][k])
+            if not same:
+                raise AssertionError(f"{route}: state[{k!r}] differs from "
+                                     "the eager loop's")
+    # the replays alone on the host clock
+    host_us = {}
+    for route, g, replays in (("graph", step_graph.graph, n),
+                              ("unrolled", unrolled, n // UNROLL)):
+        restore()
+        ts._load_batch(state, packs, odoms)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(replays):
+            g.replay()
+        host_us[route] = 1e6 * (time.perf_counter() - t0) / replays
+        torch.cuda.synchronize()
+    restore()
+    out = {route: {
+        "capture_ms": capture_ms.get(route),
+        "replays": {"eager": 0, "graph": n, "unrolled": n // UNROLL}[route],
+        "host_us_per_replay": host_us.get(route),
+        "batch_dispatch_ms": [t[0] for t in times[route]],
+        "device_ms_per_step": [t[1] / n for t in times[route]],
+    } for route in times}
+    print(f"# graph: a {n}-scan drain batch at G {pipe.matcher.G} from one "
+          f"saved state, eager, step graph and {UNROLL}-step graph "
+          f"bit-equal in every state tensor, launches {ref[0]} by the "
+          f"tallies as by the eager loop; {json.dumps(out)} (device ms per "
+          f"step: CUDA events over the batch, for the eager loop the "
+          f"host-bound span)", flush=True)
+    return out
 
 
 def same_run(tag, a, b, rerun):
@@ -2557,20 +2721,25 @@ def main() -> int:
     cfg16, laser16, data16 = bench_workload(n_laps=16)
     no_sync = check_no_sync(cfg16, laser16, data16, dev)
 
+    # 5b. the drain's batch as step graph replays against the eager loop
+    check_graph(cfg16, laser16, data16, dev)
+
     # 6. the main path: the streaming pipeline on bench.py's full workload,
     # the defaults (speculation on)
     from slam_toolbox_tpu_torch.mapper import streaming as ts
 
     def streaming_run(tag, data_=data16, cfg_=cfg16, drain_every=256,
-                      need_closure=True, **switches):
+                      need_closure=True, eager=False, **switches):
         old = {k: getattr(ts, k) for k in switches}
         for k, v in switches.items():
             setattr(ts, k, v)
         try:
-            return run_mapping(
-                SlamSession(cfg_, laser16, device=dev, streaming=True,
-                            drain_every=drain_every),
-                data_, tag, need_closure=need_closure)
+            sess = SlamSession(cfg_, laser16, device=dev, streaming=True,
+                               drain_every=drain_every)
+            if eager:   # the Python loop in place of the step graph
+                pipe = sess._ensure_pipe()
+                pipe._run_batch = pipe._run_eager
+            return run_mapping(sess, data_, tag, need_closure=need_closure)
         finally:
             for k, v in old.items():
                 setattr(ts, k, v)
@@ -2580,6 +2749,25 @@ def main() -> int:
         raise AssertionError("streaming: no fused loop verify ran")
     if main_run["spec"]["spec_chain_hit"] < 1:
         raise AssertionError("streaming: no speculative near-chain row used")
+    # the graphed main path against the eager one: the same trajectory,
+    # closures and launches (the replays' tallies against the wrappers')
+    eager_run = streaming_run("streaming eager", eager=True)
+    same_run("graphed vs eager", eager_run, main_run,
+             lambda: streaming_run("streaming eager again", eager=True))
+    if (eager_run["launches"], eager_run["by_grid"]) != (
+            main_run["launches"], main_run["by_grid"]):
+        raise AssertionError(
+            f"graphed launches {main_run['by_grid']} against the eager "
+            f"run's {eager_run['by_grid']}")
+    dispatch = {tag: stage_times(r["sess"])["batch_dispatch"]
+                for tag, r in (("graphed", main_run), ("eager", eager_run))}
+    print(f"# graphed vs eager main path: {main_run['rate']} and "
+          f"{eager_run['rate']} scans/s, ATE {main_run['ate']} and "
+          f"{eager_run['ate']} m, batch_dispatch {json.dumps(dispatch)} "
+          f"(ms), {main_run['sess'].stats.counts['batch_steps']} steps, "
+          f"graph_capture "
+          f"{json.dumps(stage_times(main_run['sess']).get('graph_capture'))}",
+          flush=True)
 
     # 7. the same workload with the speculation off
     off_run = streaming_run("streaming spec off", SPECULATE=False)
@@ -2674,6 +2862,8 @@ def main() -> int:
             row["loc_spec"] = modes["loc_spec"]
             row["main_path_spec"] = main_run["spec"]
             row["spec_off_launches"] = off_run["launches"][name]
+            row["main_path_route"] = "step graph replays"
+            row["eager_main_path_launches"] = eager_run["launches"][name]
             row["no_sync_spec_route_launches"] = no_sync["spec_launches"][name]
         if loop:
             row["loop"] = {

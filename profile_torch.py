@@ -6,26 +6,41 @@
 The classic path: chip_smoke.py's 2-lap bench workload (bench.py's
 configuration, seed 42) through SlamSession(device="cuda"). The streaming
 path (the main path): bench.py's full 16-lap workload through
-SlamSession(streaming=True, drain_every=256). Each runs once plain, for
-the wall time and the per-stage host timers (both plain runs come before
-any tracing), and once under torch.profiler: the classic run whole, the
+SlamSession(streaming=True, drain_every=256), whose drains replay the
+step graph of mapper/streaming.py. Each runs once plain, for the wall
+time and the per-stage host timers (both plain runs come before any
+tracing), and once under torch.profiler: the classic run whole, the
 streaming run over a steady window of two drains (accepted scans 768 to
 1280, one loop attempt). From each trace:
 the device's busy time (the union of its kernels' and copies'
 intervals), its idle share over the traced wall time, the device time of
-every kernel by name, kernel launches and copies per scan, and the host's
-waits on the device (the runtime's *Synchronize calls) per drain. Writes
-the numbers as JSON to --out and prints a summary. Needs a CUDA device.
+every kernel by name, kernel launches and copies per scan, the host's
+launch calls (cudaLaunchKernel and cudaGraphLaunch apart) and, on the
+streaming path, both and the device's kernels per batch step, and the
+host's waits on the device (the runtime's *Synchronize calls) per drain.
+Then a third streaming run under cProfile over one steady drain
+(accepted scans 1025 to 1280): where the host time that is left goes.
+Writes the numbers as JSON to --out and prints a summary. Needs a CUDA
+device.
 """
 from __future__ import annotations
 
 import argparse
+import cProfile
+import io
 import json
+import pstats
 import sys
 import time
 
 WINDOW = (768, 1280)   # accepted scans of the traced streaming window
+CPROFILE_WINDOW = (1024, 1280)   # one drain
 DRAIN = 256
+# the host's kernel launch calls and graph launch calls, as the CUDA
+# APIs (cuda* and cu*) name them in the trace
+LAUNCH_CALLS = ("cudaLaunchKernel", "cuLaunchKernel", "cudaLaunchKernelExC",
+                "cuLaunchKernelEx")
+GRAPH_CALLS = ("cudaGraphLaunch", "cuGraphLaunch")
 
 
 def _device_intervals(prof):
@@ -68,6 +83,14 @@ def _sync_calls(prof) -> int:
                and "Synchronize" in e.name)
 
 
+def _host_calls(prof, names) -> int:
+    """Host calls to the CUDA API functions `names`."""
+    from torch.autograd import DeviceType
+
+    return sum(1 for e in prof.events()
+               if e.device_type == DeviceType.CPU and e.name in names)
+
+
 def _trace_summary(prof, wall_s: float, n_scans: int):
     ivals = _device_intervals(prof)
     busy_s = _union_us(ivals) * 1e-6
@@ -85,6 +108,9 @@ def _trace_summary(prof, wall_s: float, n_scans: int):
         "kernel_launches_per_scan": (len(ivals) - n_copies) / n_scans,
         "copies_per_scan": n_copies / n_scans,
         "sync_calls": _sync_calls(prof),
+        "kernel_launch_calls": _host_calls(prof, LAUNCH_CALLS),
+        "graph_launch_calls": _host_calls(prof, GRAPH_CALLS),
+        "kernels": len(ivals) - n_copies,
         "device_time_by_name": [
             {"name": k[:120], "count": v["count"],
              "us_total": v["us_total"],
@@ -109,6 +135,7 @@ def _plain_run(sess, data):
     n = len(est)
     return {
         "scans": n, "wall_s": wall, "scans_per_s": n / wall,
+        "batch_steps": sess.stats.counts.get("batch_steps", 0),
         "latency_ms_p50": 1e3 * float(np.percentile(lat, 50)),
         "latency_ms_p95": 1e3 * float(np.percentile(lat, 95)),
         "drain_calls": len(drains),
@@ -135,7 +162,16 @@ def _print(tag, card, r):
           f"idle share {t['device_idle_share']}, "
           f"{t['kernel_launches_per_scan']} kernel launches and "
           f"{t['copies_per_scan']} copies per scan, "
-          f"{t['sync_calls']} synchronize calls")
+          f"{t['sync_calls']} synchronize calls, host launch calls "
+          f"{t['kernel_launch_calls']} cudaLaunchKernel and "
+          f"{t['graph_launch_calls']} cudaGraphLaunch")
+    if "steps" in t:
+        print(f"# {tag} per batch step ({t['steps']} steps in the window): "
+              f"{t['kernel_launch_calls_per_step']} cudaLaunchKernel, "
+              f"{t['graph_launch_calls_per_step']} cudaGraphLaunch, "
+              f"{t['kernels_per_step']} device kernels; batch_dispatch "
+              f"{r['batch_dispatch_ms_per_step']} ms per scan over the run "
+              f"(less the graph's capture)")
     for d in t["device_time_by_name"][:12]:
         print(f"# {tag} device {d['count']:7d} x {d['us_mean']:9.3f} us = "
               f"{d['us_total'] / 1e3:9.3f} ms  {d['name'][:80]}")
@@ -184,29 +220,86 @@ def main() -> int:
     prof = torch.profiler.profile(activities=acts)
     window = {}
 
+    sess = SlamSession(cfg, laser, **kw)
+    sess.stats.enabled = True
+    steps = sess.stats.counts
+
     def on_scan(k):
         if k == WINDOW[0]:
             torch.cuda.synchronize()
+            window["steps"] = steps["batch_steps"]
             prof.start()
             window["t0"] = time.perf_counter()
         elif k == WINDOW[1]:
             torch.cuda.synchronize()
             window["wall"] = time.perf_counter() - window["t0"]
             prof.stop()
+            window["steps"] = steps["batch_steps"] - window["steps"]
 
-    run_session(SlamSession(cfg, laser, **kw), data, on_scan=on_scan)
+    run_session(sess, data, on_scan=on_scan)
     n_win = WINDOW[1] - WINDOW[0]
-    streaming["trace"] = _trace_summary(prof, window["wall"], n_win)
+    t = streaming["trace"] = _trace_summary(prof, window["wall"], n_win)
     # less the synchronize that closes the window
-    streaming["trace"]["sync_calls_per_drain"] = (
-        (streaming["trace"]["sync_calls"] - 1) / (n_win // DRAIN))
+    t["sync_calls_per_drain"] = (t["sync_calls"] - 1) / (n_win // DRAIN)
+    t["steps"] = window["steps"]
+    for key in ("kernel_launch_calls", "graph_launch_calls", "kernels"):
+        t[f"{key}_per_step"] = t[key] / window["steps"]
+    # per scan of a first run (re-runs are outside batch_dispatch), less
+    # the step graph's capture at the first batch
+    stages = streaming["stages"]
+    streaming["batch_dispatch_ms_per_step"] = (
+        stages["batch_dispatch"]["ms_total"]
+        - stages.get("graph_capture", {}).get("ms_total", 0.0)
+    ) / streaming["scans"]
+
+    # one steady drain under cProfile
+    streaming["cprofile"] = _cprofile_drain(
+        SlamSession(cfg, laser, **kw), data)
 
     result = {"card": card, "classic": classic, "streaming": streaming}
     with open(args.out, "w") as f:
         json.dump(result, f, indent=1)
     _print("classic", card, classic)
     _print("streaming", card, streaming)
+    c = streaming["cprofile"]
+    print(f"# streaming cProfile of one drain: {c['calls_s']} s in the "
+          f"calls of accepted scans {CPROFILE_WINDOW[0] + 1} to "
+          f"{CPROFILE_WINDOW[1]}; by cumulative time:")
+    print(c["by_cumulative"])
+    print("# by own time:")
+    print(c["by_own"])
     return 0
+
+
+def _cprofile_drain(sess, data, top: int = 30):
+    """cProfile over the process_scan calls of CPROFILE_WINDOW's accepted
+    scans (one drain), the card synchronized at both ends: the window's
+    seconds and the top functions by cumulative and by own time."""
+    import torch
+
+    from chip_smoke import run_session
+
+    prof = cProfile.Profile()
+    box = {}
+
+    def on_scan(k):
+        if k == CPROFILE_WINDOW[0]:
+            torch.cuda.synchronize()
+            box["t0"] = time.perf_counter()
+            prof.enable()
+        elif k == CPROFILE_WINDOW[1]:
+            torch.cuda.synchronize()
+            prof.disable()
+            box["s"] = time.perf_counter() - box["t0"]
+
+    sess.stats.enabled = True
+    run_session(sess, data, on_scan=on_scan)
+    out = {"calls_s": box["s"]}
+    for key, sort in (("by_cumulative", "cumulative"), ("by_own", "tottime")):
+        buf = io.StringIO()
+        pstats.Stats(prof, stream=buf).sort_stats(sort).print_stats(top)
+        out[key] = buf.getvalue()
+    return out
 
 
 if __name__ == "__main__":

@@ -45,6 +45,17 @@ def upload(a, device: torch.device) -> torch.Tensor:
     return t.pin_memory().to(device, non_blocking=True)
 
 
+def upload_into(dst: torch.Tensor, a) -> None:
+    """Host array -> the existing tensor `dst`, in place, so `dst` keeps
+    its storage (a CUDA graph captured on it stays valid). To a card the
+    copy goes through pinned memory and does not wait."""
+    t = torch.from_numpy(np.ascontiguousarray(a))
+    if dst.device.type == "cuda":
+        dst.copy_(t.pin_memory(), non_blocking=True)
+    else:
+        dst.copy_(t)
+
+
 class HostCopy:
     """A tensor's copy to host memory, started at construction without
     waiting: on a card a non-blocking copy into pinned memory plus an

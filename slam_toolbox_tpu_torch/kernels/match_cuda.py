@@ -25,9 +25,10 @@ LAUNCHES counts, per kernel, the launches made through the wrappers, and
 GRID_LAUNCHES the same per (kernel, grid side G), which tells the
 sequential matcher's rasters from the loop matcher's. A call made while
 a CUDA graph is being captured records the kernel into the graph and
-launches nothing, so it is not counted; the graph's replays are for its
-owner to count. Launches a thread makes inside uncounted() (warming) are
-not counted either.
+launches nothing, so it is not counted; inside tallied() it is added to
+the graph's tally instead, and count_replay(tally, n) counts n replays
+of that graph. Launches a thread makes inside uncounted() (warming) are
+not counted, whether by a wrapper or by a replay.
 
 The libraries are built and loaded once per process under a lock, so
 threads that reach a kernel first at the same time (a session warming on
@@ -70,6 +71,7 @@ GRID_LAUNCHES = collections.Counter()
 _libs = {}
 _build_lock = threading.Lock()
 _uncounted = threading.local()
+_tally = threading.local()
 
 
 def reset_launch_counts() -> None:
@@ -87,6 +89,28 @@ def uncounted():
         yield
     finally:
         _uncounted.on = prev
+
+
+@contextlib.contextmanager
+def tallied():
+    """Yields a Counter of (kernel, G) -> the launches this thread records
+    into a CUDA graph being captured inside the block: the launches one
+    replay of that graph makes."""
+    prev = getattr(_tally, "counter", None)
+    _tally.counter = collections.Counter()
+    try:
+        yield _tally.counter
+    finally:
+        _tally.counter = prev
+
+
+def count_replay(tally, replays: int = 1) -> None:
+    """Count `replays` replays of a graph whose launches tallied() gave."""
+    if getattr(_uncounted, "on", False):
+        return
+    for (name, G), n in tally.items():
+        LAUNCHES[name] += n * replays
+        GRID_LAUNCHES[name, G] += n * replays
 
 
 def _source(name: str) -> str:
@@ -193,8 +217,11 @@ def _raise_if(err: int, name: str) -> None:
 
 
 def _count(name: str, G: int) -> None:
-    if not (getattr(_uncounted, "on", False)
-            or torch.cuda.is_current_stream_capturing()):
+    if torch.cuda.is_current_stream_capturing():
+        tally = getattr(_tally, "counter", None)
+        if tally is not None:
+            tally[name, G] += 1
+    elif not getattr(_uncounted, "on", False):
         LAUNCHES[name] += 1
         GRID_LAUNCHES[name, G] += 1
 

@@ -33,19 +33,31 @@ non-blocking copy (the reference streams 16-scan chunks during
 accumulation). Localization's post_finish hook is called where the
 reference calls it; no caller sets it yet.
 
-Unlike JAX's immutable arrays, the device state is updated in place by
-the batch loop. refresh_state() always allocates a fresh state, so a
-batch that is re-run after a refresh never overwrites rows another
-in-flight batch still has to read, and each dispatched batch snapshots
-its result rows to the host (device.HostCopy) before the next batch can
-write the ring; the speculative launches read the ring before the next
-batch is launched.
+The reference runs a drain's batch as one jitted fori_loop. Here each
+scan of the batch is one step (_stream_step: raster -> score -> ring
+update) that reads its scan from the batch buffers at a device index and
+updates the device state in place; on a card the step is captured once
+as a CUDA graph on the pipeline's static state (_StepGraph) and replayed
+n times per batch, with no Python tensor code between steps. On the CPU
+the same step runs eagerly (_stream_batch_impl): one body, two
+launchers. A capture or replay that fails raises; nothing re-runs
+eagerly.
+
+The state's buffers are allocated once per pipeline and keep their
+storage: refresh_state() copies the host's running buffer into them. The
+result ring and its device write index are not restarted by a refresh:
+a re-run writes the rows after the last batch's, and the ring holds two
+drains (result_cap), so it never overwrites rows that a batch still in
+flight has to read. Each dispatched batch snapshots the ring to the host
+(device.HostCopy) before the next batch can write it; the speculative
+launches read the ring before the next batch is launched.
 """
 from __future__ import annotations
 
 import contextlib
 import math
 import os
+import threading
 import time
 import weakref
 from typing import Dict, List
@@ -54,7 +66,7 @@ import numpy as np
 import torch
 
 from slam_toolbox_tpu_torch.core import geometry
-from slam_toolbox_tpu_torch.device import HostCopy, upload
+from slam_toolbox_tpu_torch.device import HostCopy, upload, upload_into
 from slam_toolbox_tpu_torch.kernels import rasterize as rz
 from slam_toolbox_tpu_torch.kernels.match import _f32, _score_impl
 from slam_toolbox_tpu_torch.utils.metrics import stage_timer
@@ -64,6 +76,9 @@ RESYNC_EPS = 0.003
 POOL_SEED_CAP = 8192
 POOL_CAP = 2048      # PackPool's initial rows (it doubles when full)
 _F32 = torch.float32
+# one CUDA graph capture at a time in a process (warm_async's thread may
+# capture while the session's thread reaches its first batch)
+_capture_lock = threading.Lock()
 
 
 def _switch(name: str) -> bool:
@@ -101,7 +116,14 @@ class _PendingDrain:
         self.packs = packs        # (n, B, 8) device tensor (for re-runs)
         self.odoms = odoms        # (n, 3) device tensor
         self.start = start        # first result-ring row of this batch
-        self.results = results    # the state's result ring after dispatch
+        self.results = results    # the state's result ring
+        self._copy = None
+        self.clear_spec()
+
+    def rerun(self, start) -> None:
+        """The batch ran again, its rows from ring row `start`: drop the
+        speculation and any copy of the ring taken before."""
+        self.start = start
         self._copy = None
         self.clear_spec()
 
@@ -126,9 +148,8 @@ class _PendingDrain:
 
     def fetch(self):
         """(result ring, speculative rows or None) as f64 on the host, one
-        copy; a re-run since prefetch() replaced the target, so that case
-        copies again."""
-        if self._copy is None or self._copy.src is not self._target():
+        copy (prefetch()'s, unless a re-run dropped it)."""
+        if self._copy is None:
             self.prefetch()
         comb = np.asarray(self._copy.numpy(), np.float64)
         cap = self.results.shape[0]
@@ -258,7 +279,8 @@ def _stream_update_impl(grid_flat, center_off, prior, state, pack, odom,
                         offset_pose, run_buffer_size: int, max_sq: float,
                         score_kwargs: dict, eye9):
     """Score + pose update + ring push/evict + result append, in place on
-    `state`."""
+    `state`: every tensor keeps its storage, and the result row goes to
+    the device write index `ridx`, which advances modulo the ring."""
     local_pts, _, _, _, finite, _ = _unpack_scan(pack)
     packed = _score_impl(grid_flat, center_off, local_pts, finite,
                          **score_kwargs)
@@ -276,34 +298,157 @@ def _stream_update_impl(grid_flat, center_off, prior, state, pack, odom,
     state["ring_pack"].index_copy_(0, idx, pack[None])
     state["ring_pose"].index_copy_(0, idx, mean[None])
     state["ring_slot_valid"].index_fill_(0, idx, True)
-    state["head"], state["count"] = _evict(
+    head, count = _evict(
         state["ring_pose"], state["head"], state["count"] + 1,
         run_buffer_size, max_sq,
     )
-    state["last_odom"] = odom
-    state["last_corrected"] = corrected
+    state["head"].copy_(head)
+    state["count"].copy_(count)
+    state["last_odom"].copy_(odom)
+    state["last_corrected"].copy_(corrected)
 
-    # the host knows the write index: every step appends one row
-    ridx = state["n_results"] % state["results"].shape[0]
-    state["results"][ridx].copy_(out13)
-    state["n_results"] += 1
+    ridx = state["ridx"]
+    state["results"].index_copy_(0, ridx.view(1), out13[None])
+    ridx.copy_((ridx + 1) % state["results"].shape[0])
+
+
+def _stream_step(state, matcher, offset_pose, half_span,
+                 run_buffer_size: int, max_sq: float, score_kwargs: dict,
+                 eye9):
+    """One scan of a drain batch: the scan at row `step` of the batch
+    buffers (a device index, which the step advances) through raster ->
+    score -> state update. No host value enters it, so on a card it is
+    captured once as a CUDA graph and replayed."""
+    row = state["step"].view(1)
+    pack = state["batch_packs"].index_select(0, row)[0]
+    odom = state["batch_odoms"].index_select(0, row)[0]
+    grid_flat, center_off, prior = _stream_raster_impl(
+        state, odom, matcher, offset_pose, half_span,
+    )
+    _stream_update_impl(
+        grid_flat, center_off, prior, state, pack, odom, offset_pose,
+        run_buffer_size, max_sq, score_kwargs, eye9,
+    )
+    state["step"].add_(1)
+
+
+def _fit_batch(state, n: int) -> None:
+    """Grow the batch buffers to n scans if they hold fewer (new storage:
+    a graph captured on them is then stale)."""
+    bp = state["batch_packs"]
+    if n > bp.shape[0]:
+        state["batch_packs"] = bp.new_zeros((n, *bp.shape[1:]))
+        state["batch_odoms"] = state["batch_odoms"].new_zeros((n, 3))
+
+
+def _load_batch(state, packs, odoms) -> int:
+    """Copy a batch's (n, B, 8) packs and (n, 3) odometry into the batch
+    buffers and point `step` at its first row; returns n."""
+    n = packs.shape[0]
+    _fit_batch(state, n)
+    state["batch_packs"][:n].copy_(packs)
+    state["batch_odoms"][:n].copy_(odoms)
+    state["step"].zero_()
+    return n
 
 
 def _stream_batch_impl(state, packs, odoms, matcher, offset_pose, half_span,
                        run_buffer_size: int, max_sq: float,
                        score_kwargs: dict, eye9):
-    """A whole drain batch: raster -> score -> state update for each of
-    the n scans, in order, with no host synchronization between them (the
-    host knows n, so no padding and no device-side trip count)."""
-    for i in range(packs.shape[0]):
-        grid_flat, center_off, prior = _stream_raster_impl(
-            state, odoms[i], matcher, offset_pose, half_span,
-        )
-        _stream_update_impl(
-            grid_flat, center_off, prior, state, packs[i], odoms[i],
-            offset_pose, run_buffer_size, max_sq, score_kwargs, eye9,
-        )
+    """A whole drain batch, eagerly: raster -> score -> state update for
+    each of the n scans, in order, with no host synchronization between
+    them (the host knows n, so no padding and no device-side trip
+    count). The CPU route, and the reference of the CUDA graph's
+    replays."""
+    n = _load_batch(state, packs, odoms)
+    for _ in range(n):
+        _stream_step(state, matcher, offset_pose, half_span,
+                     run_buffer_size, max_sq, score_kwargs, eye9)
+    state["n_results"] += n
     return state
+
+
+def _new_state(K: int, B: int, result_cap: int, batch_cap: int,
+               device) -> Dict:
+    """A zeroed device state: an empty ring of K slots, the result ring,
+    the batch buffers; each allocated here once."""
+    def zeros(*shape, dtype=_F32):
+        return torch.zeros(shape, dtype=dtype, device=device)
+
+    ring_pack = zeros(K, B, 8)
+    ring_pack[:, :, 6] = -1.0   # empty slots have no delimiter
+    return {
+        "ring_pack": ring_pack,
+        "ring_pose": zeros(K, 3),
+        "ring_slot_valid": zeros(K, dtype=torch.bool),
+        "head": zeros(dtype=torch.int64),
+        "count": zeros(dtype=torch.int64),
+        "last_odom": zeros(3),
+        "last_corrected": zeros(3),
+        "results": zeros(result_cap, 13),
+        "ridx": zeros(dtype=torch.int64),    # the ring's device write index
+        "n_results": 0,                      # rows written (host count)
+        "batch_packs": zeros(batch_cap, B, 8),
+        "batch_odoms": zeros(batch_cap, 3),
+        "step": zeros(dtype=torch.int64),    # the batch row the step reads
+    }
+
+
+def _storage_key(state) -> tuple:
+    """Where each of the state's tensors lives: a graph captured on the
+    state is valid while this is unchanged."""
+    return tuple((k, v.data_ptr(), tuple(v.shape))
+                 for k, v in state.items() if isinstance(v, torch.Tensor))
+
+
+def _capture(fn, steps: int):
+    """`steps` calls of `fn` captured as one CUDA graph, with the kernel
+    launches one replay makes (match_cuda.tallied). The drain takes one
+    step per graph; chip_smoke.py times an unrolled graph beside it."""
+    from slam_toolbox_tpu_torch.kernels import match_cuda as mc
+
+    graph = torch.cuda.CUDAGraph()
+    # thread_local: another thread's launches (the session's, while
+    # warm_async's thread captures) do not break the capture
+    with mc.tallied() as tally, torch.cuda.graph(
+            graph, capture_error_mode="thread_local"):
+        for _ in range(steps):
+            fn()
+    return graph, tally
+
+
+class _StepGraph:
+    """The drain's step captured as a CUDA graph on one static state, and
+    the kernel launches one replay makes. Before capturing, one step runs
+    eagerly on a scratch state on a side stream (the kernels' libraries
+    load, the CUDA modules initialize), so `state` is untouched."""
+
+    def __init__(self, state, step):
+        from slam_toolbox_tpu_torch.kernels import match_cuda as mc
+
+        self.state = state
+        self.key = _storage_key(state)
+        dev = state["results"].device
+        scratch = _new_state(state["ring_pack"].shape[0],
+                             state["ring_pack"].shape[1],
+                             state["results"].shape[0], 1, dev)
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side), mc.uncounted():
+            step(scratch)
+        torch.cuda.current_stream(dev).wait_stream(side)
+        self.graph, self.tally = _capture(lambda: step(state), 1)
+
+    def valid_for(self, state) -> bool:
+        return self.state is state and self.key == _storage_key(state)
+
+    def run(self, n: int) -> None:
+        """Replay n steps; their launches are counted by the tally."""
+        from slam_toolbox_tpu_torch.kernels import match_cuda as mc
+
+        for _ in range(n):
+            self.graph.replay()
+        mc.count_replay(self.tally, n)
 
 
 def _compose(a, b):
@@ -460,7 +605,6 @@ class StreamingPipeline:
         self._max_sq = float(rmax * rmax - np.float32(1e-6))
         self._eye9 = torch.eye(3, dtype=_F32, device=self.device).reshape(-1)
 
-        self.state = None
         self.pending: List = []
         self._last_gate_scan = None
         # deferred loop closure: the commit dispatches the fused verify
@@ -470,6 +614,13 @@ class StreamingPipeline:
         self._deferred_loop = None
         # with two batches in flight the result ring must hold both spans
         self.result_cap = max(RESULT_CAP, 2 * self.drain_every)
+        # the device state: None until the first refresh_state(), then
+        # _buffers, which keep their storage for the pipeline's life (so
+        # a thread that warms and one that maps see the same buffers)
+        self.state = None
+        self._buffers = _new_state(self.K + 2, self.B, self.result_cap,
+                                   max(1, self.drain_every), self.device)
+        self._graph = None   # _StepGraph of the drain's step, on a card
         self._pending_drain = None
         # host poses moved relative to the device state: the next consumer
         # of device results must refresh_state() (+ re-run in-flight
@@ -502,8 +653,8 @@ class StreamingPipeline:
 
     # -- state <-> host sync -----------------------------------------------
     def refresh_state(self) -> None:
-        """(Re)build device state from the host's authoritative running
-        buffer + last scan."""
+        """Copy the host's authoritative running buffer + last scan into
+        the device state."""
         with stage_timer(self.mapper.stats, "refresh_state"):
             self._refresh_state_impl()
 
@@ -526,47 +677,42 @@ class StreamingPipeline:
         if last is not None:
             last_odom = last.odom_pose.astype(np.float32)
             last_corrected = last.corrected_pose.astype(np.float32)
-        self.state = self._device_state(ring_pack, ring_pose, slot_valid,
-                                        len(running), last_odom,
-                                        last_corrected)
+        self.state = self._fill_state(ring_pack, ring_pose, slot_valid,
+                                      len(running), last_odom,
+                                      last_corrected)
         self._state_epoch += 1
 
-    def _device_state(self, ring_pack, ring_pose, slot_valid, count,
-                      last_odom, last_corrected) -> Dict:
-        """A device state from host arrays, with an empty result ring."""
-        dev = self.device
-        return {
-            "ring_pack": upload(ring_pack, dev),
-            "ring_pose": upload(ring_pose, dev),
-            "ring_slot_valid": upload(slot_valid, dev),
-            "head": torch.zeros((), dtype=torch.int64, device=dev),
-            "count": torch.full((), count, dtype=torch.int64, device=dev),
-            "last_odom": upload(last_odom, dev),
-            "last_corrected": upload(last_corrected, dev),
-            "results": torch.zeros((self.result_cap, 13), dtype=_F32,
-                                   device=dev),
-            "n_results": 0,   # host-side write index of the result ring
-        }
+    def _fill_state(self, ring_pack, ring_pose, slot_valid, count,
+                    last_odom, last_corrected) -> Dict:
+        """Copy host arrays into the device state, in place. The result
+        ring and its write index go on from where they were."""
+        st = self._buffers
+        for key, a in (("ring_pack", ring_pack), ("ring_pose", ring_pose),
+                       ("ring_slot_valid", slot_valid),
+                       ("last_odom", last_odom),
+                       ("last_corrected", last_corrected)):
+            upload_into(st[key], a)
+        st["head"].zero_()
+        st["count"].fill_(count)
+        return st
 
     def warm(self) -> None:
-        """Run one drain-sized batch on a zero state that belongs to no
-        pipeline: on a card this builds and loads the kernels and primes
-        the caching allocator. self.state, the pack pool, the result ring
-        and the kernels' launch counts stay as they were."""
+        """On a card, capture the drain's step graph on the pipeline's
+        device state (_StepGraph: its eager step runs on a scratch state,
+        and capturing runs nothing); on the CPU, run one drain-sized
+        batch on a scratch state. The state's values, the pack pool, the
+        result ring and the kernels' launch counts stay as they were."""
         from slam_toolbox_tpu_torch.kernels import match_cuda as mc
 
-        K, B, n = self.K + 2, self.B, self.drain_every
-        ring_pack = np.zeros((K, B, 8), np.float32)
-        ring_pack[:, :, 6] = -1.0
-        st = self._device_state(ring_pack, np.zeros((K, 3), np.float32),
-                                np.zeros(K, bool), 0,
-                                np.zeros(3, np.float32),
-                                np.zeros(3, np.float32))
+        if self.device.type == "cuda":
+            self._step_graph(self._buffers, self.drain_every)
+            return
+        n = self.drain_every
+        st = _new_state(self.K + 2, self.B, self.result_cap, n, self.device)
         with mc.uncounted():
-            self._run_batch(
-                st, torch.zeros((n, B, 8), dtype=_F32, device=self.device),
-                torch.zeros((n, 3), dtype=_F32, device=self.device))
-        st["results"].cpu()   # waits for the batch
+            self._run_eager(
+                st, torch.zeros((n, self.B, 8), dtype=_F32),
+                torch.zeros((n, 3), dtype=_F32))
 
     # -- ingestion ----------------------------------------------------------
     def process_scan(self, scan) -> bool:
@@ -600,12 +746,46 @@ class StreamingPipeline:
         self._run_batch(self.state, packs, odoms)
         return packs, odoms
 
-    def _run_batch(self, state, packs, odoms):
+    def _step(self, state) -> None:
+        _stream_step(state, self.matcher, self._offset_pose,
+                     self._half_span, self.K, self._max_sq,
+                     self._score_args, self._eye9)
+
+    def _run_eager(self, state, packs, odoms):
+        """The batch step by step from Python: the CPU route."""
         return _stream_batch_impl(
             state, packs, odoms, self.matcher, self._offset_pose,
             self._half_span, self.K, self._max_sq, self._score_args,
             self._eye9,
         )
+
+    def _step_graph(self, state, n: int) -> "_StepGraph":
+        """The step graph of `state` with batch buffers for n scans,
+        captured at first use and again whenever a buffer moved (a batch
+        above their capacity grows them)."""
+        _fit_batch(state, n)
+        g = self._graph
+        if g is None or not g.valid_for(state):
+            with _capture_lock, stage_timer(self.mapper.stats,
+                                            "graph_capture"):
+                g = self._graph
+                if g is None or not g.valid_for(state):
+                    g = self._graph = _StepGraph(state, self._step)
+        return g
+
+    def _run_batch(self, state, packs, odoms):
+        """Run a batch on `state`: on a card, copy it into the batch
+        buffers and replay the step graph once per scan; on the CPU, the
+        eager loop."""
+        n = packs.shape[0]
+        self.mapper.stats.count("batch_steps", n)
+        if self.device.type != "cuda":
+            return self._run_eager(state, packs, odoms)
+        graph = self._step_graph(state, n)
+        _load_batch(state, packs, odoms)
+        graph.run(n)
+        state["n_results"] += n
+        return state
 
     def settle(self) -> None:
         """Terminal completion: commit every dispatched-but-uncommitted
@@ -717,8 +897,7 @@ class StreamingPipeline:
                 # the device chain this batch rode was rebuilt mid-commit:
                 # re-run it from the authoritative state
                 self._run_batch(self.state, pd.packs, pd.odoms)
-                pd.start = self.state["n_results"] - n
-                pd.results = self.state["results"]
+                pd.rerun(self.state["n_results"] - n)
         # after any re-run and before the next batch writes the ring
         with stage_timer(stats0, "spec_dispatch"):
             self._dispatch_spec(pd)
@@ -832,9 +1011,7 @@ class StreamingPipeline:
             self.refresh_state()
             self._needs_resync = False
             self._run_batch(self.state, pd.packs, pd.odoms)
-            pd.start = 0
-            pd.results = self.state["results"]
-            pd.clear_spec()
+            pd.rerun(self.state["n_results"] - len(pd.scans))
         res_np, spec_np = self._fetch(pd)
         with stage_timer(self.mapper.stats, "commit_bookkeep"):
             moved_uids, any_closed, buffer_changed = self._bookkeep(

@@ -100,16 +100,12 @@ def _states(case, members, slots, head, count, last):
         "results": np.zeros((ts.RESULT_CAP, 13), np.float32),
         "n_results": np.int32(0),
     }
-    tstate = {
-        "ring_pack": torch.from_numpy(pack.copy()),
-        "ring_pose": torch.from_numpy(pose.copy()),
-        "ring_slot_valid": torch.from_numpy(slot_valid.copy()),
-        "head": torch.tensor(head), "count": torch.tensor(count),
-        "last_odom": torch.from_numpy(odom.copy()),
-        "last_corrected": torch.from_numpy(corr.copy()),
-        "results": torch.zeros((ts.RESULT_CAP, 13)),
-        "n_results": 0,
-    }
+    tstate = ts._new_state(K_RING, B, ts.RESULT_CAP, 16, "cpu")
+    for key, a in (("ring_pack", pack), ("ring_pose", pose),
+                   ("ring_slot_valid", slot_valid), ("head", head),
+                   ("count", count), ("last_odom", odom),
+                   ("last_corrected", corr)):
+        tstate[key].copy_(torch.as_tensor(a))
     return {k: jnp.asarray(v) for k, v in jstate.items()}, tstate
 
 
@@ -222,7 +218,7 @@ def test_stream_update_matches_jax(ring_case, kind):
 
     assert int(tstate["head"]) == int(jnew["head"])
     assert int(tstate["count"]) == int(jnew["count"])
-    assert tstate["n_results"] == int(jnew["n_results"]) == 1
+    assert int(tstate["ridx"]) == int(jnew["n_results"]) == 1
     if kind == "count":
         assert int(jnew["count"]) == cfg.scan_buffer_size
     elif kind == "distance":
