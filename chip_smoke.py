@@ -41,6 +41,10 @@ Phases, in order; any failure exits non-zero and nothing is caught:
                 to 2 laps (about 260 scans, one revisit) through
                 SlamSession(device="cuda"): ATE below half of odometry's,
                 at least one loop closure, every path kernel launched;
+                every match a replay of its program (a CUDA graph per
+                shape bucket); then again with the matchers' eager route
+                patched in: the same trajectory and closures bit for bit
+                and the same K1-K3 launches by grid;
   5. no sync  — on a pipeline that has committed the bench workload's
                 first drain, the second drain's batch (256 replays of the
                 step graph the first drain captured) and
@@ -49,9 +53,11 @@ Phases, in order; any failure exits non-zero and nothing is caught:
                 of committed scans, and the fused verify of its newest
                 scan's predicted loop candidates, with EARLY_VERIFY off as
                 in localization) under
-                torch.cuda.set_sync_debug_mode("error"); the speculative
-                rows bit-equal to the non-speculative path's, and the
-                commit then uses the speculative rows;
+                torch.cuda.set_sync_debug_mode("error"), the verify and
+                the near-chain matches as replays of their programs
+                (captured before, at chain buckets 16, 64 and 128); the
+                speculative rows bit-equal to the non-speculative path's,
+                and the commit then uses the speculative rows;
  5b. graph    — that second drain's batch from one saved state, eagerly
                 (the Python loop), as replays of the pipeline's step
                 graph and of a graph of UNROLL (16) steps, in turns:
@@ -59,6 +65,15 @@ Phases, in order; any failure exits non-zero and nothing is caught:
                 to the loop's;
                 capture ms, host us per replay, device ms per step and
                 each route's batch launch on the host (`# graph:`);
+ 5c. programs — on phase 4's workload, the per-event programs at the
+                buckets a session meets (the sequential match penalized
+                and not, the loop coarse match, the fused verify at chain
+                buckets 16 and 64, the near-chain match at 16): per
+                program and bucket the capture ms, host us per replay,
+                device ms per replay (CUDA events over replays), the
+                eager route's host ms for the same work, each replay
+                bit-equal to the eager function on the same inputs, and
+                the graphs' reserved device memory (`# programs:`);
   6. streaming — bench.py's full workload (16 laps, about 2,030 scans)
                 through SlamSession(streaming=True, drain_every=256,
                 device="cuda") with the defaults (speculation on), the main
@@ -1083,6 +1098,13 @@ def check_no_sync(cfg, laser, data, dev):
     graph = pipe._graph
     n = len(scans)
     pairs = spec_pairs_for(scans, committed)
+    # the verify's and near-chain matches' programs at every fixed chain
+    # bucket, on the pool (whose storage the batch's 256 rows leave as it
+    # is): the speculative launches below are replays
+    pool0 = lv._pool_storage(pipe.pack_pool)
+    lv.warm_programs(sess.mapper.loop_matcher, pipe.matcher, cfg,
+                     pipe.pack_pool, lv.CHAIN_BUCKETS)
+    replays0 = program_replays(pipe.matcher)
     early = ts.EARLY_VERIFY
     ts.EARLY_VERIFY = False
     torch.cuda.synchronize()
@@ -1104,6 +1126,15 @@ def check_no_sync(cfg, laser, data, dev):
         torch.cuda.set_sync_debug_mode("default")
         ts.EARLY_VERIFY = early
     spec_launches = {k: v - batch_launches[k] for k, v in mc.LAUNCHES.items()}
+    replays = program_replays(pipe.matcher) - replays0
+    n_spec = 0 if pd.spec is None else pd.spec.shape[0] - pipe.result_cap
+    n_loop_rows = len(pd.spec_loop[0]) if pd.spec_loop is not None else 0
+    if (lv._pool_storage(pipe.pack_pool) != pool0
+            or replays != n_spec + len(pairs) + n_loop_rows):
+        raise AssertionError(
+            f"no-sync: {replays} program replays for {n_spec} + "
+            f"{len(pairs)} near-chain pairs and {n_loop_rows} verified "
+            "chains (the pool's storage moved, or a route ran eagerly)")
     if pipe._graph is not graph or any(batch_launches[k] != n
                                        for k in PATH_KERNELS):
         raise AssertionError(f"the batch did not run as {n} replays of the "
@@ -1140,7 +1171,8 @@ def check_no_sync(cfg, laser, data, dev):
           f"speculative launches "
           f"(the loop verify of {n_loop} predicted candidates) and "
           f"{len(pairs)} speculative near-chain matches ran "
-          f"with no host synchronization; launches of the batch "
+          f"with no host synchronization, the speculation as {replays} "
+          f"program replays; launches of the batch "
           f"{batch_launches}, of the speculation {spec_launches}; the "
           f"speculative near-chain rows bit-equal to the dispatch's; the "
           f"commit's speculation counts {json.dumps(counts)}", flush=True)
@@ -1197,7 +1229,8 @@ def check_graph(cfg, laser, data, dev):
     torch.cuda.synchronize()
     capture_ms["graph"] = 1e3 * (time.perf_counter() - t0)
     t0 = time.perf_counter()
-    unrolled, tally = ts._capture(lambda: pipe._step(state), UNROLL)
+    unrolled, tally, _ = mc.capture_graph(lambda: pipe._step(state), dev,
+                                          steps=UNROLL)
     torch.cuda.synchronize()
     capture_ms["unrolled"] = 1e3 * (time.perf_counter() - t0)
 
@@ -1280,6 +1313,184 @@ def check_graph(cfg, laser, data, dev):
           f"step: CUDA events over the batch, for the eager loop the "
           f"host-bound span)", flush=True)
     return out
+
+
+def classic_run(cfg, laser, data, dev, tag, eager=False):
+    """run_mapping of a classic session; `eager` patches both matchers'
+    eager route (Matcher._dispatch_eager, fresh tensors) in place of the
+    program replays."""
+    from slam_toolbox_tpu_torch.api import SlamSession
+
+    sess = SlamSession(cfg, laser, device=dev)
+    if eager:
+        sess.mapper.initialize(laser.range_threshold)
+        for m in (sess.mapper.sequential_matcher, sess.mapper.loop_matcher):
+            m._dispatch = m._dispatch_eager
+    return run_mapping(sess, data, tag)
+
+
+def classic_path(cfg, laser, data, dev):
+    """Phase 4. The classic session with its matches as program replays,
+    then with the eager route: the same closures and trajectory (bit for
+    bit, unless a repeat of the eager run shows the card's path
+    nondeterministic) and the same K1-K3 launches by grid. Prints `#
+    classic graphed vs eager:` with the rates and `sequential_match` host
+    ms per scan; returns both records."""
+    graphed = classic_run(cfg, laser, data, dev, "classic")
+    eager = classic_run(cfg, laser, data, dev, "classic eager", eager=True)
+    same_run("classic graphed vs eager", eager, graphed,
+             lambda: classic_run(cfg, laser, data, dev,
+                                 "classic eager again", eager=True))
+    if (eager["launches"], eager["by_grid"]) != (graphed["launches"],
+                                                 graphed["by_grid"]):
+        raise AssertionError(
+            f"classic: graphed launches {graphed['by_grid']} against the "
+            f"eager run's {eager['by_grid']}")
+    seq_ms = {tag: stage_times(r["sess"])["sequential_match"]["ms"]
+              / r["scans"] for tag, r in (("graphed", graphed),
+                                          ("eager", eager))}
+    progs = graphed["sess"].mapper.sequential_matcher._programs
+    print(f"# classic graphed vs eager: {graphed['rate']} and "
+          f"{eager['rate']} scans/s, ATE {graphed['ate']} and "
+          f"{eager['ate']} m, sequential_match {json.dumps(seq_ms)} host ms "
+          f"per scan, K1-K3 launches equal by grid, {len(progs)} sequential "
+          f"programs ({sum(p.replays for p in progs.values())} replays)",
+          flush=True)
+    return graphed, eager
+
+
+def program_replays(matcher, kinds=("verify", "chain")) -> int:
+    """Replays of a matcher's programs of the given kinds."""
+    return sum(p.replays for k, p in matcher._programs.items()
+               if k[0] in kinds)
+
+
+def measure_program(tag, prog, n: int = 50) -> dict:
+    """One program on the inputs its last run left: a replay bit-equal to
+    its function run eagerly on the same inputs; the capture's ms; host
+    us per replay (the replays alone, on the host clock); device ms per
+    replay (CUDA events over n replays); the eager function's host ms
+    (its launches, no wait) and its ms with the card synchronized. Prints
+    `# programs: <tag>`."""
+    import torch
+
+    from slam_toolbox_tpu_torch.kernels import match_cuda as mc
+
+    with mc.uncounted():
+        torch.cuda.synchronize()
+        ref = prog.fn(**prog.inputs)
+        got = prog.run()
+        torch.cuda.synchronize()
+        if not torch.equal(got, ref):
+            raise AssertionError(f"programs {tag}: the replay differs from "
+                                 "the eager function")
+        t0 = time.perf_counter()
+        for _ in range(n):
+            prog.graph.replay()
+        host_us = 1e6 * (time.perf_counter() - t0) / n
+        torch.cuda.synchronize()
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        for _ in range(n):
+            prog.graph.replay()
+        e1.record()
+        torch.cuda.synchronize()
+        device_ms = e0.elapsed_time(e1) / n
+        eager_host, eager_wall = [], []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            prog.fn(**prog.inputs)
+            eager_host.append(1e3 * (time.perf_counter() - t0))
+            torch.cuda.synchronize()
+            eager_wall.append(1e3 * (time.perf_counter() - t0))
+    rec = {"capture_ms": 1e3 * prog.capture_s, "host_us_per_replay": host_us,
+           "device_ms_per_replay": device_ms,
+           "eager_host_ms": min(eager_host), "eager_ms": min(eager_wall),
+           "tally": {f"{k}@{G}": v for (k, G), v in sorted(prog.tally.items())}}
+    print(f"# programs: {tag}: {json.dumps(rec)}, replay bit-equal to the "
+          f"eager function", flush=True)
+    return rec
+
+
+def graph_pool_bytes():
+    """Device memory in the segments of CUDA graphs' private pools (the
+    caching allocator's snapshot), or None where the snapshot does not
+    name a segment's pool."""
+    import torch
+
+    segs = torch.cuda.memory_snapshot()
+    if any("segment_pool_id" not in seg for seg in segs):
+        return None
+    return sum(seg["total_size"] for seg in segs
+               if tuple(seg["segment_pool_id"]) != (0, 0))
+
+
+def check_programs(cfg, laser, data, dev):
+    """Phase 5c. The per-event programs of a fresh mapper on the card at
+    the buckets phase 4's workload meets: the sequential match of a full
+    running buffer (10 scans), penalized and not; the loop coarse match of
+    the longest loop chain (loop_chain); the fused verify of that chain
+    and of a 10-scan chain (chain buckets by length), and the near-chain
+    match of a 10-scan chain, both from a pack pool of the run's scans.
+    Each measured by measure_program; the device memory the card reserved
+    before the first capture and after the last, and the part of it in
+    graph pools. Prints `# programs:`."""
+    import numpy as np
+    import torch
+
+    from slam_toolbox_tpu_torch.core.scan import LocalizedScan
+    from slam_toolbox_tpu_torch.kernels import loop_verify as lv
+    from slam_toolbox_tpu_torch.mapper import Mapper
+    from slam_toolbox_tpu_torch.mapper import streaming as ts
+
+    mapper = Mapper(cfg, device=dev)
+    mapper.initialize(laser.range_threshold)
+    seq, loop = mapper.sequential_matcher, mapper.loop_matcher
+    scans = []
+    for scan, tp in data:
+        s = LocalizedScan(laser, scan.ranges, scan.odom_pose)
+        s.set_corrected_pose(tp)
+        scans.append(s)
+    chain_i, qi = loop_chain(data, cfg.loop_search_maximum_distance)
+    chain, q = [scans[i] for i in chain_i], scans[qi]
+    near = scans[qi - 11:qi - 1]
+    pool = ts.PackPool(laser.n_beams, dev)
+    pool.add_scans(scans)
+    torch.cuda.synchronize()
+    reserved0 = torch.cuda.memory_reserved(dev)
+    pools0 = graph_pool_bytes()
+    center = np.asarray(q.sensor_pose, np.float64)
+    out = {}
+    for tag, m, base, pen, ref in (
+            ("sequential match, penalized", seq, near, True, True),
+            ("sequential match, unpenalized", seq, near, False, True),
+            ("loop coarse match", loop, chain, False, False)):
+        m._dispatch(q, base, center, pen, ref)
+        P = len(m._base_points(base, center[:2])[0])
+        key = ("match", P, laser.n_beams, pen, ref)
+        out[f"{tag} G {m.G} P {P}"] = (m._programs[key], tag)
+    for c in (chain, near):
+        lv.dispatch_loop_verify(loop, seq, q, [c], cfg, pool=pool).numpy()
+        Cb = lv.chain_bucket(len(c))
+        key = ("verify", loop, lv._gates(cfg), Cb, pool.B, True)
+        out[f"fused verify Cb {Cb} ({len(c)} scans)"] = (seq._programs[key],
+                                                          None)
+    lv.dispatch_chain_matches(seq, [(q, near)], pool)
+    out["near-chain match Cb 16"] = (seq._programs[("chain", 16, pool.B)],
+                                     None)
+    torch.cuda.synchronize()
+    reserved1 = torch.cuda.memory_reserved(dev)
+    pools1 = graph_pool_bytes()
+    recs = {tag: measure_program(tag, prog) for tag, (prog, _) in out.items()}
+    in_pools = ("not measured" if pools0 is None or pools1 is None
+                else f"+{pools1 - pools0} bytes")
+    print(f"# programs memory: {len(out)} graphs, device memory reserved "
+          f"{reserved0} bytes before the captures and {reserved1} after "
+          f"(+{reserved1 - reserved0}; in graph pools {in_pools})",
+          flush=True)
+    return recs
 
 
 def same_run(tag, a, b, rerun):
@@ -2713,8 +2924,9 @@ def main() -> int:
         if gap > 0.04:
             raise AssertionError(f"card vs CPU trajectories differ: {gap}")
 
-    # 4. the classic path at the bench geometry, cut to 2 laps
-    run_mapping(SlamSession(cfg, laser, device=dev), data, "classic")
+    # 4. the classic path at the bench geometry, cut to 2 laps: the
+    # matches as program replays, then by the matchers' eager route
+    classic, classic_eager = classic_path(cfg, laser, data, dev)
 
     # 5. no host synchronization in a drain's batch loop and its
     # speculative launches
@@ -2723,6 +2935,9 @@ def main() -> int:
 
     # 5b. the drain's batch as step graph replays against the eager loop
     check_graph(cfg16, laser16, data16, dev)
+
+    # 5c. the per-event programs: capture, replay and eager costs, memory
+    check_programs(cfg, laser, data, dev)
 
     # 6. the main path: the streaming pipeline on bench.py's full workload,
     # the defaults (speculation on)
@@ -2863,6 +3078,9 @@ def main() -> int:
             row["main_path_spec"] = main_run["spec"]
             row["spec_off_launches"] = off_run["launches"][name]
             row["main_path_route"] = "step graph replays"
+            row["classic_route"] = "program replays (CUDA graphs)"
+            row["classic_launches_by_grid"] = classic["by_grid"][name]
+            row["eager_classic_launches"] = classic_eager["launches"][name]
             row["eager_main_path_launches"] = eager_run["launches"][name]
             row["no_sync_spec_route_launches"] = no_sync["spec_launches"][name]
         if loop:

@@ -15,8 +15,10 @@ streaming run over a steady window of two drains (accepted scans 768 to
 the device's busy time (the union of its kernels' and copies'
 intervals), its idle share over the traced wall time, the device time of
 every kernel by name, kernel launches and copies per scan, the host's
-launch calls (cudaLaunchKernel and cudaGraphLaunch apart) and, on the
-streaming path, both and the device's kernels per batch step, and the
+launch calls (cudaLaunchKernel and cudaGraphLaunch apart) and, per
+scan on the classic path, where every match is a program replay, both
+and the sequential match's host ms of the plain run; on the
+streaming path both and the device's kernels per batch step, and the
 host's waits on the device (the runtime's *Synchronize calls) per drain.
 Then a third streaming run under cProfile over one steady drain
 (accepted scans 1025 to 1280): where the host time that is left goes.
@@ -165,6 +167,14 @@ def _print(tag, card, r):
           f"{t['sync_calls']} synchronize calls, host launch calls "
           f"{t['kernel_launch_calls']} cudaLaunchKernel and "
           f"{t['graph_launch_calls']} cudaGraphLaunch")
+    if "sequential_match_ms_per_scan" in r:
+        print(f"# {tag} per scan: {t['kernel_launch_calls_per_scan']} "
+              f"cudaLaunchKernel, {t['graph_launch_calls_per_scan']} "
+              f"cudaGraphLaunch, {t['kernel_launches_per_scan']} device "
+              f"kernels ({t['programs_captured']} programs captured in "
+              f"the traced run); sequential_match "
+              f"{r['sequential_match_ms_per_scan']} host ms per scan over "
+              f"the plain run")
     if "steps" in t:
         print(f"# {tag} per batch step ({t['steps']} steps in the window): "
               f"{t['kernel_launch_calls_per_step']} cudaLaunchKernel, "
@@ -206,15 +216,25 @@ def main() -> int:
 
     # the classic path, 2 laps, traced whole
     sess = SlamSession(cfg2, laser2, device="cuda")
+    sess.mapper.initialize(laser2.range_threshold)
+    matchers = (sess.mapper.sequential_matcher, sess.mapper.loop_matcher)
     with torch.profiler.profile(activities=acts) as prof:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         run_session(sess, data2)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    classic["trace"] = _trace_summary(prof, wall, classic["scans"])
-    classic["trace"]["sync_calls_per_scan"] = (
-        classic["trace"]["sync_calls"] / classic["scans"])
+    t = classic["trace"] = _trace_summary(prof, wall, classic["scans"])
+    t["sync_calls_per_scan"] = t["sync_calls"] / classic["scans"]
+    # the matches are program replays: the host's launch calls per scan,
+    # kernels and graphs apart, and the sequential match's host time
+    for key in ("kernel_launch_calls", "graph_launch_calls"):
+        t[f"{key}_per_scan"] = t[key] / classic["scans"]
+    # captured inside the trace: each capture's eager warm-up is one
+    # match's or verify's worth of cudaLaunchKernel
+    t["programs_captured"] = sum(len(m._programs) for m in matchers)
+    classic["sequential_match_ms_per_scan"] = (
+        classic["stages"]["sequential_match"]["ms_total"] / classic["scans"])
 
     # the streaming path, 16 laps, a two-drain window traced
     prof = torch.profiler.profile(activities=acts)

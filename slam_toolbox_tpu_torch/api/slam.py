@@ -595,12 +595,19 @@ class SlamSession:
 
     def warm_all(self) -> None:
         """Run every device path the session can take once, on dummy
-        scans, so the first real scans pay no kernel build or allocator
-        growth: the classic matches (sequential, penalized and not; loop
-        coarse), for a streaming session the pipeline's batch (warm()) and
-        the fused loop verify, and the solver at 3 and 257 nodes. The
-        port has no shape buckets, so each runs once. Launches made here
-        are not counted (match_cuda.uncounted)."""
+        scans, so the first real scans pay no kernel build, graph capture
+        or allocator growth. The matches, the fused verify and the
+        near-chain matches run as programs, one per shape bucket
+        (kernels/match.py, kernels/loop_verify.py; CUDA graphs on a
+        card): this captures the buckets a session meets first, the
+        sequential match at the base-point bucket of each running-buffer
+        length up to the full buffer's, penalized, and at the full
+        buffer's unpenalized, and the loop coarse match at the minimum
+        chain length; for a streaming session first the pipeline's step
+        graph (warm()), then the fused verify and the near-chain match at
+        chain bucket 16 on its pack pool. Then the solver at 3 and 257
+        nodes. Launches made here are not counted
+        (match_cuda.uncounted)."""
         from slam_toolbox_tpu_torch.kernels import loop_verify as lv
         from slam_toolbox_tpu_torch.kernels import match_cuda as mc
         from slam_toolbox_tpu_torch.solver import PoseGraphSolver
@@ -609,22 +616,32 @@ class SlamSession:
             return
         if not self.mapper.initialized:
             self.mapper.initialize(self.laser.range_threshold)
+        cfg = self.config
         ranges = np.full(self.laser.n_beams, 2.0)
         dummy = LocalizedScan(self.laser, ranges, np.zeros(3))
+        n_base = max(int(cfg.scan_buffer_size),
+                     int(cfg.loop_match_minimum_chain_size), 1)
         base = [LocalizedScan(self.laser, ranges, np.zeros(3))
-                for _ in range(2)]
+                for _ in range(n_base)]
         seq = self.mapper.sequential_matcher
         loop = self.mapper.loop_matcher
         with mc.uncounted():
             # what the live pipeline needs soonest first (warm_async)
             if self.streaming:
-                self._ensure_pipe().warm()
-                lv.dispatch_loop_verify(loop, seq, dummy, [base],
-                                        self.config).numpy()
-            seq.match_scan(dummy, base, penalize=True, refine=True)
-            seq.match_scans_batch(dummy, [base], penalize=False)
-            loop.match_scans_batch(dummy, [base], penalize=False,
-                                   refine=False)
+                pipe = self._ensure_pipe()
+                pipe.warm()
+                lv.warm_programs(loop, seq, cfg, pipe.pack_pool)
+            buckets = {}
+            for n in range(1, int(cfg.scan_buffer_size) + 1):
+                P = len(seq._base_points(base[:n], np.zeros(2))[0])
+                buckets.setdefault(P, n)
+            for n in buckets.values():
+                seq.match_scan(dummy, base[:n], penalize=True, refine=True)
+            seq.match_scans_batch(dummy, [base[:cfg.scan_buffer_size]],
+                                  penalize=False)
+            loop.match_scans_batch(
+                dummy, [base[:cfg.loop_match_minimum_chain_size]],
+                penalize=False, refine=False)
             for n_nodes in (3, 257):
                 s = PoseGraphSolver(self.config.solver, device=self.device)
                 for i in range(n_nodes):

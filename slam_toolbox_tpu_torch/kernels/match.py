@@ -14,6 +14,13 @@ scatter and smear kernels and the coarse lattice is scored by the window
 kernel (kernels/match_cuda.py); the fine 3x3 pass and the angular
 covariance are plain gathers on the same flat grid.
 
+On a card a match runs as one program (match_cuda.Program): the raster
+and the fused score captured once as a CUDA graph per (base points P,
+beams B, penalize, refine) on static input buffers, as the JAX package
+jits `_raster_jit` and `_score_jit` once per shape, and replayed per
+match; on the CPU the same function runs eagerly on the same buffers.
+Only the exact two-call path (`exact=True`) runs eagerly on a card.
+
 Numerics follow the reference: raster values are round(100 * gaussian)
 (Mapper.h:1258-1260); response = sum / (B * 100) (Mapper.cpp:1204);
 rounding is half away from zero (Math.h:87-90); ties within KT_TOLERANCE
@@ -29,7 +36,7 @@ import numpy as np
 import torch
 
 from slam_toolbox_tpu_torch.core.geometry import KT_TOLERANCE, MAX_VARIANCE
-from slam_toolbox_tpu_torch.device import resolve_device
+from slam_toolbox_tpu_torch.device import resolve_device, upload_into
 from slam_toolbox_tpu_torch.kernels import match_cuda as mc
 from slam_toolbox_tpu_torch.kernels import rasterize as rz
 
@@ -140,6 +147,10 @@ class Matcher:
             grid_size=self.G,
             na_coarse=self._na_coarse, na_fine=self._na_fine,
         )
+        # key -> match_cuda.Program: this matcher's matches, and (on the
+        # sequential matcher) the fused loop verify's and near-chain
+        # matches' programs of kernels/loop_verify.py
+        self._programs = {}
 
     def _tensor(self, a, dtype=None):
         return torch.as_tensor(a, dtype=dtype).to(self.device)
@@ -193,30 +204,88 @@ class Matcher:
         valid_p[: len(valid)] = valid
         return pts_p, valid_p
 
+    def program(self, key, build, storage=None):
+        """The program cached under `key`, made by `build()` -> (fn,
+        static inputs) at first use and again when it was made on other
+        `storage` (a pool that grew). The lookup and the capture are one
+        step under match_cuda.capture_lock."""
+        with mc.capture_lock:
+            prog = self._programs.get(key)
+            if prog is None or prog.storage != storage:
+                fn, inputs = build()
+                prog = self._programs[key] = mc.Program(fn, inputs,
+                                                        storage=storage)
+        return prog
+
+    def _match(self, pts, valid, center_off, local, finite, penalize,
+               refine):
+        """Raster + fused score of one base set: the packed (13,) f32
+        result."""
+        grid = self._raster(pts, valid, center_off[3:5])
+        return _score_impl(
+            grid, center_off, local, finite, penalize=penalize,
+            refine=refine, **self._score_args,
+        )
+
+    def _match_program(self, P: int, B: int, penalize: bool, refine: bool):
+        def build():
+            z = dict(dtype=_F32, device=self.device)
+            inputs = dict(
+                pts=torch.zeros((P, 2), **z),
+                valid=torch.zeros(P, dtype=torch.bool, device=self.device),
+                center_off=torch.zeros(5, **z),
+                local=torch.zeros((B, 2), **z),
+                finite=torch.zeros(B, dtype=torch.bool, device=self.device),
+            )
+            return (lambda **kw: self._match(penalize=penalize,
+                                             refine=refine, **kw)), inputs
+
+        return self.program(("match", P, B, penalize, refine), build)
+
     def _dispatch(self, scan, base_scans, center, penalize, refine):
-        """Raster + fused score of one base set; the packed (13,) f32
-        result stays on the device."""
+        """Raster + fused score of one base set as a replay of its
+        program, the inputs written into the program's static buffers
+        (pinned host copies that do not wait, the query's cached device
+        points); returns a copy of the packed (13,) f32 result, on the
+        device."""
+        off = center[:2] - 0.5 * (self.G - 1) * self.resolution
+        pts_p, valid_p = self._base_points(base_scans, center[:2])
+        local_dev, finite_dev = _scan_device_cache(scan, self.device)
+        prog = self._match_program(len(pts_p), len(finite_dev), penalize,
+                                   refine)
+        with prog.lock:
+            inp = prog.inputs
+            upload_into(inp["pts"], pts_p)
+            upload_into(inp["valid"], valid_p)
+            upload_into(inp["center_off"],
+                        np.concatenate([center, off]).astype(np.float32))
+            inp["local"].copy_(local_dev)
+            inp["finite"].copy_(finite_dev)
+            return prog.run()
+
+    def _dispatch_eager(self, scan, base_scans, center, penalize, refine):
+        """_dispatch's match on fresh tensors, launched eagerly: the
+        reference its program is held to."""
         off = center[:2] - 0.5 * (self.G - 1) * self.resolution
         pts_p, valid_p = self._base_points(base_scans, center[:2])
         local_dev, finite_dev = _scan_device_cache(scan, self.device)
         center_off = self._tensor(
             np.concatenate([center, off]).astype(np.float32))
-        grid = self._raster(
-            self._tensor(pts_p), self._tensor(valid_p), center_off[3:5])
-        return _score_impl(
-            grid, center_off, local_dev, finite_dev, penalize=penalize,
-            refine=refine, **self._score_args,
-        )
+        return self._match(self._tensor(pts_p), self._tensor(valid_p),
+                           center_off, local_dev, finite_dev, penalize,
+                           refine)
 
     # -- full match (MatchScan, Mapper.cpp:534-639) -------------------------
     def match_scan(
         self, scan, base_scans, penalize: bool = True, refine: bool = True,
         exact: bool = False,
     ) -> MatchResult:
-        """Fused single-call match by default; `exact=True` uses the
-        two-call path with f64 host index tables (bit-matching the NumPy
-        oracle) and is also the fallback that implements response
-        expansion."""
+        """Fused single-call match by default (_dispatch: a replay of the
+        match's program); `exact=True` uses the two-call path with f64
+        host index tables (bit-matching the NumPy oracle) and is also the
+        fallback that implements response expansion. The exact path runs
+        eagerly on a card too, the matcher's only eager route there: it
+        is rare, and its tables are built on the host per call."""
         if not exact:
             center = np.asarray(scan.sensor_pose, dtype=np.float64)
             packed = self._dispatch(scan, base_scans, center, penalize,

@@ -30,6 +30,12 @@ the graph's tally instead, and count_replay(tally, n) counts n replays
 of that graph. Launches a thread makes inside uncounted() (warming) are
 not counted, whether by a wrapper or by a replay.
 
+The port's CUDA graphs are made here: capture_graph (an eager warm-up on
+a side stream, the capture under the process's capture_lock, the tally)
+serves the drain's step graph (mapper/streaming.py) and Program, a
+function of static input buffers captured once and replayed per call
+(the matcher's match, the fused loop verify and the near-chain matches).
+
 The libraries are built and loaded once per process under a lock, so
 threads that reach a kernel first at the same time (a session warming on
 a second thread) share one build.
@@ -111,6 +117,86 @@ def count_replay(tally, replays: int = 1) -> None:
     for (name, G), n in tally.items():
         LAUNCHES[name] += n * replays
         GRID_LAUNCHES[name, G] += n * replays
+
+
+# one CUDA graph capture at a time in a process (warm_async's thread may
+# capture while the session's thread reaches its first use); reentrant,
+# so a caller can hold it across a cache lookup and the capture
+capture_lock = threading.RLock()
+
+
+def capture_graph(fn, device, warm=None, steps: int = 1):
+    """`steps` calls of `fn` captured as one CUDA graph on `device`:
+    returns (graph, the launches one replay makes (tallied), the last
+    call's return value, which lives in the graph's private pool). The
+    capture runs on a side stream that first waits for the caller's
+    current stream; there `warm()`, if given, runs once eagerly,
+    uncounted, so the kernels' libraries load and the CUDA modules
+    initialize outside the capture (it must not write what `fn` reads,
+    unless `fn` writes it again before reading). The capture runs in
+    thread_local mode (another thread's launches do not break it) under
+    capture_lock. Unlike torch.cuda.graph it neither synchronizes the
+    device nor empties the device and pinned-host caches first: a
+    session thread may be copying through pinned memory meanwhile, and
+    emptying that cache under it fails. A capture that fails raises."""
+    with capture_lock:
+        cur = torch.cuda.current_stream(device)
+        side = torch.cuda.Stream(device)
+        side.wait_stream(cur)
+        graph = torch.cuda.CUDAGraph()
+        out = None
+        with torch.cuda.stream(side):
+            if warm is not None:
+                with uncounted():
+                    warm()
+            graph.capture_begin(capture_error_mode="thread_local")
+            try:
+                with tallied() as tally:
+                    for _ in range(steps):
+                        out = fn()
+            finally:
+                graph.capture_end()
+        cur.wait_stream(side)
+    return graph, tally, out
+
+
+class Program:
+    """`fn(**inputs)` as one program on static input buffers: on a card
+    captured once as a CUDA graph (capture_graph, warmed on the same
+    buffers) and replayed per run, on the CPU run eagerly on the same
+    buffers. `fn` returns one tensor and writes none of its inputs, so
+    its warm-up leaves them as they were. A graph's output lives in its
+    pool and the next replay overwrites it, so run() returns a copy; a
+    caller fills the inputs, runs and takes the copy inside one
+    `with program.lock:` block, which orders them for threads sharing
+    the program. `storage` is the caller's: what the program was
+    captured on (a pool's storage) beside its static inputs."""
+
+    def __init__(self, fn, inputs: dict, storage=None):
+        self.fn = fn
+        self.inputs = inputs
+        self.storage = storage
+        self.lock = threading.Lock()
+        self.replays = 0
+        self.capture_s = 0.0
+        self.graph = self.tally = self.out = None
+        dev = next(iter(inputs.values())).device
+        if _on_cuda(dev):
+            t0 = time.perf_counter()
+            self.graph, self.tally, self.out = capture_graph(
+                lambda: fn(**inputs), dev, warm=lambda: fn(**inputs))
+            self.capture_s = time.perf_counter() - t0
+
+    def run(self, out=None):
+        """One run on the inputs as they stand: the output copied into
+        `out`, or into a new tensor."""
+        if self.graph is None:
+            res = self.fn(**self.inputs)
+            return res if out is None else out.copy_(res)
+        self.graph.replay()
+        self.replays += 1
+        count_replay(self.tally)
+        return self.out.clone() if out is None else out.copy_(self.out)
 
 
 def _source(name: str) -> str:

@@ -57,7 +57,6 @@ from __future__ import annotations
 import contextlib
 import math
 import os
-import threading
 import time
 import weakref
 from typing import Dict, List
@@ -76,9 +75,6 @@ RESYNC_EPS = 0.003
 POOL_SEED_CAP = 8192
 POOL_CAP = 2048      # PackPool's initial rows (it doubles when full)
 _F32 = torch.float32
-# one CUDA graph capture at a time in a process (warm_async's thread may
-# capture while the session's thread reaches its first batch)
-_capture_lock = threading.Lock()
 
 
 def _switch(name: str) -> bool:
@@ -401,27 +397,10 @@ def _storage_key(state) -> tuple:
                  for k, v in state.items() if isinstance(v, torch.Tensor))
 
 
-def _capture(fn, steps: int):
-    """`steps` calls of `fn` captured as one CUDA graph, with the kernel
-    launches one replay makes (match_cuda.tallied). The drain takes one
-    step per graph; chip_smoke.py times an unrolled graph beside it."""
-    from slam_toolbox_tpu_torch.kernels import match_cuda as mc
-
-    graph = torch.cuda.CUDAGraph()
-    # thread_local: another thread's launches (the session's, while
-    # warm_async's thread captures) do not break the capture
-    with mc.tallied() as tally, torch.cuda.graph(
-            graph, capture_error_mode="thread_local"):
-        for _ in range(steps):
-            fn()
-    return graph, tally
-
-
 class _StepGraph:
     """The drain's step captured as a CUDA graph on one static state, and
-    the kernel launches one replay makes. Before capturing, one step runs
-    eagerly on a scratch state on a side stream (the kernels' libraries
-    load, the CUDA modules initialize), so `state` is untouched."""
+    the kernel launches one replay makes (match_cuda.capture_graph). Its
+    warm-up step runs on a scratch state, so `state` is untouched."""
 
     def __init__(self, state, step):
         from slam_toolbox_tpu_torch.kernels import match_cuda as mc
@@ -432,12 +411,8 @@ class _StepGraph:
         scratch = _new_state(state["ring_pack"].shape[0],
                              state["ring_pack"].shape[1],
                              state["results"].shape[0], 1, dev)
-        side = torch.cuda.Stream(dev)
-        side.wait_stream(torch.cuda.current_stream(dev))
-        with torch.cuda.stream(side), mc.uncounted():
-            step(scratch)
-        torch.cuda.current_stream(dev).wait_stream(side)
-        self.graph, self.tally = _capture(lambda: step(state), 1)
+        self.graph, self.tally, _ = mc.capture_graph(
+            lambda: step(state), dev, warm=lambda: step(scratch))
 
     def valid_for(self, state) -> bool:
         return self.state is state and self.key == _storage_key(state)
@@ -763,11 +738,13 @@ class StreamingPipeline:
         """The step graph of `state` with batch buffers for n scans,
         captured at first use and again whenever a buffer moved (a batch
         above their capacity grows them)."""
+        from slam_toolbox_tpu_torch.kernels import match_cuda as mc
+
         _fit_batch(state, n)
         g = self._graph
         if g is None or not g.valid_for(state):
-            with _capture_lock, stage_timer(self.mapper.stats,
-                                            "graph_capture"):
+            with mc.capture_lock, stage_timer(self.mapper.stats,
+                                              "graph_capture"):
                 g = self._graph
                 if g is None or not g.valid_for(state):
                     g = self._graph = _StepGraph(state, self._step)
