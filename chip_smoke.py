@@ -73,7 +73,14 @@ Phases, in order; any failure exits non-zero and nothing is caught:
                 device ms per replay (CUDA events over replays), the
                 eager route's host ms for the same work, each replay
                 bit-equal to the eager function on the same inputs, and
-                the graphs' reserved device memory (`# programs:`);
+                the graphs' reserved device memory (`# programs:`); then
+                the exact two-call match forced on both matchers (a
+                query moved off the map, fused response 0, so the coarse
+                pass, three expansions and the fine pass; and
+                match_scan(exact=True) on the map) as raster and pass
+                replays against the fresh-tensor route, in turns:
+                bit-equal, K1-K3 launches equal by grid and none outside
+                a graph on the replayed runs (`# exact:`);
   6. streaming — bench.py's full workload (16 laps, about 2,030 scans)
                 through SlamSession(streaming=True, drain_every=256,
                 device="cuda") with the defaults (speculation on), the main
@@ -127,11 +134,21 @@ Phases, in order; any failure exits non-zero and nothing is caught:
                 nodes: the PCR chain preconditioner) on scripts/
                 bench_dist.py's 12,288-node snake graph against
                 host_sparse_lm (chi2 within 0.2% of the host solution's on
-                the same f32 arrays; positions within PCG_TIER_MAX_DXY), the
-                Thomas sweeps against PCR at n = 2,100 (rtol 1e-4, atol
-                1e-5); distributed_lm_solve on that graph in f32 and f64
-                (within 1 cm of the host solve, no LM step at the CG cap)
-                and with schwarz=False; match_chains_sharded on the bench
+                the same f32 arrays; positions within PCG_TIER_MAX_DXY), its
+                CG loop as chunks of CG_CHUNK iterations replayed from CUDA
+                graphs, launched eagerly (CGLoop.run_eager) and replayed
+                again: the same CG iterations and poses bit for bit,
+                seconds with and without the capture, at most ceil(CG /
+                CG_CHUNK) + 1 host reads per LM step, and one LM step
+                traced each way (cudaLaunchKernel, cudaGraphLaunch and
+                device kernels per CG iteration; no cudaLaunchKernel
+                inside the graphed CG loop); the Thomas sweeps against PCR at
+                n = 2,100 (rtol 1e-4, atol 1e-5); distributed_lm_solve on
+                that graph in f32 and f64 (within 1 cm of the host solve,
+                no LM step at the CG cap) and with schwarz=False, each
+                graphed (NCCL's all_reduces inside the graphs), eager and
+                graphed again (the programs replayed), with the same
+                checks; match_chains_sharded on the bench
                 workload's loop chains (rows bit-equal to
                 match_scans_batch, K1-K3 launches at G 561 counted); the
                 sharded raster of phase 10's main-path map (2,017 scans) and
@@ -145,6 +162,7 @@ nothing of JAX and nothing of the JAX package.
 """
 from __future__ import annotations
 
+import collections
 import contextlib
 import dataclasses
 import json
@@ -1493,6 +1511,119 @@ def check_programs(cfg, laser, data, dev):
     return recs
 
 
+def check_exact(cfg, laser, data, dev):
+    """Phase 5c, the exact two-call match. A mapper at the bench geometry
+    with the response expansion that the default ONLINE_SYNC
+    configuration turns on; on each matcher a query on the map through
+    match_scan(exact=True), and the same query moved 40 m off the map,
+    whose fused response is 0, so match_scan takes the exact path through
+    the coarse pass, its three expansions and the fine pass. Run once to
+    capture the programs, then as replays and by the fresh-tensor route
+    (Matcher.build_grid_eager and _run_pass_eager) in turns: the results
+    bit for bit, K1-K3 launches equal by grid, and no K1-K3 launch of the
+    replayed runs made outside a graph (wrapper launches counted apart
+    from replays). Prints `# exact:`; returns {"by_grid", "direct"} of
+    the replayed runs."""
+    import numpy as np
+    import torch
+
+    from slam_toolbox_tpu_torch.core.scan import LocalizedScan
+    from slam_toolbox_tpu_torch.kernels import match_cuda as mc
+    from slam_toolbox_tpu_torch.kernels.match import Matcher
+    from slam_toolbox_tpu_torch.mapper import Mapper
+
+    mapper = Mapper(dataclasses.replace(cfg, use_response_expansion=True),
+                    device=dev)
+    mapper.initialize(laser.range_threshold)
+
+    def scan_at(i, shift=0.0):
+        s = LocalizedScan(laser, data[i][0].ranges, data[i][0].odom_pose)
+        s.set_corrected_pose(np.asarray(data[i][1]) + [shift, 0.0, 0.0])
+        return s
+
+    ring = cfg.scan_buffer_size
+    base = [scan_at(i) for i in range(ring)]
+    q, far = scan_at(ring + 1), scan_at(ring + 1, 40.0)
+    direct = collections.Counter()
+    count = mc._count
+
+    def counting(name, G):
+        if not (torch.cuda.is_current_stream_capturing()
+                or getattr(mc._uncounted, "on", False)):
+            direct[name] += 1
+        count(name, G)
+
+    def pack(r):
+        return np.concatenate([[r.response], r.sensor_pose,
+                               r.covariance.ravel()])
+
+    def run(m, eager):
+        saved = Matcher.build_grid, Matcher._run_pass
+        if eager:
+            Matcher.build_grid = Matcher.build_grid_eager
+            Matcher._run_pass = Matcher._run_pass_eager
+        try:
+            direct.clear()
+            torch.cuda.synchronize()
+            mc.reset_launch_counts()
+            t0 = time.perf_counter()
+            out = [pack(m.match_scan(q, base, exact=True)),
+                   pack(m.match_scan(far, base))]
+            torch.cuda.synchronize()
+            ms = 1e3 * (time.perf_counter() - t0) / 2
+        finally:
+            Matcher.build_grid, Matcher._run_pass = saved
+        return out, ms, launches_by_grid(), dict(direct)
+
+    mc._count = counting
+    recs, by_grid, replay_direct = {}, {}, {}
+    try:
+        for m in (mapper.sequential_matcher, mapper.loop_matcher):
+            first, _, _, _ = run(m, False)   # captures the programs
+            turns = [run(m, e) for e in (False, True, True, False)]
+            for out, _, grid, _ in turns:
+                if not all(np.array_equal(a, b) for a, b in zip(out, first)):
+                    raise AssertionError(f"exact G {m.G}: replays and the "
+                                         "eager route differ")
+                if grid != turns[0][2]:
+                    raise AssertionError(f"exact G {m.G}: launches {grid} "
+                                         f"against {turns[0][2]}")
+            replayed = [t for t, e in zip(turns, (0, 1, 1, 0)) if not e]
+            if any(t[3] for t in replayed):
+                raise AssertionError(f"exact G {m.G}: K1-K3 launched "
+                                     f"outside a graph: {replayed[0][3]}")
+            if first[1][0] != 0.0:
+                raise AssertionError(f"exact G {m.G}: the off-map query "
+                                     f"responded {first[1][0]}")
+            passes = {k: p for k, p in m._programs.items() if k[0] == "pass"}
+            na = sorted({k[1] for k in passes})
+            if len(na) < 5:
+                raise AssertionError(f"exact G {m.G}: pass programs {na}, "
+                                     "not the coarse, 3 expansions and fine")
+            recs[f"G {m.G}"] = {
+                "ms_per_match_replays": [turns[0][1], turns[3][1]],
+                "ms_per_match_eager": [turns[1][1], turns[2][1]],
+                "pass_headings": na,
+                "capture_ms": {f"{k[0]} {k[1]}": 1e3 * p.capture_s
+                               for k, p in m._programs.items()
+                               if k[0] in ("pass", "raster")},
+                "eager_direct_launches": turns[1][3],
+                "replay_direct_launches": turns[0][3],
+                "response": [first[0][0], first[1][0]]}
+            for name, counts in turns[0][2].items():
+                for G, n in counts.items():
+                    by_grid.setdefault(name, {})[G] = n
+            for name in PATH_KERNELS:
+                replay_direct[name] = replay_direct.get(name, 0) + sum(
+                    t[3].get(name, 0) for t in replayed)
+    finally:
+        mc._count = count
+    print(f"# exact: {json.dumps(recs)}; results bit-equal to the eager "
+          f"route, launches equal by grid, none outside a graph on the "
+          f"replayed runs", flush=True)
+    return {"by_grid": by_grid, "direct": replay_direct}
+
+
 def same_run(tag, a, b, rerun):
     """Hold run b to run a: the same closures and trajectory bit for bit.
     Where they differ, `rerun()` repeats a's configuration: if that pair
@@ -2621,6 +2752,111 @@ def loop_chains(data, radius: float):
     return best, best_q
 
 
+def launch_profile(fn, span: str = "CGLoop.run"):
+    """(fn(), its trace's counts) under torch.profiler, the card
+    synchronized on both sides: host kernel launch calls (in all, and
+    inside the record_function ranges named `span`), graph launch calls
+    and synchronize calls, device kernels (copies and memsets apart),
+    seconds."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from slam_toolbox_tpu_torch.utils.metrics import GRAPH_CALLS, LAUNCH_CALLS
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        s = time.perf_counter() - t0
+    host = [e for e in prof.events() if e.device_type == DeviceType.CPU]
+    spans = [(e.time_range.start, e.time_range.end) for e in host
+             if e.name == span]
+    launches = [e.time_range.start for e in host if e.name in LAUNCH_CALLS]
+    kernels = [e.name for e in prof.events()
+               if e.device_type == DeviceType.CUDA
+               and not e.name.startswith(("Memcpy", "Memset"))]
+    return out, {
+        "kernel_launch_calls": len(launches),
+        f"kernel_launch_calls_in_{span}": sum(
+            any(a <= t <= b for a, b in spans) for t in launches),
+        "graph_launch_calls": sum(e.name in GRAPH_CALLS for e in host),
+        "sync_calls": sum("Synchronize" in e.name for e in host),
+        "device_kernels": len(kernels), "s": s}
+
+
+def per_iteration(prof, log):
+    """A one-LM-step trace's counts per CG iteration of that step."""
+    (iters,) = log["cg"]
+    out = dict(prof, cg_iterations=iters, host_reads=log["reads"][0])
+    for k in ("kernel_launch_calls", "kernel_launch_calls_in_CGLoop.run",
+              "graph_launch_calls", "device_kernels"):
+        out[f"{k}_per_cg_iteration"] = prof[k] / max(iters, 1)
+    return out
+
+
+@contextlib.contextmanager
+def cg_watch(eager: bool):
+    """Inside the block every CGLoop run (the PCG tier's and the
+    distributed solve's CG) is logged, and every host read of the CG and
+    LM loops counted: yields {"cg": iterations per LM step, "reads":
+    reads per LM step}, a step's reads being its CG chunks and the LM
+    loop's one. With `eager`, the loops launch their chunks eagerly
+    (CGLoop.run_eager) in place of the graphs."""
+    import torch
+
+    from slam_toolbox_tpu_torch.solver import se2_solver as ts
+
+    log = {"cg": [], "reads": [], "all_reads": 0}
+    run, read = ts.CGLoop.run, ts._host_read
+    base = ts.CGLoop.run_eager if eager else run
+
+    def logged(self, inputs):
+        with torch.profiler.record_function("CGLoop.run"):
+            x, i = base(self, inputs)
+        log["cg"].append(i)
+        log["reads"].append(self.chunks + 1)
+        return x, i
+
+    def counted(t):
+        log["all_reads"] += 1
+        return read(t)
+
+    ts.CGLoop.run, ts._host_read = logged, counted
+    try:
+        yield log
+    finally:
+        ts.CGLoop.run, ts._host_read = run, read
+    if log["all_reads"] != sum(log["reads"]):
+        raise AssertionError(f"host reads {log['all_reads']} against "
+                             f"{log['reads']} per LM step")
+
+
+def check_reads(tag, run):
+    """At most ceil(CG / CG_CHUNK) + 1 host reads per LM step."""
+    from slam_toolbox_tpu_torch.solver.se2_solver import CG_CHUNK
+
+    bound = [max(1, -(-c // CG_CHUNK)) + 1 for c in run["cg"]]
+    if any(r > b for r, b in zip(run["reads"], bound)):
+        raise AssertionError(f"{tag}: host reads {run['reads']} per LM step "
+                             f"above {bound}")
+
+
+def same_solve(tag, a, b):
+    """Hold solve b to solve a: the same CG iterations per LM step and
+    poses bit for bit."""
+    import numpy as np
+
+    if a["cg"] != b["cg"] or not np.array_equal(a["poses"], b["poses"]):
+        gap = float(np.max(np.abs(a["poses"][:, :2] - b["poses"][:, :2])))
+        raise AssertionError(f"{tag}: CG {b['cg']} against {a['cg']}, "
+                             f"poses differ by up to {gap} m")
+    print(f"# {tag}: the same CG iterations and poses bit for bit",
+          flush=True)
+
+
 def dist_path(mapper, scan_at, data, loop_radius, grids):
     """Phase 12: dist/ and the PCG tier on the card under a world-size-1
     NCCL group (see dist_checks). Returns the K1-K3 launches of the sharded
@@ -2655,6 +2891,8 @@ def dist_checks(mesh, mapper, scan_at, data, loop_radius, grids):
     """The PCG tier (lm_solve past the ceiling) against host_sparse_lm on
     the 12,288-node snake graph, and the Thomas sweeps against PCR; the
     distributed solve on that graph in f32, f64 and with schwarz=False;
+    each solve's CG chunks as graph replays against the eager chunks (bit
+    for bit), its host reads and one LM step's launch calls;
     the sharded chain match on loop chains of the bench workload, bit-equal
     to match_scans_batch; the sharded raster of `grids` ({tag: (scans,
     resolution, create_from_scans' grid on the card)}), bit-equal, and the
@@ -2690,34 +2928,43 @@ def dist_checks(mesh, mapper, scan_at, data, loop_radius, grids):
                 float(np.max(np.abs(dh))))
 
     # 1. the PCG tier: lm_solve past the dense ceiling, padded as compute()
-    # pads (16,384 nodes: the PCR chain preconditioner), f32 on the card
+    # pads (16,384 nodes: the PCR chain preconditioner), f32 on the card;
+    # its CG chunks as graph replays (the route), then launched eagerly
     n_pad, e_pad = ts._pad_pow2(n, 256), ts._pad_pow2(e, 512)
     args = pack_graph(init, edges, n_pad, e_pad)
     poses, src, dst, rel, si, em, free = (torch.from_numpy(a).to(dev)
                                           for a in args)
-    cg_log = []
-    step = ts.pcg_step
+    f32 = np.float32
 
-    def logged(*a, **kw):
-        x = step(*a, **kw)
-        cg_log.append(ts.pcg_step.last_cg_iters)
-        return x
-
-    ts.pcg_step = logged
-    try:
-        f32 = np.float32
-        (p_out, p_chi2, p_iters), pcg_s = timed(lambda: ts.lm_solve(
+    def tier(max_iterations=cfg.max_iterations):
+        return ts.lm_solve(
             poses, src, dst, rel, si, free,
             float(f32(cfg.initial_lm_lambda)),
             float(f32(cfg.function_tolerance)),
             float(f32(cfg.gradient_tolerance)),
-            float(f32(cfg.parameter_tolerance)), cfg.max_iterations,
+            float(f32(cfg.parameter_tolerance)), max_iterations,
             cg_tol=float(f32(cfg.cg_tolerance)),
-            cg_iters=cfg.cg_max_iterations))
-    finally:
-        ts.pcg_step = step
-    p_out = p_out.cpu().numpy()
-    p_chi2 = float(p_chi2)
+            cg_iters=cfg.cg_max_iterations)
+
+    def tier_run(eager):
+        with cg_watch(eager) as log:
+            (p_out, p_chi2, p_iters), s = timed(tier)
+        return {"poses": p_out.cpu().numpy(), "chi2": float(p_chi2),
+                "lm": p_iters, "s": s, **log}
+
+    graphed = tier_run(False)
+    loop = ts.pcg_step.last_loop
+    capture_ms = {k: 1e3 * p.capture_s for k, p in loop.programs.items()}
+    eager = tier_run(True)
+    same_solve("pcg tier graphed vs eager", eager, graphed)
+    again = tier_run(False)   # the captured programs replayed
+    same_solve("pcg tier replayed again", graphed, again)
+    step_prof = {}
+    for tag, run_eager in (("graphed", False), ("eager", True)):
+        with cg_watch(run_eager) as log:
+            _, prof = launch_profile(lambda: tier(1))
+        step_prof[tag] = per_iteration(prof, log)
+    p_out, p_chi2, p_iters = graphed["poses"], graphed["chi2"], graphed["lm"]
     host_pad = np.zeros((n_pad, 3), np.float32)
     host_pad[:n] = host
     # the host solution's chi2 in the tier's own f32 arithmetic on the same
@@ -2728,10 +2975,20 @@ def dist_checks(mesh, mapper, scan_at, data, loop_radius, grids):
     dxy, dth = parity(p_out)
     print(f"# pcg tier: {n} nodes, {e} edges padded to ({n_pad}, {e_pad}), "
           f"f32 on the card: {p_iters} LM iterations, CG iterations per step "
-          f"{cg_log}, chi2 {chi2_0} -> {p_chi2} (the host solve's {host_chi2}"
-          f" in f64, {host_chi2_f32} on the tier's f32 arrays), largest "
-          f"difference to the host solve {dxy} m {dth} rad, {pcg_s} s (host "
+          f"{graphed['cg']}, chi2 {chi2_0} -> {p_chi2} (the host solve's "
+          f"{host_chi2} in f64, {host_chi2_f32} on the tier's f32 arrays), "
+          f"largest difference to the host solve {dxy} m {dth} rad, "
+          f"{graphed['s']} s as CUDA graph chunks with their capture, "
+          f"{again['s']} s replaying them ({eager['s']} s eager; host "
           f"sparse {host_s} s, {host_iters} LM iterations)", flush=True)
+    print(f"# pcg tier loops: host reads per LM step {graphed['reads']} "
+          f"(eager {eager['reads']}), chunk of {ts.CG_CHUNK}; capture ms "
+          f"(init, chunk, restart chunk) {json.dumps(capture_ms)}; one LM "
+          f"step traced {json.dumps(step_prof)}", flush=True)
+    check_reads("pcg tier", graphed)
+    if step_prof["graphed"]["kernel_launch_calls_in_CGLoop.run"]:
+        raise AssertionError(f"pcg tier: the CG loop launched kernels "
+                             f"from the host: {step_prof['graphed']}")
     if not (np.all(np.isfinite(p_out)) and p_chi2 < chi2_0):
         raise AssertionError("pcg tier: no progress or non-finite poses")
     if abs(p_chi2 - host_chi2_f32) > PCG_TIER_MAX_CHI2_REL * host_chi2_f32:
@@ -2758,24 +3015,57 @@ def dist_checks(mesh, mapper, scan_at, data, loop_radius, grids):
     np.testing.assert_allclose(z_pcr, z_thomas, rtol=1e-4, atol=1e-5)
 
     # 2. the distributed solve on the same graph: f32, f64, and the chain
-    # preconditioner (schwarz=False) in f32
+    # preconditioner (schwarz=False) in f32; its CG chunks as graphs with
+    # NCCL's all_reduces inside, then launched eagerly
     packed = pack_graph(init, edges, ts._pad_pow2(n, 1), e)
     for tag, dtype, schwarz in (("f32", np.float32, True),
                                 ("f64", np.float64, True),
                                 ("f32 schwarz=False", np.float32, False)):
-        (d_out, d_chi2), d_s = timed(lambda: distributed_lm_solve(
-            mesh, *packed, cg_iters=200, dtype=dtype, schwarz=schwarz))
-        cg = list(distributed_lm_solve.last_cg_iters)
-        dxy, dth = parity(d_out)
+        def solve(eager, max_iterations=50):
+            with cg_watch(eager) as log:
+                (d_out, d_chi2), d_s = timed(lambda: distributed_lm_solve(
+                    mesh, *packed, cg_iters=200, dtype=dtype,
+                    schwarz=schwarz, max_iterations=max_iterations))
+            if log["cg"] != distributed_lm_solve.last_cg_iters:
+                raise AssertionError(f"dist solve ({tag}): CG loops "
+                                     f"{log['cg']}, LM steps "
+                                     f"{distributed_lm_solve.last_cg_iters}")
+            return {"poses": d_out, "chi2": d_chi2, "s": d_s, **log}
+
+        graphed = solve(False)
+        loop = distributed_lm_solve.last_cg_loop
+        capture_ms = {k: 1e3 * p.capture_s for k, p in loop.programs.items()}
+        eager = solve(True)
+        same_solve(f"dist solve ({tag}) graphed vs eager", eager, graphed)
+        again = solve(False)
+        same_solve(f"dist solve ({tag}) replayed again", graphed, again)
+        cg = graphed["cg"]
+        step_prof = {}
+        for ptag, run_eager in (("graphed", False), ("eager", True)):
+            with cg_watch(run_eager) as log:
+                _, prof = launch_profile(lambda: distributed_lm_solve(
+                    mesh, *packed, cg_iters=200, dtype=dtype,
+                    schwarz=schwarz, max_iterations=1))
+            step_prof[ptag] = per_iteration(prof, log)
+        dxy, dth = parity(graphed["poses"])
         print(f"# dist solve ({tag}): CG iterations per LM step {cg} (CPU "
-              f"mesh {DIST_CPU_CG.get(tag)}), chi2 {d_chi2}, largest "
-              f"difference to the host solve {dxy} m {dth} rad, {d_s} s",
-              flush=True)
-        if not np.all(np.isfinite(d_out)):
+              f"mesh {DIST_CPU_CG.get(tag)}), chi2 {graphed['chi2']}, "
+              f"largest difference to the host solve {dxy} m {dth} rad, "
+              f"{graphed['s']} s as CUDA graph chunks with their capture, "
+              f"{again['s']} s replaying them ({eager['s']} s eager); host "
+              f"reads per LM step {graphed['reads']}; capture ms "
+              f"{json.dumps(capture_ms)}; one LM step traced "
+              f"{json.dumps(step_prof)}", flush=True)
+        check_reads(f"dist solve ({tag})", graphed)
+        if not np.all(np.isfinite(graphed["poses"])):
             raise AssertionError(f"dist solve ({tag}): non-finite poses")
         if schwarz and (dxy >= 0.01 or max(cg) >= 200):
             raise AssertionError(f"dist solve ({tag}): parity {dxy} m or a "
                                  f"step at the CG cap {cg}")
+        if step_prof["graphed"]["kernel_launch_calls_in_CGLoop.run"]:
+            raise AssertionError(f"dist solve ({tag}): the CG loop "
+                                 f"launched kernels from the host: "
+                                 f"{step_prof['graphed']}")
 
     # 3. the sharded chain match on loop chains of the bench workload (G 561)
     chain_ids, q = loop_chains(data, loop_radius)
@@ -2936,8 +3226,10 @@ def main() -> int:
     # 5b. the drain's batch as step graph replays against the eager loop
     check_graph(cfg16, laser16, data16, dev)
 
-    # 5c. the per-event programs: capture, replay and eager costs, memory
+    # 5c. the per-event programs: capture, replay and eager costs, memory;
+    # the exact two-call match's programs against its eager route
     check_programs(cfg, laser, data, dev)
+    exact = check_exact(cfg, laser, data, dev)
 
     # 6. the main path: the streaming pipeline on bench.py's full workload,
     # the defaults (speculation on)
@@ -3079,6 +3371,9 @@ def main() -> int:
             row["spec_off_launches"] = off_run["launches"][name]
             row["main_path_route"] = "step graph replays"
             row["classic_route"] = "program replays (CUDA graphs)"
+            row["exact_route"] = "program replays (CUDA graphs)"
+            row["exact_launches_by_grid"] = exact["by_grid"][name]
+            row["exact_launches_outside_graphs"] = exact["direct"][name]
             row["classic_launches_by_grid"] = classic["by_grid"][name]
             row["eager_classic_launches"] = classic_eager["launches"][name]
             row["eager_main_path_launches"] = eager_run["launches"][name]

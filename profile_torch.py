@@ -35,14 +35,11 @@ import pstats
 import sys
 import time
 
+from slam_toolbox_tpu_torch.utils.metrics import GRAPH_CALLS, LAUNCH_CALLS
+
 WINDOW = (768, 1280)   # accepted scans of the traced streaming window
 CPROFILE_WINDOW = (1024, 1280)   # one drain
 DRAIN = 256
-# the host's kernel launch calls and graph launch calls, as the CUDA
-# APIs (cuda* and cu*) name them in the trace
-LAUNCH_CALLS = ("cudaLaunchKernel", "cuLaunchKernel", "cudaLaunchKernelExC",
-                "cuLaunchKernelEx")
-GRAPH_CALLS = ("cudaGraphLaunch", "cuGraphLaunch")
 
 
 def _device_intervals(prof):

@@ -10,14 +10,17 @@ the pose vector is tiny; it is the per-edge work that shards.
 
 Every rank runs the same host loop on the same full arrays and slices its
 own edge shard from them, so every rank makes the same collectives in the
-same order. The loops' branches (CG stop and stagnation tests, LM accept
-and stop) read only values that are all-reduced or computed from
-all-reduced values by the same operations on every rank, so the ranks
-never diverge.
+same order. The loops' branches (the CG chunks' flag, LM accept and stop)
+read only values that are all-reduced or computed from all-reduced values
+by the same operations on every rank, so the ranks never diverge. The CG
+loop runs on the device in chunks (se2_solver.CGLoop); the LM loop runs on
+the host, as the JAX package's does.
 
 The dense factors (the Schwarz blocks and the coarse operator) are
-factored and solved with torch.linalg.cholesky / torch.cholesky_solve, as
-the JAX package uses its linear-algebra library outside any kernel.
+factored with torch.linalg.cholesky, the blocks inverted with
+torch.cholesky_inverse and the coarse system solved with
+torch.cholesky_solve, as the JAX package uses its linear-algebra library
+outside any kernel.
 """
 from __future__ import annotations
 
@@ -27,6 +30,7 @@ import numpy as np
 import torch
 
 from slam_toolbox_tpu_torch.solver import chain_precond as cp
+from slam_toolbox_tpu_torch.solver import se2_solver as se2
 from slam_toolbox_tpu_torch.solver.se2_solver import (
     edge_jacobians, edge_residual,
 )
@@ -41,11 +45,11 @@ def _local_normal(poses, src, dst, rel, sqrt_info, emask, n_nodes):
     hbb = torch.einsum("eji,ejk->eik", jb, jb)
     hab = torch.einsum("eji,ejk->eik", ja, jb)
     diag = poses.new_zeros((n_nodes, 3, 3))
-    diag.index_add_(0, src, haa)
-    diag.index_add_(0, dst, hbb)
+    cp.scatter_add(diag, src, haa)
+    cp.scatter_add(diag, dst, hbb)
     grad = poses.new_zeros((n_nodes, 3))
-    grad.index_add_(0, src, -torch.einsum("eji,ej->ei", ja, r))
-    grad.index_add_(0, dst, -torch.einsum("eji,ej->ei", jb, r))
+    cp.scatter_add(grad, src, -torch.einsum("eji,ej->ei", ja, r))
+    cp.scatter_add(grad, dst, -torch.einsum("eji,ej->ei", jb, r))
     return diag, hab, grad, torch.sum(r * r)
 
 
@@ -59,13 +63,13 @@ def make_distributed_gn_step(
     Inputs: poses (N,3) and free (N,) replicated tensors on mesh.device;
     src/dst (E_s,), rel (E_s,3), sqrt_info (E_s,3,3), emask (E_s,) bool
     and plocal (E_s,) bool this rank's edge shard; lm_lambda a float.
-    Output: (new_poses (N,3), chi2 tensor, cg iterations used), the same
-    on every rank.
+    Output: (new_poses (N,3), chi2 tensor, cg iterations used as a host
+    int), the same on every rank.
 
     Preconditioner (schwarz=True, the default): two-level Schwarz. Level
     1 is block-Jacobi over fixed-size contiguous node blocks (`block`
-    nodes; a rank owns n/(size*block) blocks and batch-Cholesky-factors
-    them once per GN step); every intra-block loop edge is inside the
+    nodes; a rank owns n/(size*block) blocks and inverts them once per
+    GN step through one batched Cholesky factor); every intra-block loop edge is inside the
     factor (`plocal` marks them). Level 2 is a coarse-space correction
     with one rigid-body aggregate of cb nodes per coarse block (the
     pose-graph Hessian's near-null space is the global rigid motions),
@@ -75,7 +79,17 @@ def make_distributed_gn_step(
     holds; iteration counts stay bounded independent of graph size and
     of rank count. With schwarz=False: the odometry-chain preconditioner
     (the chain's coupling blocks all-reduced, then the same parallel
-    cyclic reduction on every rank)."""
+    cyclic reduction on every rank).
+
+    The CG loop is a solver.se2_solver.CGLoop on the step's static
+    buffers (the preconditioner's factors among them), as JAX runs it in
+    a lax.while_loop: chunks of CG_CHUNK masked iterations, one host read
+    per chunk. Under NCCL its chunks are CUDA graphs with the
+    all_reduces captured inside (the step's eager collectives create the
+    communicator first); under gloo they run eagerly. The loop is kept
+    per (group, rank, preconditioner, shapes), so the LM steps of a solve
+    and later solves of the same shapes replay one capture; the step
+    leaves it in `step.cg_loop`."""
     n_dev = mesh.size
     nb = n_nodes // n_dev
     assert nb * n_dev == n_nodes, "pad nodes to a multiple of the mesh size"
@@ -83,6 +97,62 @@ def make_distributed_gn_step(
     assert nb % block == 0, "block size must divide the per-rank slice"
     bpd = nb // block  # blocks per rank
     start = mesh.rank * nb
+
+    def ops(t):
+        """(mv, prec) on the CGLoop's static buffers `t`."""
+        free = t["free"]
+
+        def mv(x):
+            x = x * free[:, None]
+            hab = t["hab"]
+            local = torch.zeros_like(x)
+            cp.scatter_add(local, t["src"],
+                           torch.einsum("eij,ej->ei", hab, x[t["dst"]]))
+            cp.scatter_add(local, t["dst"],
+                           torch.einsum("eji,ej->ei", hab, x[t["src"]]))
+            # off-diagonal contributions live on edge shards -> all_reduce;
+            # the (replicated) damped diagonal is applied once
+            out = torch.einsum("nij,nj->ni", t["diag_d"], x) + mesh.all_reduce(
+                local)
+            return out * free[:, None]
+
+        if not schwarz:
+            def prec(r):
+                return cp.pcr_solve(t["diag_d"], t["U"], r, free, pcr_steps)
+
+            return mv, prec
+
+        def fine(r):
+            r_l = r[start:start + nb].reshape(bpd, block * 3, 1)
+            z_l = torch.bmm(t["hinv"], r_l)
+            z = torch.zeros_like(r)
+            z[start:start + nb] = z_l.reshape(nb, 3) * t["free_nb"]
+            return mesh.all_reduce(z) * free[:, None]
+
+        def coarse(r):
+            # restrict: rc[b] = sum_{i in b} P_i^T r_i (free only)
+            # free nodes only: fixed and padding nodes are not in the space
+            P_all, w_node, blk_of = t["P_all"], free, t["blk_of"]
+            rn = torch.einsum("nji,nj->ni", P_all, r * w_node[:, None])
+            nbc = t["chol_c"].shape[0] // 3
+            rc = cp.scatter_add(r.new_zeros((nbc, 3)), blk_of, rn)
+            zc = torch.cholesky_solve(rc.reshape(nbc * 3, 1),
+                                      t["chol_c"]).reshape(nbc, 3)
+            # prolong: z_i = P_i zc[b(i)]
+            z = torch.einsum("nij,nj->ni", P_all, zc[blk_of])
+            return z * w_node[:, None]
+
+        def prec(r):
+            # symmetrized multiplicative two-level V-cycle (fine ->
+            # coarse -> fine); a one-sided sweep is not symmetric and
+            # breaks CG's recurrences
+            z1 = fine(r)
+            z2 = z1 + coarse(r - mv(z1))
+            return z2 + fine(r - mv(z2))
+
+        return mv, prec
+
+    pcr_steps = int(math.ceil(math.log2(max(n_nodes, 2)))) + 1
 
     def step(poses, src, dst, rel, sqrt_info, emask, plocal, free,
              lm_lambda):
@@ -99,17 +169,14 @@ def make_distributed_gn_step(
                 * eye / 3.0)
         diag_d = diag + damp + 1e-8 * eye
         b = grad * free[:, None]
-
-        def mv(x):
-            x = x * free[:, None]
-            local = torch.zeros_like(x)
-            local.index_add_(0, src, torch.einsum("eij,ej->ei", hab, x[dst]))
-            local.index_add_(0, dst, torch.einsum("eji,ej->ei", hab, x[src]))
-            # off-diagonal contributions live on edge shards -> all_reduce;
-            # the (replicated) damped diagonal is applied once
-            out = torch.einsum("nij,nj->ni", diag_d, x) + mesh.all_reduce(
-                local)
-            return out * free[:, None]
+        # relative termination, dtype-aware: r stops being resolvable in
+        # f32 around 1e-5 * ||b|| (1e-11 in f64)
+        rtol = cg_rtol if cg_rtol is not None else (
+            1e-11 if dt == torch.float64 else 1e-5)
+        rr_stop = torch.tensor(rtol * rtol, dtype=dt, device=dev) * torch.sum(
+            b * b)
+        inputs = dict(src=src, dst=dst, hab=hab, diag_d=diag_d, free=free,
+                      b=b, stop=rr_stop)
 
         if schwarz:
             # this rank's block-diagonal dense factors: intra-block
@@ -124,9 +191,8 @@ def make_distributed_gn_step(
             s_off = torch.where(plocal, rel_s % block, 0)
             d_off = torch.where(plocal, rel_d % block, 0)
             H5 = poses.new_zeros((bpd + 1, block, block, 3, 3))
-            H5.index_put_((blk, s_off, d_off), hab, accumulate=True)
-            H5.index_put_((blk, d_off, s_off), hab.transpose(1, 2),
-                          accumulate=True)
+            cp.scatter_add(H5, (blk, s_off, d_off), hab)
+            cp.scatter_add(H5, (blk, d_off, s_off), hab.transpose(1, 2))
             H5 = H5[:bpd]
             rng = torch.arange(block, device=dev)
             H5[:, rng, rng] = diag_d[start:start + nb].reshape(
@@ -139,7 +205,10 @@ def make_distributed_gn_step(
             Hd = H5.permute(0, 1, 3, 2, 4).reshape(bpd, block * 3,
                                                      block * 3)
             del H5
-            chol = torch.linalg.cholesky(Hd)   # batched over blocks
+            # the blocks' inverses from one batched Cholesky, so the CG
+            # loop applies them as one batched product (a batched solve
+            # goes to MAGMA, which allocates and cannot be captured)
+            hinv = torch.cholesky_inverse(torch.linalg.cholesky(Hd))
             del Hd
 
             # coarse space: per-aggregate rigid-body modes. At node i of
@@ -161,9 +230,9 @@ def make_distributed_gn_step(
             w_node = free  # fixed/padding nodes excluded from the space
             # per-aggregate centroid of free nodes (poses are replicated,
             # so every rank computes the same centroids)
-            cent_n = poses.new_zeros((NB, 2)).index_add_(
-                0, blk_of, poses[:, :2] * w_node[:, None])
-            cent_d = poses.new_zeros((NB,)).index_add_(0, blk_of, w_node)
+            cent_n = cp.scatter_add(poses.new_zeros((NB, 2)), blk_of,
+                                    poses[:, :2] * w_node[:, None])
+            cent_d = cp.scatter_add(poses.new_zeros((NB,)), blk_of, w_node)
             cent = cent_n / torch.clamp_min(cent_d, 1.0)[:, None]
             rel_xy = poses[:, :2] - cent[blk_of]
             z0 = torch.zeros_like(rel_xy[:, 0])
@@ -182,93 +251,43 @@ def make_distributed_gn_step(
             cbd = torch.where(emask, torch.div(dst, cb,
                                                rounding_mode="floor"), NB)
             Ac = poses.new_zeros((NB + 1, NB + 1, 3, 3))
-            Ac.index_put_((cbs, cbd), hab_c, accumulate=True)
-            Ac.index_put_((cbd, cbs), hab_c.transpose(1, 2),
-                          accumulate=True)
+            cp.scatter_add(Ac, (cbs, cbd), hab_c)
+            cp.scatter_add(Ac, (cbd, cbs), hab_c.transpose(1, 2))
             Ac = mesh.all_reduce(Ac[:NB, :NB].contiguous())
             diag_c = torch.einsum("nji,njk,nkl->nil", P_all, diag_d,
                                   P_all) * w_node[:, None, None]
-            Ac.index_put_((blk_of, blk_of), diag_c, accumulate=True)
+            cp.scatter_add(Ac, (blk_of, blk_of), diag_c)
             Acd = Ac.permute(0, 2, 1, 3).reshape(NB * 3, NB * 3)
             # tiny Tikhonov keeps empty/fixed-only aggregates SPD
             Acd = Acd + torch.eye(NB * 3, dtype=dt, device=dev) * (
                 1e-8 * torch.trace(Acd) / (NB * 3) + 1e-12)
-            chol_c = torch.linalg.cholesky(Acd)
-            free_nb = free_l.reshape(nb)[:, None]
-
-            def fine(r):
-                r_l = r[start:start + nb].reshape(bpd, block * 3, 1)
-                z_l = torch.cholesky_solve(r_l, chol)
-                z = torch.zeros_like(r)
-                z[start:start + nb] = z_l.reshape(nb, 3) * free_nb
-                return mesh.all_reduce(z) * free[:, None]
-
-            def coarse(r):
-                # restrict: rc[b] = sum_{i in b} P_i^T r_i (free only)
-                rn = torch.einsum("nji,nj->ni", P_all, r * w_node[:, None])
-                rc = poses.new_zeros((NB, 3)).index_add_(0, blk_of, rn)
-                zc = torch.cholesky_solve(rc.reshape(NB * 3, 1),
-                                          chol_c).reshape(NB, 3)
-                # prolong: z_i = P_i zc[b(i)]
-                z = torch.einsum("nij,nj->ni", P_all, zc[blk_of])
-                return z * w_node[:, None]
-
-            def prec(r):
-                # symmetrized multiplicative two-level V-cycle (fine ->
-                # coarse -> fine); a one-sided sweep is not symmetric and
-                # breaks CG's recurrences
-                z1 = fine(r)
-                z2 = z1 + coarse(r - mv(z1))
-                return z2 + fine(r - mv(z2))
+            inputs.update(hinv=hinv, chol_c=torch.linalg.cholesky(Acd),
+                          P_all=P_all, blk_of=blk_of,
+                          free_nb=free_l.reshape(nb)[:, None])
         else:
-            U = mesh.all_reduce(
+            inputs["U"] = mesh.all_reduce(
                 cp.build_chain_offdiag(hab, src, dst, n_nodes, free)
                 .contiguous())
-            pcr_steps = int(math.ceil(math.log2(max(n_nodes, 2)))) + 1
 
-            def prec(r):
-                return cp.pcr_solve(diag_d, U, r, free, pcr_steps)
-
-        x = torch.zeros_like(b)
-        r = b - mv(x)
-        p = prec(r)
-        rz = torch.sum(r * p)
-        # relative termination, dtype-aware: r stops being resolvable in
-        # f32 around 1e-5 * ||b|| (1e-11 in f64)
-        rtol = cg_rtol if cg_rtol is not None else (
-            1e-11 if dt == torch.float64 else 1e-5)
-        rr_stop = torch.tensor(rtol * rtol, dtype=dt, device=dev) * torch.sum(
-            b * b)
-        rr_ckpt = torch.sum(r * r)
-        i = 0
-        # rz <= 0 means the preconditioned residual is at the dtype's
-        # noise floor (prec is SPD analytically)
-        while i < cg_iters and bool((torch.sum(r * r) > rr_stop) & (rz > 0)):
-            hp = mv(p)
-            alpha = rz / torch.clamp_min(torch.sum(p * hp), 1e-30)
-            x = x + alpha * p
-            # periodic true-residual restart against recurrence drift; it
-            # doubles as a stagnation probe: if a whole restart period
-            # bought less than a 2x residual reduction, the dtype's floor
-            # is reached: stop
-            restart = i % 32 == 31
-            r = b - mv(x) if restart else r - alpha * hp
-            stalled = False
-            if restart:
-                rr = torch.sum(r * r)
-                stalled = bool(rr > 0.25 * rr_ckpt)
-                rr_ckpt = rr
-            z = prec(r)
-            rz_new = torch.sum(r * z)
-            p = z if restart else z + rz_new / torch.clamp_min(rz, 1e-30) * p
-            rz = rz_new
-            i = cg_iters if stalled else i + 1
+        # the CG loop as chunks of CG_CHUNK masked iterations on the
+        # device, one host read per chunk; every 32 iterations a
+        # true-residual restart against recurrence drift, which doubles
+        # as a stagnation probe (a whole restart period that bought less
+        # than a 2x residual reduction means the dtype's floor is
+        # reached: stop); rz <= 0 means the preconditioned residual is at
+        # the dtype's noise floor (prec is SPD analytically). The loop is
+        # kept per group and shapes, so later solves replay its programs
+        step.cg_loop = se2.cg_loop(
+            ("dist", mesh.group, mesh.rank, mesh.size, schwarz, pcr_steps),
+            inputs, ops, cg_iters, period=32, stall=True)
+        x, i = step.cg_loop.run(inputs)
 
         new_poses = poses + x
         new_poses[:, 2] = torch.atan2(torch.sin(new_poses[:, 2]),
                                       torch.cos(new_poses[:, 2]))
         return new_poses, chi2, i
 
+    step.cg_loop = None   # the CGLoop of the last call
     return step
 
 
@@ -348,7 +367,9 @@ def distributed_lm_solve(
     count. dtype=np.float64 runs the whole solve (residuals, reductions,
     CG recurrences) in f64 for sub-mm parity with the host solver.
     Returns (poses (N,3) numpy in `dtype`, chi2); the CG iterations of
-    each LM step are left in distributed_lm_solve.last_cg_iters."""
+    each LM step are left in distributed_lm_solve.last_cg_iters and the
+    step's CGLoop in distributed_lm_solve.last_cg_loop. The host reads
+    the device once per CG chunk and once per LM step."""
     n_dev = mesh.size
     f64 = np.dtype(dtype) == np.float64
     if cblock is None:
@@ -394,11 +415,13 @@ def distributed_lm_solve(
     for _ in range(max_iterations):
         new_poses, cur_chi2, cg_used = step(
             poses_t, *args, plocal, free_t, lam)
-        cg_iter_log.append(int(cg_used))
+        cg_iter_log.append(cg_used)
+        # evaluate the proposal with the cheap chi2-only collective; one
+        # host read of both chi2s per LM step
+        cur_chi2, new_chi2 = se2._host_read(torch.stack(
+            [cur_chi2, chi2_fn(new_poses, *args)]))
         if chi2 is None:
-            chi2 = float(cur_chi2)
-        # evaluate the proposal with the cheap chi2-only collective
-        new_chi2 = float(chi2_fn(new_poses, *args))
+            chi2 = cur_chi2
         if new_chi2 <= chi2:
             rel_dec = (chi2 - new_chi2) / max(chi2, 1e-30)
             poses_t = new_poses
@@ -411,4 +434,5 @@ def distributed_lm_solve(
             if lam >= 1e6:
                 break
     distributed_lm_solve.last_cg_iters = cg_iter_log
+    distributed_lm_solve.last_cg_loop = step.cg_loop
     return poses_t.cpu().numpy(), chi2

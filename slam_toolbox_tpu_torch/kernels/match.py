@@ -19,7 +19,13 @@ and the fused score captured once as a CUDA graph per (base points P,
 beams B, penalize, refine) on static input buffers, as the JAX package
 jits `_raster_jit` and `_score_jit` once per shape, and replayed per
 match; on the CPU the same function runs eagerly on the same buffers.
-Only the exact two-call path (`exact=True`) runs eagerly on a card.
+The exact two-call path (`exact=True`) is programs too, as the JAX
+package jits `_match_pass`: its raster per base-point bucket and each
+pass per (headings, beams, lattice, penalize, fine), with the f64 index
+tables built on the host and uploaded into the static buffers. So no
+K1-K3 launch on a card comes from outside a graph replay; the
+`*_eager` methods are the fresh-tensor references the programs are held
+to.
 
 Numerics follow the reference: raster values are round(100 * gaussian)
 (Mapper.h:1258-1260); response = sum / (B * 100) (Mapper.cpp:1204);
@@ -163,15 +169,41 @@ class Matcher:
         return mc.smear_quantize(words, self._w, self.G, self.half_kernel)
 
     # -- raster construction ------------------------------------------------
-    def build_grid(self, base_scans, viewpoint_pose: np.ndarray):
-        """Rasterize base scans around the query scan pose; returns
-        (grid_flat int8 (G*G+1,), offset (2,)) — AddScans (Mapper.cpp:1032)."""
+    def _grid_inputs(self, base_scans, viewpoint_pose):
         off = np.asarray(
             viewpoint_pose[:2] - 0.5 * (self.G - 1) * self.resolution,
             dtype=np.float64,
         )
         vp = np.asarray(viewpoint_pose[:2], dtype=np.float64)
         pts_p, valid_p = self._base_points(base_scans, vp)
+        return off, pts_p, valid_p
+
+    def build_grid(self, base_scans, viewpoint_pose: np.ndarray):
+        """Rasterize base scans around the query scan pose; returns
+        (grid_flat int8 (G*G+1,), offset (2,)) — AddScans (Mapper.cpp:1032).
+        One replay of the raster program of the base points' bucket P (K2
+        then K3 on static buffers); the grid is a copy of its output."""
+        off, pts_p, valid_p = self._grid_inputs(base_scans, viewpoint_pose)
+        P = len(pts_p)
+
+        def build():
+            return self._raster, dict(
+                pts=torch.zeros((P, 2), dtype=_F32, device=self.device),
+                valid=torch.zeros(P, dtype=torch.bool, device=self.device),
+                offset=torch.zeros(2, dtype=_F32, device=self.device))
+
+        prog = self.program(("raster", P), build)
+        with prog.lock:
+            inp = prog.inputs
+            upload_into(inp["pts"], pts_p)
+            upload_into(inp["valid"], valid_p)
+            upload_into(inp["offset"], off.astype(np.float32))
+            return prog.run(), off
+
+    def build_grid_eager(self, base_scans, viewpoint_pose: np.ndarray):
+        """build_grid's raster on fresh tensors, launched eagerly: the
+        reference its program is held to."""
+        off, pts_p, valid_p = self._grid_inputs(base_scans, viewpoint_pose)
         grid = self._raster(
             self._tensor(pts_p), self._tensor(valid_p),
             self._tensor(off.astype(np.float32)),
@@ -283,9 +315,12 @@ class Matcher:
         """Fused single-call match by default (_dispatch: a replay of the
         match's program); `exact=True` uses the two-call path with f64
         host index tables (bit-matching the NumPy oracle) and is also the
-        fallback that implements response expansion. The exact path runs
-        eagerly on a card too, the matcher's only eager route there: it
-        is rare, and its tables are built on the host per call."""
+        fallback that implements response expansion. The exact path is
+        programs too, as the JAX package jits `_match_pass`: its raster
+        one replay (build_grid), each pass one replay keyed by its shape
+        (_run_pass), the tables uploaded into their static buffers; the
+        host reads each pass's result, since the expansion and the fine
+        pass's centre depend on it."""
         if not exact:
             center = np.asarray(scan.sensor_pose, dtype=np.float64)
             packed = self._dispatch(scan, base_scans, center, penalize,
@@ -388,11 +423,10 @@ class Matcher:
             scan, base_sets, penalize=penalize, refine=refine,
         ))
 
-    def _run_pass(
-        self, grid_flat, off, center, x_off, y_off,
-        angle_offset, angle_resolution, local_pts, finite, step_xy,
-        penalize: bool, fine: bool,
-    ):
+    def _pass_inputs(self, off, center, x_off, y_off, angle_offset,
+                     angle_resolution, local_pts, finite, fine: bool):
+        """The host-built inputs of one exact pass (f64 index tables, as
+        the JAX package builds them with numpy), as arrays."""
         na = int(np.floor(angle_offset * 2.0 / angle_resolution + 0.5)) + 1
         angles = (
             center[2] - angle_offset
@@ -404,26 +438,81 @@ class Matcher:
         if not fine and not (np.all(np.diff(cand_x) == 2)
                              and np.all(np.diff(cand_y) == 2)):
             raise ValueError("coarse candidates are not a stride-2 lattice")
-        t = self._tensor
-        out = _match_pass_impl(
-            grid_flat, self.G,
-            t(off.astype(np.float32)),
-            _f32(self.scale),
-            t(np.asarray(center, np.float32)),
-            t(np.asarray(x_off, np.float32)),
-            t(np.asarray(y_off, np.float32)),
-            t(np.asarray(angles, np.float32)),
-            t(d), t(cand_x), t(cand_y), t(finite),
-            _f32(step_xy), _f32(angle_resolution),
-            penalize, *self.penalty_params,
-            fine=fine,
-        )
-        best, mean, third = (x.cpu().numpy() for x in out)
-        mean = np.asarray(mean, np.float64)
+        f32 = np.float32
+        return dict(
+            off=off.astype(f32), center=np.asarray(center, f32),
+            x_off=np.asarray(x_off, f32), y_off=np.asarray(y_off, f32),
+            angles=np.asarray(angles, f32), d=d, cand_x=cand_x,
+            cand_y=cand_y, finite=np.asarray(finite, bool))
+
+    def _pass_fn(self, step_xy, angle_resolution, penalize: bool,
+                 fine: bool):
+        """One exact pass as a function of its tensors: the packed
+        [best, mean (3), covariance (9) or var_th] f32 result."""
+        def fn(grid, off, center, x_off, y_off, angles, d, cand_x, cand_y,
+               finite):
+            best, mean, third = _match_pass_impl(
+                grid, self.G, off, _f32(self.scale), center, x_off, y_off,
+                angles, d, cand_x, cand_y, finite, _f32(step_xy),
+                _f32(angle_resolution), penalize, *self.penalty_params,
+                fine=fine,
+            )
+            return torch.cat([best[None], mean, third.reshape(-1)])
+
+        return fn
+
+    @staticmethod
+    def _pass_result(packed, fine: bool):
+        packed = np.asarray(packed, np.float64)
+        mean = packed[1:4].copy()
         mean[2] = _normalize(mean[2])
         if fine:
-            return float(best), mean, float(third)
-        return float(best), mean, np.asarray(third, np.float64)
+            return float(packed[0]), mean, float(packed[4])
+        return float(packed[0]), mean, packed[4:13].reshape(3, 3)
+
+    def _run_pass(
+        self, grid_flat, off, center, x_off, y_off,
+        angle_offset, angle_resolution, local_pts, finite, step_xy,
+        penalize: bool, fine: bool,
+    ):
+        """One exact pass as a replay of its program, keyed by (na, B, nx,
+        ny, penalize, fine) and the pass's steps: the tables and the grid
+        written into its static buffers, one read of the packed result."""
+        arrays = self._pass_inputs(off, center, x_off, y_off, angle_offset,
+                                   angle_resolution, local_pts, finite, fine)
+        na, B = arrays["d"].shape[:2]
+        key = ("pass", na, B, len(x_off), len(y_off), penalize, fine,
+               step_xy, angle_resolution)
+
+        def build():
+            inputs = {k: torch.zeros(v.shape, device=self.device,
+                                     dtype=torch.from_numpy(v).dtype)
+                      for k, v in arrays.items()}
+            inputs["grid"] = torch.zeros_like(grid_flat)
+            return self._pass_fn(step_xy, angle_resolution, penalize,
+                                 fine), inputs
+
+        prog = self.program(key, build)
+        with prog.lock:
+            for k, v in arrays.items():
+                upload_into(prog.inputs[k], v)
+            prog.inputs["grid"].copy_(grid_flat)
+            packed = prog.run()
+        return self._pass_result(packed.cpu().numpy(), fine)
+
+    def _run_pass_eager(
+        self, grid_flat, off, center, x_off, y_off,
+        angle_offset, angle_resolution, local_pts, finite, step_xy,
+        penalize: bool, fine: bool,
+    ):
+        """_run_pass's pass on fresh tensors, launched eagerly: the
+        reference its program is held to."""
+        arrays = self._pass_inputs(off, center, x_off, y_off, angle_offset,
+                                   angle_resolution, local_pts, finite, fine)
+        fn = self._pass_fn(step_xy, angle_resolution, penalize, fine)
+        packed = fn(grid_flat, **{k: self._tensor(v)
+                                  for k, v in arrays.items()})
+        return self._pass_result(packed.cpu().numpy(), fine)
 
 
 def _penalized(raw, B, x_offsets, y_offsets, angles, center_h, penalize,

@@ -32,9 +32,11 @@ not counted, whether by a wrapper or by a replay.
 
 The port's CUDA graphs are made here: capture_graph (an eager warm-up on
 a side stream, the capture under the process's capture_lock, the tally)
-serves the drain's step graph (mapper/streaming.py) and Program, a
+serves the drain's step graph (mapper/streaming.py); Program, a
 function of static input buffers captured once and replayed per call
-(the matcher's match, the fused loop verify and the near-chain matches).
+(the matcher's match and exact passes and rasters, the fused loop verify
+and the near-chain matches); and StatefulProgram, a function that updates
+its state in place (the CG chunks of solver/se2_solver.py's CGLoop).
 
 The libraries are built and loaded once per process under a lock, so
 threads that reach a kernel first at the same time (a session warming on
@@ -197,6 +199,39 @@ class Program:
         self.replays += 1
         count_replay(self.tally)
         return self.out.clone() if out is None else out.copy_(self.out)
+
+
+class StatefulProgram:
+    """`fn(state)` as one program that updates `state` (a dict of
+    tensors) in place and reads other static buffers it closes over,
+    which the caller writes between runs: on a card captured once as a
+    CUDA graph (capture_graph) and replayed per run, on the CPU run
+    eagerly on the same buffers. The warm-up runs `fn` on a scratch copy
+    of `state`, so it writes nothing that the captured function reads. A
+    capture that fails raises; nothing runs eagerly in its place.
+    `replays` tallies the runs of the graph."""
+
+    def __init__(self, fn, state: dict):
+        self.fn = fn
+        self.state = state
+        self.replays = 0
+        self.capture_s = 0.0
+        self.graph = self.tally = None
+        dev = next(iter(state.values())).device
+        if _on_cuda(dev):
+            scratch = {k: v.clone() for k, v in state.items()}
+            t0 = time.perf_counter()
+            self.graph, self.tally, _ = capture_graph(
+                lambda: fn(state), dev, warm=lambda: fn(scratch))
+            self.capture_s = time.perf_counter() - t0
+
+    def run(self) -> None:
+        if self.graph is None:
+            self.fn(self.state)
+            return
+        self.graph.replay()
+        self.replays += 1
+        count_replay(self.tally)
 
 
 def _source(name: str) -> str:

@@ -44,6 +44,17 @@ def _inv3(m):
     return adj / det[..., None, None]
 
 
+def scatter_add(out, index, values):
+    """out[index] += values in place, index a tensor or a tuple of them;
+    returns out. The solvers' one scatter sum: index_put_ with accumulate
+    sorts the indices on a card and adds in that order (index_add_ adds
+    with float atomics in the order threads reach them), so a solve
+    repeats bit for bit; on the CPU it sums as index_add_ does."""
+    if not isinstance(index, tuple):
+        index = (index,)
+    return out.index_put_(index, values, accumulate=True)
+
+
 def build_chain_offdiag(hab, src, dst, n_nodes: int, free):
     """U (n-1, 3, 3): coupling H[i, i+1] restricted to consecutive solver
     indices; edges touching gauge-fixed nodes are dropped so the
@@ -53,10 +64,10 @@ def build_chain_offdiag(hab, src, dst, n_nodes: int, free):
     bwd = src == dst + 1
     sink = n_nodes - 1   # one past U's last row: dropped
     U = hab.new_zeros((n_nodes, 3, 3))
-    U.index_add_(0, torch.where(fwd, src, sink),
-                 hab * (fwd * e_free)[:, None, None])
-    U.index_add_(0, torch.where(bwd, dst, sink),
-                 hab.transpose(-1, -2) * (bwd * e_free)[:, None, None])
+    scatter_add(U, torch.where(fwd, src, sink),
+                hab * (fwd * e_free)[:, None, None])
+    scatter_add(U, torch.where(bwd, dst, sink),
+                hab.transpose(-1, -2) * (bwd * e_free)[:, None, None])
     return U[:sink]
 
 

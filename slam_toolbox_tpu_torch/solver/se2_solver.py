@@ -28,6 +28,7 @@ every rank runs in lockstep on the same graph.
 from __future__ import annotations
 
 import math
+import threading
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
@@ -113,11 +114,11 @@ def build_normal_blocks(poses, src, dst, rel, sqrt_info):
     hbb = torch.einsum("eji,ejk->eik", jb, jb)
     hab = torch.einsum("eji,ejk->eik", ja, jb)
     diag = poses.new_zeros((n, 3, 3))
-    diag.index_add_(0, src, haa)
-    diag.index_add_(0, dst, hbb)
+    cp.scatter_add(diag, src, haa)
+    cp.scatter_add(diag, dst, hbb)
     grad = poses.new_zeros((n, 3))
-    grad.index_add_(0, src, -torch.einsum("eji,ej->ei", ja, r))
-    grad.index_add_(0, dst, -torch.einsum("eji,ej->ei", jb, r))
+    cp.scatter_add(grad, src, -torch.einsum("eji,ej->ei", ja, r))
+    cp.scatter_add(grad, dst, -torch.einsum("eji,ej->ei", jb, r))
     chi2 = torch.sum(r * r)
     return diag, hab, grad, chi2
 
@@ -131,8 +132,8 @@ def _hx(x, diag_damped, hab, src, dst, free):
     """H @ x with the gauge row/col projected out."""
     x = x * free[:, None]
     out = torch.einsum("nij,nj->ni", diag_damped, x)
-    out = out.index_add(0, src, torch.einsum("eij,ej->ei", hab, x[dst]))
-    out = out.index_add(0, dst, torch.einsum("eji,ej->ei", hab, x[src]))
+    cp.scatter_add(out, src, torch.einsum("eij,ej->ei", hab, x[dst]))
+    cp.scatter_add(out, dst, torch.einsum("eji,ej->ei", hab, x[src]))
     return out * free[:, None]
 
 
@@ -142,86 +143,240 @@ def _damped(diag, lam):
     return diag + damp + 1e-8 * eye
 
 
+# CG iterations per chunk program: the host reads one flag per chunk. It
+# divides 64 and 32, the restart periods of pcg_step and the distributed
+# solve, so a restart falls at a fixed iteration of a chunk
+CG_CHUNK = 8
+# CGLoop per route, cg_iters and its inputs' shapes, dtypes and devices:
+# the PCG tier pads its shapes to powers of two, so one serves a bucket
+_CG_LOOPS: Dict[tuple, "CGLoop"] = {}
+
+
+def _host_read(t):
+    """t's value on the host: the one way the CG and LM loops read the
+    device (a sync)."""
+    return t.tolist()
+
+
+class CGLoop:
+    """Preconditioned CG on static buffers in chunks of CG_CHUNK masked
+    iterations, the counterpart of the JAX package's lax.while_loop.
+
+    `inputs` are the loop's per-solve tensors: the right-hand side `b`,
+    the stop threshold `stop` on r·r, and what `ops(buffers)` reads;
+    `ops` returns (mv, prec) built on the static copies, which run()
+    fills. An init program sets x = 0, r = b - mv(x), p = prec(r),
+    rz = r·p, i = 0; each chunk program runs CG_CHUNK iterations, each
+    computing `active = (i < cg_iters) & (r·r > stop)` (and rz > 0 under
+    `stall`) on the device and keeping the old state where it is False,
+    and ends by writing (i, active) to `status`, which the host reads
+    once per chunk. Inactivity is absorbing, so while the loop runs
+    iteration j of chunk c is iteration c·CG_CHUNK + j: the
+    true-residual restart every `period` iterations (r = b - mv(x),
+    p = z) falls at the last iteration of every (period / CG_CHUNK)-th
+    chunk, a program of its own, and costs only there. Under `stall` the restart is the
+    distributed solve's stagnation probe: i jumps to cg_iters when a
+    period bought less than a 2x reduction of r·r.
+
+    On a card the programs are CUDA graphs (match_cuda.StatefulProgram),
+    captured at their first run(); on the CPU they run eagerly on the
+    same buffers. run_eager() runs the same functions eagerly on a card:
+    the reference the graphs are held to, and the route of
+    preconditioners that launch O(n) kernels (the block Thomas sweeps),
+    whose graph is not worth having."""
+
+    def __init__(self, inputs: dict, ops, cg_iters: int, period=None,
+                 stall: bool = False):
+        if period is not None and period % CG_CHUNK:
+            raise ValueError(f"chunk {CG_CHUNK} does not divide period "
+                             f"{period}")
+        self.inp = {name: torch.empty_like(v) for name, v in inputs.items()}
+        self.mv, self.prec = ops(self.inp)
+        b = self.inp["b"]
+        i64 = dict(dtype=torch.int64, device=b.device)
+        self.state = dict(
+            i=torch.zeros((), **i64), x=torch.zeros_like(b),
+            r=torch.zeros_like(b), p=torch.zeros_like(b), rz=b.new_zeros(()),
+            status=torch.zeros(2, **i64))
+        if stall:
+            self.state["rr_ckpt"] = b.new_zeros(())
+        self.cg_iters, self.period, self.stall = cg_iters, period, stall
+        self.fns = (self._init, lambda st: self._chunk(st, False),
+                    lambda st: self._chunk(st, True))
+        self.programs = {}   # index into fns -> StatefulProgram, on a card
+        self.lock = threading.Lock()
+        self.chunks = 0      # chunks the last run ran (= host reads)
+
+    def _init(self, st):
+        b = self.inp["b"]
+        x = torch.zeros_like(b)
+        r = b - self.mv(x)
+        p = self.prec(r)
+        st["x"].copy_(x)
+        st["r"].copy_(r)
+        st["p"].copy_(p)
+        st["rz"].copy_(torch.sum(r * p))
+        st["i"].zero_()
+        if self.stall:
+            st["rr_ckpt"].copy_(torch.sum(r * r))
+
+    def _active(self, i, r, rz):
+        act = (i < self.cg_iters) & (torch.sum(r * r) > self.inp["stop"])
+        return act & (rz > 0) if self.stall else act
+
+    def _chunk(self, st, restart_last: bool):
+        mv, prec, b = self.mv, self.prec, self.inp["b"]
+        i, x, r, p, rz = (st[name] for name in ("i", "x", "r", "p", "rz"))
+        ckpt = st.get("rr_ckpt")
+        for j in range(CG_CHUNK):
+            act = self._active(i, r, rz)
+            hp = mv(p)
+            alpha = rz / torch.clamp_min(torch.sum(p * hp), 1e-30)
+            x_n = x + alpha * p
+            restart = restart_last and j == CG_CHUNK - 1
+            r_n = b - mv(x_n) if restart else r - alpha * hp
+            i_n = i + 1
+            if restart and self.stall:
+                rr = torch.sum(r_n * r_n)
+                i_n = torch.where(rr > 0.25 * ckpt, self.cg_iters, i_n)
+                ckpt = torch.where(act, rr, ckpt)
+            z = prec(r_n)
+            rz_n = torch.sum(r_n * z)
+            p_n = z if restart else z + rz_n / torch.clamp_min(rz, 1e-30) * p
+            i, x, r, p, rz = (torch.where(act, new, old) for new, old in (
+                (i_n, i), (x_n, x), (r_n, r), (p_n, p), (rz_n, rz)))
+        go = self._active(i, r, rz)
+        for name, v in (("i", i), ("x", x), ("r", r), ("p", p), ("rz", rz)):
+            st[name].copy_(v)
+        if ckpt is not None:
+            st["rr_ckpt"].copy_(ckpt)
+        st["status"].copy_(torch.stack([i, go.to(torch.int64)]))
+
+    def _program(self, idx: int):
+        from slam_toolbox_tpu_torch.kernels import match_cuda as mc
+
+        prog = self.programs.get(idx)
+        if prog is None:
+            prog = self.programs[idx] = mc.StatefulProgram(self.fns[idx],
+                                                           self.state)
+        return prog
+
+    def _drive(self, inputs, step):
+        for name, v in inputs.items():
+            self.inp[name].copy_(v)
+        step(0)
+        c = 0
+        while True:
+            c += 1
+            last = (self.period is not None
+                    and c * CG_CHUNK % self.period == 0)
+            step(2 if last else 1)
+            i, go = _host_read(self.state["status"])
+            if not go:
+                self.chunks = c
+                return self.state["x"].clone(), i
+
+    def run(self, inputs):
+        """(x, CG iterations) on `inputs` by the programs; x is a copy."""
+        with self.lock:
+            return self._drive(inputs, lambda idx: self._program(idx).run())
+
+    def run_eager(self, inputs):
+        """run()'s loop with its functions launched eagerly."""
+        with self.lock:
+            return self._drive(inputs, lambda idx: self.fns[idx](self.state))
+
+
+def cg_loop(route: tuple, inputs: dict, ops, cg_iters: int,
+            **kw) -> CGLoop:
+    """The CGLoop of `route` (which must fix what `ops` closes over
+    besides its buffers) for inputs of these shapes, dtypes and devices,
+    made at first use and kept for the process."""
+    from slam_toolbox_tpu_torch.kernels import match_cuda as mc
+
+    key = (route, cg_iters, tuple(sorted(
+        (name, tuple(v.shape), v.dtype, str(v.device))
+        for name, v in inputs.items())))
+    with mc.capture_lock:
+        loop = _CG_LOOPS.get(key)
+        if loop is None:
+            loop = _CG_LOOPS[key] = CGLoop(inputs, ops, cg_iters, **kw)
+    return loop
+
+
+def _mv_of(t):
+    def mv(x):
+        return _hx(x, t["diag_d"], t["hab"], t["src"], t["dst"], t["free"])
+
+    return mv
+
+
 def solve_pcg(diag, hab, grad, src, dst, free, lm_lambda, cg_iters: int,
               cg_tol):
-    """Block-Jacobi preconditioned CG on (H + λ·diagH) x = b. The stop
-    test reads one device scalar per iteration."""
+    """Block-Jacobi preconditioned CG on (H + λ·diagH) x = b, as a CGLoop
+    (one host read per CG_CHUNK iterations), left in
+    solve_pcg.last_loop."""
     eye = torch.eye(3, dtype=diag.dtype, device=diag.device)
     diag_d = _damped(diag, lm_lambda)
-    # preconditioner: inverse of damped diagonal blocks
-    minv = torch.linalg.inv(diag_d + 1e-6 * eye)
     b = grad * free[:, None]
+    inputs = dict(
+        diag_d=diag_d, hab=hab, src=src, dst=dst, free=free, b=b,
+        stop=cg_tol * torch.clamp_min(torch.sum(b * b), 1e-30),
+        # preconditioner: inverse of damped diagonal blocks
+        minv=torch.linalg.inv(diag_d + 1e-6 * eye))
 
-    def mv(x):
-        return _hx(x, diag_d, hab, src, dst, free)
+    def ops(t):
+        def prec(r):
+            return torch.einsum("nij,nj->ni", t["minv"], r) * t["free"][:, None]
 
-    def prec(r):
-        return torch.einsum("nij,nj->ni", minv, r) * free[:, None]
+        return _mv_of(t), prec
 
-    x = torch.zeros_like(b)
-    r = b - mv(x)
-    p = prec(r)
-    rz = torch.sum(r * p)
-    stop = cg_tol * torch.clamp_min(torch.sum(b * b), 1e-30)
-    i = 0
-    while i < cg_iters and bool(torch.sum(r * r) > stop):
-        hp = mv(p)
-        alpha = rz / torch.clamp_min(torch.sum(p * hp), 1e-30)
-        x = x + alpha * p
-        r = r - alpha * hp
-        z = prec(r)
-        rz_new = torch.sum(r * z)
-        p = z + rz_new / torch.clamp_min(rz, 1e-30) * p
-        rz = rz_new
-        i += 1
-    return x
+    loop = solve_pcg.last_loop = cg_loop(("jacobi",), inputs, ops, cg_iters)
+    return loop.run(inputs)[0]
 
 
 def pcg_step(diag, hab, grad, src, dst, free, lam, cg_iters: int, cg_tol):
     """lm_solve's step past the dense ceiling: CG on the damped normal
     equations preconditioned by the odometry chain, which it solves
     exactly, so CG iterates only on the loop-closure coupling. From
-    4,096 nodes parallel cyclic reduction, below them the block Thomas
-    factorization (reused across CG iterations). The true residual is
-    recomputed every 64 iterations against f32 recurrence drift; the stop
-    test reads one device scalar per iteration."""
+    4,096 nodes parallel cyclic reduction, whose CG chunks run as CUDA
+    graphs on a card; below them the block Thomas factorization (reused
+    across CG iterations), whose O(n)-launch sweeps run the same chunks
+    eagerly (no session reaches it: compute() pads the tier to at least
+    4,096 nodes). The true residual is recomputed every 64 iterations
+    against f32 recurrence drift. A CGLoop: one host read per CG_CHUNK
+    iterations; the count is left in pcg_step.last_cg_iters and the loop
+    in pcg_step.last_loop."""
     n = diag.shape[0]
     diag_d = _damped(diag, lam)
     b = grad * free[:, None]
-
-    def mv(x):
-        return _hx(x, diag_d, hab, src, dst, free)
-
     U = cp.build_chain_offdiag(hab, src, dst, n, free)
+    inputs = dict(diag_d=diag_d, hab=hab, src=src, dst=dst, free=free, b=b,
+                  stop=cg_tol * torch.clamp_min(torch.sum(b * b), 1e-30))
     if n >= 4096:
         steps = int(math.ceil(math.log2(n))) + 1
+        inputs["U"] = U
 
-        def prec(r):
-            return cp.pcr_solve(diag_d, U, r, free, steps)
+        def ops(t):
+            def prec(r):
+                return cp.pcr_solve(t["diag_d"], t["U"], r, t["free"], steps)
+
+            return _mv_of(t), prec
+
+        loop = cg_loop(("pcr", steps), inputs, ops, cg_iters, period=64)
+        x, i = loop.run(inputs)
     else:
-        Sinv, T, W = cp.factorize(diag_d, U, free)
+        inputs.update(zip(("Sinv", "T", "W"), cp.factorize(diag_d, U, free)))
 
-        def prec(r):
-            return cp.apply(Sinv, T, W, r, free)
+        def ops(t):
+            def prec(r):
+                return cp.apply(t["Sinv"], t["T"], t["W"], r, t["free"])
 
-    x = torch.zeros_like(b)
-    r = b - mv(x)
-    p = prec(r)
-    rz = torch.sum(r * p)
-    stop = cg_tol * torch.clamp_min(torch.sum(b * b), 1e-30)
-    i = 0
-    while i < cg_iters and bool(torch.sum(r * r) > stop):
-        hp = mv(p)
-        alpha = rz / torch.clamp_min(torch.sum(p * hp), 1e-30)
-        x = x + alpha * p
-        restart = i % 64 == 63
-        r = b - mv(x) if restart else r - alpha * hp
-        z = prec(r)
-        rz_new = torch.sum(r * z)
-        p = z if restart else z + rz_new / torch.clamp_min(rz, 1e-30) * p
-        rz = rz_new
-        i += 1
-    pcg_step.last_cg_iters = i
+            return _mv_of(t), prec
+
+        loop = cg_loop(("thomas",), inputs, ops, cg_iters, period=64)
+        x, i = loop.run_eager(inputs)
+    pcg_step.last_cg_iters, pcg_step.last_loop = i, loop
     return x
 
 
@@ -233,19 +388,18 @@ def dense_step(diag, hab, grad, src, dst, free, lam):
     H = diag.new_zeros((3 * n, 3 * n))
     nidx = torch.arange(n, device=diag.device)
     # block-diagonal: rows 3k+i, cols 3k+j
-    H.index_put_(
-        ((nidx[:, None, None] * 3 + ii[None, :, None]).expand(n, 3, 3),
-         (nidx[:, None, None] * 3 + ii[None, None, :]).expand(n, 3, 3)),
-        diag_d, accumulate=True,
-    )
+    cp.scatter_add(
+        H, ((nidx[:, None, None] * 3 + ii[None, :, None]).expand(n, 3, 3),
+            (nidx[:, None, None] * 3 + ii[None, None, :]).expand(n, 3, 3)),
+        diag_d)
     e = src.shape[0]
     rs = (src[:, None, None] * 3 + ii[None, :, None]).expand(e, 3, 3)
     cd = (dst[:, None, None] * 3 + ii[None, None, :]).expand(e, 3, 3)
     rd = (dst[:, None, None] * 3 + ii[None, :, None]).expand(e, 3, 3)
     cs = (src[:, None, None] * 3 + ii[None, None, :]).expand(e, 3, 3)
     # off-diagonal blocks hab at (src, dst) and habT at (dst, src)
-    H.index_put_((rs, cd), hab, accumulate=True)
-    H.index_put_((rd, cs), hab.transpose(1, 2), accumulate=True)
+    cp.scatter_add(H, (rs, cd), hab)
+    cp.scatter_add(H, (rd, cs), hab.transpose(1, 2))
     free3 = free.repeat_interleave(3)
     # gauge: project fixed rows/cols out, unit diagonal keeps H SPD
     H = H * free3[:, None] * free3[None, :] + torch.diag(1.0 - free3)
@@ -264,9 +418,10 @@ def lm_solve(
     """Levenberg-Marquardt in the dtype and on the device of `poses`:
     dense-Cholesky steps up to DENSE_MAX_NODES nodes, chain-preconditioned
     PCG steps (pcg_step, at most cg_iters iterations to cg_tol) past it.
-    Same acceptance and termination rules as the JAX package's lm_solve;
-    the loop runs on the host, one device sync per iteration for its
-    termination test."""
+    Same acceptance and termination rules as the JAX package's lm_solve,
+    whose LM loop runs on the device: here it runs on the host, with one
+    read of its termination test per LM step (beside the CG loop's one
+    per CG_CHUNK iterations)."""
     def chi2_of(p):
         return torch.sum(edge_residual(p, src, dst, rel, sqrt_info) ** 2)
 
@@ -303,7 +458,7 @@ def lm_solve(
             | ((~accept) & (lam >= 1e6))
         )
         it += 1
-        if bool(done):
+        if _host_read(done):
             break
     return poses, chi2, it
 

@@ -63,6 +63,12 @@ class Stats:
 
 GLOBAL_STATS = Stats(enabled=False)
 
+# the host's kernel launch calls and graph launch calls, as the CUDA APIs
+# (cuda* and cu*) name them in a torch.profiler trace
+LAUNCH_CALLS = ("cudaLaunchKernel", "cuLaunchKernel", "cudaLaunchKernelExC",
+                "cuLaunchKernelEx")
+GRAPH_CALLS = ("cudaGraphLaunch", "cuGraphLaunch")
+
 
 @contextlib.contextmanager
 def stage_timer(stats: Stats, stage: str):
