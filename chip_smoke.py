@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Phases, in order; any failure exits non-zero and nothing is caught:
-  1. build    — compile the four CUDA kernels from csrc/ with nvcc for
+  1. build    — compile the eight CUDA kernels from csrc/ with nvcc for
                 sm_90a (one process per source, in parallel);
   2. kernels  — for the scatter, smear and window-score kernels, at the
                 sequential matcher's (G = 2051) and the loop matcher's
@@ -25,6 +25,20 @@ Phases, in order; any failure exits non-zero and nothing is caught:
                 edges, full rows and columns) at (G, hk) = (2051, 20),
                 (561, 1), (257, 0) and (257, 40), word- and bit-equal
                 required;
+                the scan step's four kernels (ring_points, score_head,
+                score_tail, stream_update) at both geometries on the
+                same scans, each against its plain version on the path's
+                inputs and on edge cases (masked and pad chain slots, NaN
+                beams, an empty ring; a heading at pi and a lattice off
+                the grid; every flag pair, no finite beam, an all-zero and
+                a flat raster; the first scan, evictions by count and
+                distance, the result ring's wrap): integer and
+                elementwise outputs bit-equal, score_tail's coarse best
+                and tie count bit-equal, its means and covariances within
+                step_cuda's MEAN_ATOL and COV_RTOL, its fine and angular
+                parts bit-equal at its own means; each timed (CUDA events
+                and graph replays) beside its bound and the device time
+                of the PyTorch ops it replaces;
                 and the window-score ceiling (score_ceiling), the
                 roofline measurement at the bench geometry: its device
                 time (CUDA graph replays) beside score_windows' on the
@@ -64,7 +78,10 @@ Phases, in order; any failure exits non-zero and nothing is caught:
                 every state tensor bit-equal, the tallies' launches equal
                 to the loop's;
                 capture ms, host us per replay, device ms per step and
-                each route's batch launch on the host (`# graph:`);
+                each route's batch launch on the host (`# graph:`); a
+                replay's launches by the tally (one each of the seven
+                step kernels) and its device kernels in a profiler trace
+                (fewer than 20) (`# graph step:`);
  5c. programs — on phase 4's workload, the per-event programs at the
                 buckets a session meets (the sequential match penalized
                 and not, the loop coarse match, the fused verify at chain
@@ -174,17 +191,37 @@ import time
 
 MEM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3
 SCALAR_OPS_PER_S = 67e12       # H100 SXM f32 outside the tensor cores
-# the kernels every mapping path launches; score_ceiling runs only in its
+# the kernels every mapping path launches (each match: score_head,
+# score_windows, score_tail on its raster); score_ceiling runs only in its
 # own entry point, the roofline measurement of phase 2
-PATH_KERNELS = ("scatter_occupancy", "smear_quantize", "score_windows")
+PATH_KERNELS = ("scatter_occupancy", "smear_quantize", "score_windows",
+                "score_head", "score_tail")
+# the kernels only the streaming paths launch: the drain step's first and
+# last (ring_points also forms every chain raster of a fused verify)
+STREAM_KERNELS = ("ring_points", "stream_update")
+# the scan step's kernels, which replace no Pallas kernel
+STEP_KERNELS = ("ring_points", "score_head", "score_tail", "stream_update")
 REPLACES = {
     "scatter_occupancy": "slam_toolbox_tpu/kernels/match_pallas.py:234",
     "smear_quantize": "slam_toolbox_tpu/kernels/match_pallas.py:394",
     "score_windows": "slam_toolbox_tpu/kernels/match_pallas.py:119",
     "score_ceiling": "scripts/exp_roofline.py:123",
+    # no Pallas kernel: the JAX functions whose XLA-fused code each is
+    "ring_points": "slam_toolbox_tpu/mapper/streaming.py:165 "
+                   "_stream_raster_impl (prior, points, FindValidPoints); "
+                   "slam_toolbox_tpu/kernels/loop_verify.py:47 _chain_raster",
+    "score_head": "slam_toolbox_tpu/kernels/match.py:717 _score_impl's "
+                  "coarse headings, tables (:612 _rotated_tables), origin",
+    "score_tail": "slam_toolbox_tpu/kernels/match.py:717 _score_impl after "
+                  "the window sums (:599 _tie_average, :626 "
+                  "_positional_cov, :656 _angular_cov, :493 _score_tensor)",
+    "stream_update": "slam_toolbox_tpu/mapper/streaming.py:223 "
+                     "_stream_update_impl (pose, ring push, eviction, row)",
 }
-# device time per launch from CUDA graph replays, where phase 2 takes it
-DEVICE_KEYS = ("device_ms", "library_device_ms")
+# device time per launch from CUDA graph replays, where phase 2 takes it;
+# for the step kernels also the device time of the PyTorch ops each one
+# replaces (its plain version, captured the same way)
+DEVICE_KEYS = ("device_ms", "library_device_ms", "replaced_device_ms")
 # the streaming pipeline's speculation counters a run reports
 SPEC_COUNTS = ("spec_pairs", "spec_chain_hit", "spec_chain_miss",
                "spec_dispatch_abort", "spec_loop_dispatched", "spec_loop_hit",
@@ -285,7 +322,8 @@ def run_mapping(sess, data, tag: str, need_closure: bool = True):
     """The main-path run of one session on the card: launch counts from 0,
     the scans, the flush, the counts read. Prints rate, latency, ATE,
     closures, launches, the speculation's counts and per-stage host
-    times; returns a record."""
+    times; returns a record. Every path kernel must have launched, and on
+    a streaming session the step's ring_points and stream_update too."""
     import numpy as np
     import torch
 
@@ -332,7 +370,8 @@ def run_mapping(sess, data, tag: str, need_closure: bool = True):
         raise AssertionError(f"{tag}: ATE {ate} not below half of {ate_odom}")
     if need_closure and not closures:
         raise AssertionError(f"{tag}: no loop closure fired")
-    missing = [k for k in PATH_KERNELS if launches[k] == 0]
+    path = PATH_KERNELS + (STREAM_KERNELS if sess.streaming else ())
+    missing = [k for k in path if launches[k] == 0]
     if missing:
         raise AssertionError(f"{tag}: kernels never launched: {missing}")
     return dict(launches=launches, by_grid=by_grid, verifies=verifies,
@@ -455,9 +494,8 @@ def kernel_inputs(matcher, base, query, dev):
     import torch
 
     from slam_toolbox_tpu_torch.device import upload
-    from slam_toolbox_tpu_torch.kernels.match import (
-        _f32, _rotated_tables, _scan_device_cache,
-    )
+    from slam_toolbox_tpu_torch.kernels.match import _f32, _scan_device_cache
+    from slam_toolbox_tpu_torch.kernels.step_cuda import _rotated_tables
     from slam_toolbox_tpu_torch.mapper.streaming import _ring_points, scan_pack
 
     center = np.asarray(query.sensor_pose, np.float64)
@@ -592,6 +630,343 @@ def check_kernels(matcher, inp, tag: str):
     for name, r in out.items():
         print_record(tag, name, r)
     return out, grid
+
+
+def clone_state(state):
+    import torch
+
+    return {k: v.clone() if isinstance(v, torch.Tensor) else v
+            for k, v in state.items()}
+
+
+def step_inputs(matcher, base, query, dev):
+    """Main-path inputs of the scan step's four kernels at one matcher's
+    geometry, formed as the paths form them: the base scans' packs as a
+    chain of bucket len(base) + 2 (poses a strided column slice of a chain
+    record, the last two slots pads), and as a drain state whose ring
+    holds all but one of them from slot 3 on (one slot empty), with the
+    query at batch row 1 and the step pointing at it; the query's
+    center_off, local points (every tenth beam marked non-finite, as
+    kernel_inputs marks them) and pack."""
+    import numpy as np
+    import torch
+
+    from slam_toolbox_tpu_torch.device import upload
+    from slam_toolbox_tpu_torch.kernels.match import _f32, _scan_device_cache
+    from slam_toolbox_tpu_torch.mapper import streaming as ts
+
+    C, B = len(base), len(query.ranges)
+    packs = np.stack([ts.scan_pack(s) for s in base])
+    poses = np.stack([s.sensor_pose for s in base]).astype(np.float32)
+    rec = np.zeros((C + 2, 5), np.float32)
+    rec[:C, 1:4] = poses
+    rec[:C, 4] = 1.0
+    chain = np.zeros((C + 2, B, 8), np.float32)
+    chain[:, :, 6] = -1.0
+    chain[:C] = packs
+    half = _f32(0.5 * (matcher.G - 1) * matcher.resolution)
+    center = np.asarray(query.sensor_pose, np.float32)
+    center_off = np.concatenate([center, center[:2] - np.float32(half)])
+
+    st = ts._new_state(C, B, 16, 2, dev)
+    for k in range(C - 1):
+        slot = (3 + k) % C
+        st["ring_pack"][slot] = upload(packs[k], dev)
+        st["ring_pose"][slot] = upload(poses[k], dev)
+        st["ring_slot_valid"][slot] = True
+    st["head"].fill_(3)
+    st["count"].fill_(C - 1)
+    st["last_odom"].copy_(upload(base[C - 2].odom_pose.astype(np.float32),
+                                 dev))
+    st["last_corrected"].copy_(upload(
+        base[C - 2].corrected_pose.astype(np.float32), dev))
+    qpack = upload(ts.scan_pack(query), dev)
+    st["batch_packs"][1] = qpack
+    st["batch_odoms"][1] = upload(query.odom_pose.astype(np.float32), dev)
+    st["step"].fill_(1)
+    local, finite = _scan_device_cache(query, dev)
+    finite = finite.clone()
+    finite[::10] = False
+    return dict(
+        chain=upload(chain, dev), rec=upload(rec, dev),
+        center_off=upload(center_off.astype(np.float32), dev), local=local,
+        finite=finite, state=st, half=half, scan_pack=qpack,
+        odom=upload(query.odom_pose.astype(np.float32), dev),
+        offset_pose=upload(np.asarray(query.laser.offset_pose, np.float32),
+                           dev))
+
+
+def check_step_kernels(matcher, si, grid, tag, path, timing=True):
+    """Hold the scan step's four kernels against their plain versions on
+    the card at one matcher's geometry, on step_inputs and edge cases, and
+    (with `timing`) time each on the path's inputs: the wrapper by CUDA
+    events, the kernel and the PyTorch ops it replaces (its plain
+    version) by CUDA graph replays. `path` is (penalize, refine, step
+    mode) as the main path runs this geometry. Integer and elementwise
+    outputs must be bit-equal; score_tail's coarse best and tie count
+    too, its means within step_cuda.MEAN_ATOL, its covariances within
+    COV_RTOL of their scale, and its fine and angular parts bit-equal to
+    the plain version's at the kernel's means. Returns {kernel: record}."""
+    import torch
+
+    from slam_toolbox_tpu_torch.kernels import match_cuda as mc
+    from slam_toolbox_tpu_torch.kernels import step_cuda as sc
+
+    G, dev = matcher.G, grid.device
+    kw = matcher._score_args
+    penalize, refine, step_mode = path
+    pens = (kw["dist_var_penalty"], kw["ang_var_penalty"],
+            kw["min_dist_pen"], kw["min_ang_pen"])
+    n = len(matcher._xy_coarse)
+    na, naf = kw["na_coarse"], kw["na_fine"]
+    st, offset, half = si["state"], si["offset_pose"], si["half"]
+    K, B = st["ring_pack"].shape[0], st["ring_pack"].shape[1]
+    err = collections.Counter()
+    cases = collections.Counter()
+
+    def equal(name, what, a, b):
+        torch.cuda.synchronize()
+        if not torch.equal(a, b):
+            raise AssertionError(f"{tag} {name} != plain: {what}")
+        cases[name] += 1
+
+    def same_state(name, what, a, b):
+        for k, v in a.items():
+            if isinstance(v, torch.Tensor):
+                equal(name, f"{what}, state[{k!r}]", v, b[k])
+
+    # K5, chain mode: the chain record (strided poses, pad slots masked),
+    # no mask, and an edge chain (every 7th beam's flags cleared: NaN
+    # beams; a run of beams with no delimiter)
+    chain, rec, vp = si["chain"], si["rec"], si["center_off"][:2]
+    edge = chain.clone()
+    edge[:, ::7, 7] = 0.0
+    edge[:, 100:140, 6] = -1.0
+    C = chain.shape[0]
+    for what, args in (
+            ("chain", (chain, rec[:, 1:4], rec[:, 4] > 0)),
+            ("no mask", (chain[:C - 2], rec[:C - 2, 1:4].contiguous(),
+                         None)),
+            ("edge chain", (edge, rec[:, 1:4], rec[:, 4] > 0))):
+        a = sc.ring_points(*args, vp, G)
+        b = sc.ring_points_plain(*args, vp)
+        equal("ring_points", f"{what} points", a[0], b[0])
+        equal("ring_points", f"{what} validity", a[1], b[1])
+    # step mode on copies of the state, and with the ring empty
+    empty = clone_state(st)
+    empty["ring_slot_valid"].zero_()
+    for what, base in (("step", st), ("empty ring", empty)):
+        s1, s2 = clone_state(base), clone_state(base)
+        a = sc.ring_points_step(s1, offset, half, G)
+        b = sc.ring_points_step_plain(s2, offset, half)
+        equal("ring_points", f"{what} points", a[0], b[0])
+        equal("ring_points", f"{what} validity", a[1], b[1])
+        same_state("ring_points", what, s1, s2)
+
+    # K6: the path's local points (the step's are the pack's strided
+    # column), a heading at pi, a center whose lattice leaves the grid
+    co = si["center_off"]
+    co_pi = co.clone()
+    co_pi[2] = 3.1415925
+    co_far = co.clone()
+    co_far[3] = co[0] - 0.1 * matcher.resolution
+    co_far[4] = co[1] + G * matcher.resolution
+    strided = si["scan_pack"][:, 0:2]
+    for what, c, loc in (("center", co, si["local"]),
+                         ("strided local", co, strided),
+                         ("heading pi", co_pi, si["local"]),
+                         ("off the grid", co_far, si["local"])):
+        args = (c, loc, kw["x_off_c"], kw["y_off_c"], kw["scale"],
+                kw["coarse_angle_offset"], kw["coarse_angle_res"], na, G)
+        for x, y, part in zip(sc.score_head(*args),
+                              sc.score_head_plain(*args),
+                              ("headings", "tables", "origin")):
+            equal("score_head", f"{what} {part}", x, y)
+
+    # K7 on K1's sums of K6's tables: the path's flags and the other
+    # three, no finite beam, an all-zero raster, a flat raster (every cell
+    # ties; unpenalized), a lattice half outside the grid
+    local, finite = si["local"], si["finite"]
+    zeros = torch.zeros_like(grid)
+    flat = torch.full_like(grid, 50)
+    flat[-1] = 0
+    co_edge = co.clone()
+    co_edge[3] = co[0] - 0.1 * matcher.resolution
+
+    def tail_args(g, c, fin, pz, rf):
+        ang, d, cand0 = sc.score_head(
+            c, local, kw["x_off_c"], kw["y_off_c"], kw["scale"],
+            kw["coarse_angle_offset"], kw["coarse_angle_res"], na, G)
+        raw = mc.score_windows(g, G, d, cand0[0:1], cand0[1:2], n, n, fin)
+        return (raw, g, c, local, fin, ang, kw["x_off_c"], kw["y_off_c"],
+                kw["x_off_f"], kw["y_off_f"], kw["scale"],
+                kw["fine_angle_offset"], kw["fine_angle_res"],
+                kw["coarse_angle_res"], pz, *pens, G, naf, rf)
+
+    tail_cases = [(f"penalize {pz} refine {rf}", grid, co, finite, pz, rf)
+                  for pz, rf in ((penalize, refine), (not penalize, refine),
+                                 (penalize, not refine),
+                                 (not penalize, not refine))]
+    tail_cases += [
+        ("no finite beam", grid, co, torch.zeros_like(finite), True, True),
+        ("all-zero raster", zeros, co, finite, True, True),
+        ("ties", flat, co, finite, False, True),
+        ("off the grid", grid, co_edge, finite, True, True)]
+    for what, g, c, fin, pz, rf in tail_cases:
+        args = tail_args(g, c, fin, pz, rf)
+        ak = torch.zeros(sc.aux_len(naf), device=dev)
+        ap = torch.zeros_like(ak)
+        pk = sc.score_tail(*args, aux=ak)
+        pp = sc.score_tail_plain(*args, aux=ap)
+        torch.cuda.synchronize()
+        equal("score_tail", f"{what}: coarse tie count and best", ak[:2],
+              ap[:2])
+        mean_err = float((ak[2:5] - ap[2:5]).abs().max())
+        if mean_err > sc.MEAN_ATOL:
+            raise AssertionError(f"{tag} score_tail {what}: coarse mean "
+                                 f"{mean_err} from plain")
+        if rf:
+            fp = sc.fine_parts_plain(
+                g, G, c, local, fin, ak[2:5], ak[7:10], kw["x_off_f"],
+                kw["y_off_f"], kw["scale"], kw["fine_angle_offset"],
+                kw["fine_angle_res"], pz, pens, naf)
+            ref = ak.clone()
+            sc.fill_aux_fine(ref, fp, ak[7:10])
+            equal("score_tail", f"{what}: fine and angular parts at the "
+                  "kernel's means", ak, ref)
+        if torch.equal(ak[2:5], ap[2:5]):
+            equal("score_tail", f"{what}: best", pk[0], pp[0])
+        scale = float(pp[[4, 8, 12]].abs().max().clamp_min(1e-6))
+        e_mean = float((pk[1:4] - pp[1:4]).abs().max())
+        e_cov = float((pk[4:] - pp[4:]).abs().max()) / scale
+        if e_mean > sc.MEAN_ATOL or e_cov > sc.COV_RTOL:
+            raise AssertionError(f"{tag} score_tail {what}: mean {e_mean}, "
+                                 f"covariance {e_cov} of its scale")
+        err["score_tail"] = max(err["score_tail"],
+                                float((pk - pp).abs().max()))
+        err["score_tail_mean"] = max(err["score_tail_mean"], e_mean,
+                                     mean_err)
+        err["score_tail_cov_rel"] = max(err["score_tail_cov_rel"], e_cov)
+
+    # K8 on copies of the state, after the path's match: the path (a
+    # count eviction: the ring is above run_buffer_size), no eviction, a
+    # distance eviction, the first scan, the result ring's last row
+    path_args = tail_args(grid, co, finite, penalize, refine)
+    packed = sc.score_tail(*path_args)
+    eye9 = torch.eye(3, device=dev).reshape(-1)
+    first = clone_state(st)
+    first["count"].zero_()
+    first["ring_slot_valid"].zero_()
+    wrap = clone_state(st)
+    wrap["ridx"].fill_(wrap["results"].shape[0] - 1)
+    upd = (packed, co, si["scan_pack"], si["odom"], offset, eye9)
+    for what, base, rbs, max_sq in (
+            ("path", st, K - 3, 9.0), ("no eviction", st, 100, 1e6),
+            ("distance", st, 100, 1e-4), ("first scan", first, K - 3, 9.0),
+            ("ridx wrap", wrap, K - 3, 9.0)):
+        s1, s2 = clone_state(base), clone_state(base)
+        sc.stream_update(*upd, s1, rbs, max_sq, G)
+        sc.stream_update_plain(*upd, s2, rbs, max_sq, G)
+        same_state("stream_update", what, s1, s2)
+
+    out = {name: dict(err=err[name], cases_checked=cases[name],
+                      library_ms=None) for name in STEP_KERNELS}
+    out["score_tail"]["mean_err"] = err["score_tail_mean"]
+    out["score_tail"]["cov_rel_err"] = err["score_tail_cov_rel"]
+    if not timing:
+        return out
+
+    # the path's calls, timed: the wrapper, the kernel (graph replays)
+    # and its plain version (event-timed, and replayed: the device time
+    # of the PyTorch ops the kernel replaces)
+    ts_ = clone_state(st)
+    tu = clone_state(st)
+    mode = "step" if step_mode else "chain"
+    calls = {
+        "ring_points": (
+            (lambda: sc.ring_points_step(ts_, offset, half, G),
+             lambda: sc.ring_points_step_plain(ts_, offset, half))
+            if step_mode else
+            (lambda: sc.ring_points(chain, rec[:, 1:4], rec[:, 4] > 0, vp,
+                                    G),
+             lambda: sc.ring_points_plain(chain, rec[:, 1:4], rec[:, 4] > 0,
+                                          vp))),
+        "score_head": tuple(
+            (lambda f=f: f(co, strided if step_mode else local,
+                           kw["x_off_c"], kw["y_off_c"], kw["scale"],
+                           kw["coarse_angle_offset"], kw["coarse_angle_res"],
+                           na, G))
+            for f in (sc.score_head, sc.score_head_plain)),
+        "score_tail": (lambda: sc.score_tail(*path_args),
+                       lambda: sc.score_tail_plain(*path_args)),
+        "stream_update": (
+            lambda: sc.stream_update(*upd, tu, K - 3, 9.0, G),
+            lambda: sc.stream_update_plain(*upd, tu, K - 3, 9.0, G)),
+    }
+    # bytes each function must move once and its operations on this run's
+    # inputs: the chain's or ring's packs (32 B a beam) and poses, the
+    # points and validity out (9 B a beam), about 16 operations a beam;
+    # the query's beams (8 B) and the table (8 B a pair), 12 operations a
+    # pair; the coarse sums (4 B each, about 10 operations each), the
+    # distinct raster cells of the fine and angular gathers, the query's
+    # beams (9 B), about 30 operations a (fine heading, beam) pair; the
+    # pack pushed (read and written) and the K ring poses
+    Cc = K if step_mode else C
+    fine_cells = tail_cells(matcher, path_args, pens) if refine else 0
+    nbytes = {
+        "ring_points": Cc * B * 41 + Cc * 13 + (B * 65 + 64 if step_mode
+                                                else 8),
+        "score_head": 28 + B * 8 + na * 4 + na * B * 8 + 8,
+        "score_tail": 4 * na * n * n + fine_cells + B * 9 + 20 + 52
+                      + 4 * 6,
+        "stream_update": 13 * 4 + 20 + 2 * B * 32 + K * 12 + 13 * 4 + 64,
+    }
+    ops = {"ring_points": 16 * Cc * B, "score_head": 12 * na * B,
+           "score_tail": 10 * na * n * n + (30 * naf * B if refine else 0),
+           "stream_update": 6 * K + 60}
+    shapes = {
+        "ring_points": f"{mode} C={Cc} B={B}",
+        "score_head": f"na={na} B={B}",
+        "score_tail": f"na={na} {n}x{n} B={B} penalize={penalize} "
+                      f"refine={refine}",
+        "stream_update": f"K={K} B={B}",
+    }
+    for name, (kern, plain) in calls.items():
+        out[name].update(
+            ms=event_ms(kern, 50), device_ms=graph_ms(kern, 50)[0],
+            plain_ms=event_ms(plain, 20),
+            replaced_device_ms=graph_ms(plain, 20)[0],
+            bound=bound(nbytes[name], ops[name]), shape=shapes[name])
+        print_record(tag, name, out[name])
+    return out
+
+
+def tail_cells(matcher, args, pens) -> int:
+    """Distinct in-grid raster cells that score_tail's fine and angular
+    gathers read on these inputs (the plain version's fine pass)."""
+    import torch
+
+    from slam_toolbox_tpu_torch.kernels import step_cuda as sc
+
+    raw, g, c, local, fin, ang = args[:6]
+    kw, G = matcher._score_args, matcher.G
+    coarse = sc.score_tail_plain(*args[:-1], False)
+    best_f, mean_f, _, p = sc._fine_pass(
+        g, G, c[3:5], local, fin, coarse[1:4], kw["x_off_f"], kw["y_off_f"],
+        kw["scale"], kw["fine_angle_offset"], kw["fine_angle_res"],
+        args[14], pens, kw["na_fine"])
+    d = p["d_f"].long()
+    gx = d[:, :, 0, None] + p["cand_x"].long()[None, None, :]
+    gy = d[:, :, 1, None] + p["cand_y"].long()[None, None, :]
+    bx, by = sc._angular_cell(mean_f, c[3:5], kw["scale"])
+    idx = []
+    for x, y in ((gx[:, :, None, :], gy[:, :, :, None]),
+                 (d[:, :, 0] + bx, d[:, :, 1] + by)):
+        x, y = torch.broadcast_tensors(x, y)
+        ok = (x >= 0) & (x < G) & (y >= 0) & (y < G)
+        ok = ok & fin.view(1, -1, *([1] * (ok.dim() - 2)))
+        idx.append((y * G + x)[ok])
+    return int(torch.unique(torch.cat(idx)).numel())
 
 
 def beam_classes(G: int, d, cand_x0, cand_y0, ny: int, nx: int, finite):
@@ -1153,8 +1528,8 @@ def check_no_sync(cfg, laser, data, dev):
             f"no-sync: {replays} program replays for {n_spec} + "
             f"{len(pairs)} near-chain pairs and {n_loop_rows} verified "
             "chains (the pool's storage moved, or a route ran eagerly)")
-    if pipe._graph is not graph or any(batch_launches[k] != n
-                                       for k in PATH_KERNELS):
+    if pipe._graph is not graph or any(
+            batch_launches[k] != n for k in PATH_KERNELS + STREAM_KERNELS):
         raise AssertionError(f"the batch did not run as {n} replays of the "
                              f"first drain's step graph: {batch_launches}")
     rows = pd.results.cpu().numpy()
@@ -1230,8 +1605,7 @@ def check_graph(cfg, laser, data, dev):
     odoms = upload(np.stack([s.odom_pose for s in scans]).astype(
         np.float32), dev)
     state = pipe.state
-    saved = {k: v.clone() if isinstance(v, torch.Tensor) else v
-             for k, v in state.items()}
+    saved = clone_state(state)
 
     def restore():
         for k, v in saved.items():
@@ -1279,9 +1653,8 @@ def check_graph(cfg, laser, data, dev):
         host_ms = 1e3 * (time.perf_counter() - t0)
         e1.record()
         torch.cuda.synchronize()
-        out = {k: v.clone() if isinstance(v, torch.Tensor) else v
-               for k, v in state.items()}
-        return host_ms, e0.elapsed_time(e1), dict(mc.LAUNCHES), out
+        return host_ms, e0.elapsed_time(e1), dict(mc.LAUNCHES), clone_state(
+            state)
 
     if n % UNROLL:
         raise AssertionError(f"a {n}-scan batch is no multiple of {UNROLL}")
@@ -1316,6 +1689,20 @@ def check_graph(cfg, laser, data, dev):
             g.replay()
         host_us[route] = 1e6 * (time.perf_counter() - t0) / replays
         torch.cuda.synchronize()
+    # one replayed step: its launches by the tally, and the device kernels
+    # a profiler trace of STEP_TRACE replays records
+    restore()
+    ts._load_batch(state, packs, odoms)
+    per_step, by_name = device_kernels_per_replay(step_graph.graph,
+                                                 STEP_TRACE)
+    tally = {name: n for (name, _), n in sorted(step_graph.tally.items())}
+    if sorted(tally) != sorted(STEP_PATH) or any(
+            n != 1 for n in tally.values()):
+        raise AssertionError(f"a replayed step launched {tally}, not one "
+                             f"each of {STEP_PATH}")
+    if per_step >= 20:
+        raise AssertionError(f"a replayed step ran {per_step} device "
+                             f"kernels: {by_name}")
     restore()
     out = {route: {
         "capture_ms": capture_ms.get(route),
@@ -1330,7 +1717,47 @@ def check_graph(cfg, laser, data, dev):
           f"tallies as by the eager loop; {json.dumps(out)} (device ms per "
           f"step: CUDA events over the batch, for the eager loop the "
           f"host-bound span)", flush=True)
+    step_ms = out["graph"]["device_ms_per_step"]
+    print(f"# graph step: launches per replay by the tally {tally} "
+          f"({sum(tally.values())} launches); device kernels per replay "
+          f"{per_step} ({json.dumps(by_name)}, a profiler trace of "
+          f"{STEP_TRACE} replays); device ms per step {step_ms} (PR 13: "
+          f"0.775 for about 487 device kernels)", flush=True)
+    out["step"] = dict(tally=tally, device_kernels=per_step,
+                       kernels_by_name=by_name)
     return out
+
+
+# the launches of one drain step, in order, and the replays phase 5b
+# traces to count its device kernels
+STEP_PATH = ("ring_points", "scatter_occupancy", "smear_quantize",
+             "score_head", "score_windows", "score_tail", "stream_update")
+STEP_TRACE = 16
+
+
+def device_kernels_per_replay(graph, n: int):
+    """(device kernels per replay, {kernel name: count per replay}) of n
+    replays of `graph` under torch.profiler. Copies are not kernels; a
+    graph's memset nodes (the launchers' cudaMemsetAsync) run as kernels
+    named memset32 and are counted."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            graph.replay()
+        torch.cuda.synchronize()
+    names = collections.Counter(
+        e.name[:80] for e in prof.events()
+        if e.device_type == DeviceType.CUDA
+        and not e.name.startswith(("Memcpy", "Memset")))
+    if not names:
+        raise AssertionError("the profiler recorded no device kernel")
+    return (sum(names.values()) / n,
+            {k: v / n for k, v in sorted(names.items())})
 
 
 def classic_run(cfg, laser, data, dev, tag, eager=False):
@@ -1653,11 +2080,11 @@ def same_run(tag, a, b, rerun):
 
 
 def launches_by_grid():
-    """The path kernels' launch counts since the last reset, by grid side:
-    {kernel: {G: n}}."""
+    """The path kernels' launch counts since the last reset, by grid side
+    (the side of the raster each launch served): {kernel: {G: n}}."""
     from slam_toolbox_tpu_torch.kernels import match_cuda as mc
 
-    out = {name: {} for name in PATH_KERNELS}
+    out = {name: {} for name in PATH_KERNELS + STREAM_KERNELS}
     for (name, G), n in sorted(mc.GRID_LAUNCHES.items()):
         if name in out:
             out[name][str(G)] = n
@@ -1749,12 +2176,13 @@ def continued(data, n_laps: int, seed: int, margin: float = 0.5):
 
 
 def check_cli_kernels(fixture: str, dev):
-    """K1-K3 at the CLI's geometries on the CARMEN fixture: ONLINE_SYNC's
-    sequential and loop matchers for the log's laser (G 2403 and G 633 at
-    271 beams), their inputs formed as phase 2 forms them from the log's
-    scans at their true poses, thinned as the mapper's travel gate thins
-    them, each kernel held bit-equal to its plain version; K2 and K3 also
-    on the adversarial patterns at both (G, hk). Returns ({G: {kernel:
+    """K1-K3 and the step kernels at the CLI's geometries on the CARMEN
+    fixture: ONLINE_SYNC's sequential and loop matchers for the log's
+    laser (G 2403 and G 633 at 271 beams), their inputs formed as phase 2
+    forms them from the log's scans at their true poses, thinned as the
+    mapper's travel gate thins them, each kernel held to its plain version
+    as phase 2 holds it; K2 and K3 also on the adversarial patterns at
+    both (G, hk). Returns ({G: {kernel:
     record}}, patterns checked)."""
     import numpy as np
 
@@ -1787,7 +2215,12 @@ def check_cli_kernels(fixture: str, dev):
               f"{len(base)} base scans, query scan {qi}", flush=True)
         inp = kernel_inputs(matcher, [kept[i][0] for i in base],
                             kept[qi][0], dev)
-        out[str(matcher.G)], _ = check_kernels(matcher, inp, tag)
+        out[str(matcher.G)], grid = check_kernels(matcher, inp, tag)
+        si = step_inputs(matcher, [kept[i][0] for i in base], kept[qi][0],
+                         dev)
+        seq = matcher is mapper.sequential_matcher
+        out[str(matcher.G)].update(check_step_kernels(
+            matcher, si, grid, tag, (seq, seq, seq)))
         n_patterns += check_patterns(matcher.G, matcher.half_kernel,
                                      matcher._w, dev)[0]
     return out, n_patterns
@@ -2573,10 +3006,11 @@ def modes_path(dev, workdir, checked_grids,
     t_phase = time.perf_counter()
 
     def check_grids(tag, by_grid):
-        seen = {int(G) for k in PATH_KERNELS for G in by_grid[k]}
+        seen = {int(G) for k in PATH_KERNELS + STREAM_KERNELS
+                for G in by_grid[k]}
         if not seen <= set(checked_grids):
                 raise AssertionError(
-                f"{tag}: K1-K3 ran at grids {seen - set(checked_grids)} "
+                f"{tag}: kernels ran at grids {seen - set(checked_grids)} "
                 f"that no phase held to their plain versions")
 
     laser = suite_laser(beam_deg)
@@ -3174,13 +3608,21 @@ def main() -> int:
         "seq": (mapper.sequential_matcher, list(range(ring)), ring + 1),
         "loop": (mapper.loop_matcher, chain, q),
     }
-    checks, grids = {}, {}
+    # the step kernels as each geometry's main path runs them: (penalize,
+    # refine, step mode): the drain step at the sequential geometry, the
+    # fused verify's coarse chain match at the loop geometry
+    step_paths = {"seq": (True, True, True), "loop": (False, False, False)}
+    checks, grids, steps = {}, {}, {}
     for tag, (matcher, base, qi) in bases.items():
         print(f"# {tag}: {len(base)} base scans, query scan {qi}",
               flush=True)
         inp = kernel_inputs(matcher, [scan_at(i) for i in base],
                             scan_at(qi), dev)
         checks[tag], grids[tag] = check_kernels(matcher, inp, tag)
+        si = step_inputs(matcher, [scan_at(i) for i in base], scan_at(qi),
+                         dev)
+        steps[tag] = check_step_kernels(matcher, si, grids[tag], tag,
+                                        step_paths[tag])
         if tag == "seq":
             ceiling = measure_ceiling(
                 matcher, grids[tag], inp["d"], inp["ncand"])
@@ -3335,6 +3777,8 @@ def main() -> int:
     for name in mc.KERNELS:
         if name == "score_ceiling":
             rec, loop = ceiling, None
+        elif name in STEP_KERNELS:
+            rec, loop = steps["seq"][name], steps["loop"][name]
         else:
             rec, loop = checks["seq"][name], checks["loop"][name]
         row = {
@@ -3349,6 +3793,23 @@ def main() -> int:
             "library_ms": rec["library_ms"],
             "shape": rec["shape"],
         }
+        if name in STEP_KERNELS:
+            row["cases_checked"] = rec["cases_checked"] + loop[
+                "cases_checked"]
+            row["replaces_pallas_kernel"] = None
+        if name == "score_tail":
+            row["mean_err"] = max(rec["mean_err"], loop["mean_err"])
+            row["cov_rel_err"] = max(rec["cov_rel_err"], loop["cov_rel_err"])
+        if name in STREAM_KERNELS:
+            row["main_path_route"] = "step graph replays"
+            row["eager_main_path_launches"] = eager_run["launches"][name]
+            row["spec_off_launches"] = off_run["launches"][name]
+            row["lifelong_launches_by_grid"] = modes["lifelong"][name]
+            row["loc_launches_by_grid"] = modes["loc"][name]
+            row["no_sync_spec_route_launches"] = no_sync["spec_launches"][name]
+            row["cli"] = {G: {k: recs[name][k] for k in (
+                "shape", "ms", "device_ms", "plain_ms", "replaced_device_ms")}
+                for G, recs in map_launches["checks"].items()}
         if name in PATH_KERNELS:
             row["align_launches_by_grid"] = map_launches["align"][name]
             row["cli_launches_by_grid"] = {
@@ -3363,6 +3824,9 @@ def main() -> int:
                     "device_ms": r["device_ms"], "plain_ms": r["plain_ms"],
                     "bound_ms": r["bound"][0], "bound_by": r["bound"][1],
                     "library_ms": r["library_ms"]}
+                if name in STEP_KERNELS:
+                    row["cli"][G]["replaced_device_ms"] = r[
+                        "replaced_device_ms"]
             row["dist_launches_by_grid"] = dist_launches[name]
             row["lifelong_launches_by_grid"] = modes["lifelong"][name]
             row["loc_launches_by_grid"] = modes["loc"][name]
@@ -3372,7 +3836,7 @@ def main() -> int:
             row["main_path_route"] = "step graph replays"
             row["classic_route"] = "program replays (CUDA graphs)"
             row["exact_route"] = "program replays (CUDA graphs)"
-            row["exact_launches_by_grid"] = exact["by_grid"][name]
+            row["exact_launches_by_grid"] = exact["by_grid"].get(name, {})
             row["exact_launches_outside_graphs"] = exact["direct"][name]
             row["classic_launches_by_grid"] = classic["by_grid"][name]
             row["eager_classic_launches"] = classic_eager["launches"][name]

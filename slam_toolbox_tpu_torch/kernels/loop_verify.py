@@ -18,7 +18,7 @@ static buffers: on a card a CUDA graph captured once and replayed once
 per chain or pair, on the CPU the same function run eagerly. A chain
 enters as a (Cb, 5) f32 record, per member slot [pool slot, x, y,
 heading, live]; pad slots are not live and are masked out of the raster
-(_ring_points' slot_valid), so a padded chain's row is the unpadded
+(ring_points' slot_valid), so a padded chain's row is the unpadded
 one's bit for bit, and the host, which knows the chain count, runs no
 pad chain. Pooled programs gather the members' packs (and the near-chain
 query's) from the pool inside the program, by slot, and are captured
@@ -34,7 +34,8 @@ import torch
 from slam_toolbox_tpu_torch.device import HostCopy, upload, upload_into
 from slam_toolbox_tpu_torch.kernels.match import _f32, _scan_device_cache
 from slam_toolbox_tpu_torch.kernels.match import _score_impl
-from slam_toolbox_tpu_torch.mapper.streaming import _ring_points, scan_pack
+from slam_toolbox_tpu_torch.kernels.step_cuda import ring_points
+from slam_toolbox_tpu_torch.mapper.streaming import scan_pack
 
 # chains per dispatch of the chunked verify
 CHUNK = 8
@@ -62,7 +63,8 @@ def _chain_raster(packs, poses, slot_valid, viewpoint_xy, offset, matcher):
     """World points + device FindValidPoints + raster for a chain of scan
     packs (C, B, 8) at f32 poses (C, 3), slots masked by `slot_valid`
     (C,): the streaming ring raster with explicit poses."""
-    pts, valid = _ring_points(packs, poses, slot_valid, viewpoint_xy)
+    pts, valid = ring_points(packs, poses, slot_valid, viewpoint_xy,
+                             matcher.G)
     return matcher._raster(pts, valid, offset)
 
 

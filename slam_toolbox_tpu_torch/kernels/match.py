@@ -11,8 +11,12 @@ best pose and the response-surface covariances (Mapper.cpp:641-694,
 Layout: the raster is the plain row-major (G*G+1,) int8 grid whose last
 cell is a zero sink for invalid gathers. The raster comes from the
 scatter and smear kernels and the coarse lattice is scored by the window
-kernel (kernels/match_cuda.py); the fine 3x3 pass and the angular
-covariance are plain gathers on the same flat grid.
+kernel (kernels/match_cuda.py); the fused score around it (_score_impl)
+is two more kernels (kernels/step_cuda.py): score_head forms the coarse
+headings and tables, score_tail the penalties, tie averages,
+covariances and the fine 3x3 pass with its gathers on the same flat
+grid. The exact two-call path (_match_pass_impl) keeps those steps as
+PyTorch ops.
 
 On a card a match runs as one program (match_cuda.Program): the raster
 and the fused score captured once as a CUDA graph per (base points P,
@@ -35,16 +39,19 @@ circular mean.
 """
 from __future__ import annotations
 
-import math
 from dataclasses import dataclass
 
 import numpy as np
 import torch
 
-from slam_toolbox_tpu_torch.core.geometry import KT_TOLERANCE, MAX_VARIANCE
+from slam_toolbox_tpu_torch.core.geometry import KT_TOLERANCE
 from slam_toolbox_tpu_torch.device import resolve_device, upload_into
 from slam_toolbox_tpu_torch.kernels import match_cuda as mc
 from slam_toolbox_tpu_torch.kernels import rasterize as rz
+from slam_toolbox_tpu_torch.kernels import step_cuda as sc
+from slam_toolbox_tpu_torch.kernels.step_cuda import (
+    _angular_cov, _penalized, _positional_cov, _score_tensor, _tie_average,
+)
 
 _DEG = np.pi / 180.0
 _F32 = torch.float32
@@ -515,48 +522,6 @@ class Matcher:
         return self._pass_result(packed.cpu().numpy(), fine)
 
 
-def _penalized(raw, B, x_offsets, y_offsets, angles, center_h, penalize,
-               dist_var_penalty, ang_var_penalty, min_dist_pen, min_ang_pen):
-    """Response tensor (na, ny, nx) from integer window sums: sum / (B*100)
-    and, under `penalize`, the distance and heading penalties
-    (Mapper.cpp:874-904)."""
-    resp = raw.to(_F32) / (_f32(B) * 100.0)
-    if not penalize:
-        return resp
-    sq_xy = y_offsets[:, None] ** 2 + x_offsets[None, :] ** 2
-    dist_pen = torch.clamp_min(
-        1.0 - 0.2 * sq_xy / dist_var_penalty, min_dist_pen)
-    sq_ang = (angles - center_h) ** 2
-    ang_pen = torch.clamp_min(1.0 - 0.2 * sq_ang / ang_var_penalty,
-                              min_ang_pen)
-    pen = dist_pen[None, :, :] * ang_pen[:, None, None]
-    return torch.where(resp.abs() > KT_TOLERANCE, resp * pen, resp)
-
-
-def _score_tensor(
-    grid_flat, G, sink, cand_x, cand_y, d, finite,
-    x_offsets, y_offsets, angles, center_h,
-    penalize, dist_var_penalty, ang_var_penalty, min_dist_pen, min_ang_pen,
-):
-    """Response tensor (na, ny, nx) for arbitrary candidate cells by
-    plain gathers (the fine pass)."""
-    B = d.shape[1]
-    gx = d[:, :, 0].long()[:, :, None] + cand_x.long()[None, None, :]
-    gy = d[:, :, 1].long()[:, :, None] + cand_y.long()[None, None, :]
-    okx = (gx >= 0) & (gx < G)
-    oky = (gy >= 0) & (gy < G)
-    ok = (
-        oky[:, :, :, None] & okx[:, :, None, :]
-        & finite[None, :, None, None]
-    )
-    flat = torch.where(ok, gy[:, :, :, None] * G + gx[:, :, None, :], sink)
-    raw = grid_flat[flat].to(torch.int32).sum(dim=1)
-    return _penalized(
-        raw, B, x_offsets, y_offsets, angles, center_h, penalize,
-        dist_var_penalty, ang_var_penalty, min_dist_pen, min_ang_pen,
-    )
-
-
 def _score_coarse(
     grid_flat, G, cand_x, cand_y, d, finite,
     x_offsets, y_offsets, angles, center_h,
@@ -572,102 +537,6 @@ def _score_coarse(
         raw, d.shape[1], x_offsets, y_offsets, angles, center_h, penalize,
         dist_var_penalty, ang_var_penalty, min_dist_pen, min_ang_pen,
     )
-
-
-def _tie_average(resp_p, wx, wy, angles):
-    best = resp_p.max()
-    tie = resp_p >= best - KT_TOLERANCE
-    cnt = tie.sum()
-    zero = resp_p.new_zeros(())
-    avg_x = torch.where(tie, wx[None, None, :], zero).sum() / cnt
-    avg_y = torch.where(tie, wy[None, :, None], zero).sum() / cnt
-    tx = torch.where(tie, torch.cos(angles)[:, None, None], zero).sum() / cnt
-    ty = torch.where(tie, torch.sin(angles)[:, None, None], zero).sum() / cnt
-    return torch.clamp_max(best, 1.0), torch.stack(
-        [avg_x, avg_y, torch.atan2(ty, tx)]
-    )
-
-
-def _rotated_tables(angles, local_pts, scale):
-    """On-device (f32) rotated beam offsets in cells, (na, B, 2) int32;
-    used by the fused path where the fine-pass angles depend on the coarse
-    result (cell-boundary flips vs f64 are immaterial at runtime)."""
-    c, s = torch.cos(angles), torch.sin(angles)
-    rx = (c[:, None] * local_pts[None, :, 0]
-          - s[:, None] * local_pts[None, :, 1]) * scale
-    ry = (s[:, None] * local_pts[None, :, 0]
-          + c[:, None] * local_pts[None, :, 1]) * scale
-    return torch.stack(
-        [rz.round_half_away(rx), rz.round_half_away(ry)], dim=-1
-    ).to(torch.int32)
-
-
-def _device_scalar(x, dev):
-    """An f32 scalar on `dev`: a tensor as it is, a Python number filled
-    on the device (no host-to-device copy, which would synchronize)."""
-    if isinstance(x, torch.Tensor):
-        return x.to(_F32)
-    return torch.full((), x, dtype=_F32, device=dev)
-
-
-def _positional_cov(probs, best, avg_x, avg_y, center, x_offsets, y_offsets,
-                    step_xy, angle_step):
-    dev = probs.device
-    step_xy = _device_scalar(step_xy, dev)
-    angle_step = _device_scalar(angle_step, dev)
-    dx = avg_x - center[0]
-    dy = avg_y - center[1]
-    use = probs >= best - 0.1
-    zero = probs.new_zeros(())
-    norm = torch.where(use, probs, zero).sum()
-    xm = x_offsets[None, :] - dx
-    ym = y_offsets[:, None] - dy
-    acc_xx = torch.where(use, xm**2 * probs, zero).sum()
-    acc_xy = torch.where(use, xm * ym * probs, zero).sum()
-    acc_yy = torch.where(use, ym**2 * probs, zero).sum()
-    var_th = 4.0 * angle_step**2
-    min_var = 0.1 * step_xy**2
-    mult = 1.0 / torch.clamp_min(best, KT_TOLERANCE)
-    vxx = torch.clamp_min(acc_xx / norm, min_var) * mult
-    vyy = torch.clamp_min(acc_yy / norm, min_var) * mult
-    vxy = (acc_xy / norm) * mult
-    eye = torch.eye(3, dtype=_F32, device=dev)
-    cov_ok = eye.clone()
-    cov_ok[0, 0] = vxx
-    cov_ok[0, 1] = vxy
-    cov_ok[1, 0] = vxy
-    cov_ok[1, 1] = vyy
-    cov_ok[2, 2] = var_th
-    cov_norm = torch.where(norm > KT_TOLERANCE, cov_ok, eye)
-    cov_low = torch.diag(torch.stack([
-        torch.full_like(var_th, MAX_VARIANCE),
-        torch.full_like(var_th, MAX_VARIANCE), var_th,
-    ]))
-    return torch.where(best < KT_TOLERANCE, cov_low, cov_norm)
-
-
-def _angular_cov(grid_flat, G, sink, offset, scale, d_fine, finite,
-                 avg, best, center_h, angles, angle_step):
-    bx = rz.round_half_away((avg[0] - offset[0]) * scale).long()
-    by = rz.round_half_away((avg[1] - offset[1]) * scale).long()
-    agx = d_fine[:, :, 0].long() + bx
-    agy = d_fine[:, :, 1].long() + by
-    aok = (agx >= 0) & (agx < G) & (agy >= 0) & (agy < G) & finite[None, :]
-    aflat = torch.where(aok, agy * G + agx, sink)
-    B = d_fine.shape[1]
-    resp_a = grid_flat[aflat].to(torch.int32).sum(dim=1).to(_F32) / (
-        _f32(B) * 100.0
-    )
-    best_angle = avg[2] + 2 * math.pi * torch.round(
-        (center_h - avg[2]) / (2 * math.pi)
-    )
-    use = resp_a >= best - 0.1
-    zero = resp_a.new_zeros(())
-    norm = torch.where(use, resp_a, zero).sum()
-    acc = torch.where(use, (angles - best_angle) ** 2 * resp_a, zero).sum()
-    step_sq = _device_scalar(angle_step, acc.device) ** 2
-    acc = torch.where(acc < KT_TOLERANCE, step_sq, acc)
-    return torch.where(norm > KT_TOLERANCE, acc / norm, 1000.0 * step_sq)
 
 
 def _match_pass_impl(
@@ -736,64 +605,21 @@ def _score_impl(
     refine: bool,
 ):
     """Coarse pass + (optional) fine pass + covariances on a prebuilt
-    raster; returns the packed 13-float result, on the device."""
-    G = grid_size
-    center = center_off[:3]
-    offset = center_off[3:5]
-    sink = G * G
-    dev = grid_flat.device
-    pens = (dist_var_penalty, ang_var_penalty, min_dist_pen, min_ang_pen)
-
-    # coarse pass
-    ang_c = (
-        center[2] - coarse_angle_offset
-        + coarse_angle_res * torch.arange(na_coarse, dtype=_F32, device=dev)
-    )
-    d_c = _rotated_tables(ang_c, local_pts, scale)
-    cand_x = rz.round_half_away(
-        (center[0] + x_off_c - offset[0]) * scale).to(torch.int32)
-    cand_y = rz.round_half_away(
-        (center[1] + y_off_c - offset[1]) * scale).to(torch.int32)
-    resp_c = _score_coarse(
-        grid_flat, G, cand_x, cand_y, d_c, finite,
-        x_off_c, y_off_c, ang_c, center[2], penalize, *pens,
-    )
-    best_c, mean_c = _tie_average(
-        resp_c, center[0] + x_off_c, center[1] + y_off_c, ang_c
-    )
-    probs = resp_c.max(dim=0).values
-    cov = _positional_cov(
-        probs, best_c, mean_c[0], mean_c[1], center, x_off_c, y_off_c,
-        x_off_c[1] - x_off_c[0], coarse_angle_res,
-    )
-
-    if not refine:
-        return torch.cat([best_c[None], mean_c, cov.reshape(-1)])
-
-    # fine pass centered at the coarse mean
-    ang_f = (
-        mean_c[2] - fine_angle_offset
-        + fine_angle_res * torch.arange(na_fine, dtype=_F32, device=dev)
-    )
-    d_f = _rotated_tables(ang_f, local_pts, scale)
-    cand_xf = rz.round_half_away(
-        (mean_c[0] + x_off_f - offset[0]) * scale).to(torch.int32)
-    cand_yf = rz.round_half_away(
-        (mean_c[1] + y_off_f - offset[1]) * scale).to(torch.int32)
-    resp_f = _score_tensor(
-        grid_flat, G, sink, cand_xf, cand_yf, d_f, finite,
-        x_off_f, y_off_f, ang_f, mean_c[2], penalize, *pens,
-    )
-    best_f, mean_f = _tie_average(
-        resp_f, mean_c[0] + x_off_f, mean_c[1] + y_off_f, ang_f
-    )
-    var_th = _angular_cov(
-        grid_flat, G, sink, offset, scale, d_f, finite,
-        mean_f, best_f, mean_c[2], ang_f, fine_angle_res,
-    )
-    cov = cov.clone()
-    cov[2, 2] = var_th
-    return torch.cat([best_f[None], mean_f, cov.reshape(-1)])
+    raster; returns the packed 13-float result, on the device: the
+    coarse headings, tables and lattice origin (step_cuda.score_head),
+    the coarse window sums (match_cuda.score_windows), and the rest
+    (step_cuda.score_tail), three launches on a card."""
+    ny, nx = y_off_c.shape[0], x_off_c.shape[0]
+    ang_c, d_c, cand0 = sc.score_head(
+        center_off, local_pts, x_off_c, y_off_c, scale, coarse_angle_offset,
+        coarse_angle_res, na_coarse, grid_size)
+    raw = mc.score_windows(grid_flat, grid_size, d_c, cand0[0:1],
+                           cand0[1:2], ny, nx, finite)
+    return sc.score_tail(
+        raw, grid_flat, center_off, local_pts, finite, ang_c, x_off_c,
+        y_off_c, x_off_f, y_off_f, scale, fine_angle_offset, fine_angle_res,
+        coarse_angle_res, penalize, dist_var_penalty, ang_var_penalty,
+        min_dist_pen, min_ang_pen, grid_size, na_fine, refine)
 
 
 def build_index_tables(angles, local_pts, center, offset, scale, x_off, y_off):

@@ -11,7 +11,11 @@ the third, scripts/exp_roofline.py:
 
 score_ceiling is on no mapping path: it is score_windows' ceiling, the
 same data path with compile-time offsets in place of the table, timed
-beside it at equal work by chip_smoke.py.
+beside it at equal work by chip_smoke.py. The scan step's four kernels,
+which replace no Pallas kernel (ring_points, score_head, score_tail,
+stream_update), have their wrappers and plain versions in
+kernels/step_cuda.py; they are built, bound and counted here with the
+others.
 
 Each source in ../csrc/ is compiled on first use by its own nvcc process
 (all started together) into a shared library with a plain C interface in
@@ -64,7 +68,8 @@ _CSRC = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "csrc")
 
 KERNELS = ("scatter_occupancy", "smear_quantize", "score_windows",
-           "score_ceiling")
+           "score_ceiling", "ring_points", "score_head", "score_tail",
+           "stream_update")
 # score_ceiling's compile-time (dx, dy) offsets, as in csrc/score_ceiling.cu
 CEIL_OFFSETS = ((612, -35), (-480, 271), (133, 702), (-57, -655),
                 (890, 404), (-821, -230), (305, -877), (-214, 515))
@@ -301,6 +306,13 @@ def _lib(name: str):
             "smear_quantize": [p, p, i, i, p, p],
             "score_windows": [p, i, p, p, p, i, i, i, i, p, p, p],
             "score_ceiling": [p, i, p, p, i, i, i, i, p, p],
+            "ring_points": [p, p, i, p, p, i, i, p, p, p, p, p, p, f,
+                            p, p, p, p, p, p, p, p],
+            "score_head": [p, p, i, i, p, p, f, f, f, i, p, p, p, p],
+            "score_tail": [p, i, i, i, p, i, p, p, i, i, p, p, p, p, p,
+                           p, f, f, f, f, i, f, f, f, f, i, i, p, p, p],
+            "stream_update": [p, p, p, p, p, p, p, p, p, p, p, p, p, p,
+                              p, i, i, i, i, f, p],
         }[name]
         _libs[name] = lib
     return lib

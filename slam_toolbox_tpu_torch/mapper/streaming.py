@@ -38,7 +38,11 @@ scan of the batch is one step (_stream_step: raster -> score -> ring
 update) that reads its scan from the batch buffers at a device index and
 updates the device state in place; on a card the step is captured once
 as a CUDA graph on the pipeline's static state (_StepGraph) and replayed
-n times per batch, with no Python tensor code between steps. On the CPU
+n times per batch, with no Python tensor code between steps. On a card
+the step is seven hand-written kernels, as the reference's step is a few
+XLA fusions around its Pallas calls: ring points and prior, scatter,
+smear, score head, window sums, score tail, state update
+(kernels/step_cuda.py, kernels/match_cuda.py). On the CPU
 the same step runs eagerly (_stream_batch_impl): one body, two
 launchers. A capture or replay that fails raises; nothing re-runs
 eagerly.
@@ -67,7 +71,11 @@ import torch
 from slam_toolbox_tpu_torch.core import geometry
 from slam_toolbox_tpu_torch.device import HostCopy, upload, upload_into
 from slam_toolbox_tpu_torch.kernels import rasterize as rz
+from slam_toolbox_tpu_torch.kernels import step_cuda as sc
 from slam_toolbox_tpu_torch.kernels.match import _f32, _score_impl
+from slam_toolbox_tpu_torch.kernels.step_cuda import (
+    _stream_prior, _unpack_scan, ring_points as _ring_points,
+)
 from slam_toolbox_tpu_torch.utils.metrics import stage_timer
 
 RESULT_CAP = 256
@@ -152,20 +160,6 @@ class _PendingDrain:
         return comb[:cap], (comb[cap:] if self.spec is not None else None)
 
 
-def _unpack_scan(pack):
-    """Decode per-scan (..., B, 8) f32 pack buffers:
-    [local_xy, fvp_anchor_xy, fvp_current_xy, next_delim, flags]
-    with flags bit0 = finite, bit1 = delimiter-slot valid."""
-    local_pts = pack[..., 0:2]
-    anchor = pack[..., 2:4]
-    current = pack[..., 4:6]
-    nxt = pack[..., 6].to(torch.int64)
-    flags = pack[..., 7].to(torch.int32)
-    finite = (flags & 1) > 0
-    dvalid = (flags & 2) > 0
-    return local_pts, anchor, current, nxt, finite, dvalid
-
-
 def scan_pack(scan) -> np.ndarray:
     """Single packed (B, 8) f32 buffer per scan: [local_xy, anchor_xy,
     current_xy, next_delim, flags(bit0 finite, bit1 delim-valid)]. Cached
@@ -204,108 +198,30 @@ def scan_pack(scan) -> np.ndarray:
     return pack
 
 
-def _ring_points(packs, poses, slot_valid, viewpoint_xy):
-    """World points and device FindValidPoints of a ring or chain of scan
-    packs (C, B, 8) at f32 poses (C, 3), seen from `viewpoint_xy` (2,):
-    returns the flat (C*B, 2) points and (C*B,) validity. `slot_valid`
-    (C,) masks whole scans (None: all valid). The reference's operation
-    order is kept term by term, since no contraction may flip the
-    `ss >= 0` side test or move a point across a cell edge."""
-    local, anchor, cur, nxt, finite, dvalid = _unpack_scan(packs)
-    c, s = torch.cos(poses[:, 2]), torch.sin(poses[:, 2])
-    wx = (poses[:, 0:1] + c[:, None] * local[:, :, 0]
-          - s[:, None] * local[:, :, 1])
-    wy = (poses[:, 1:2] + s[:, None] * local[:, :, 0]
-          + c[:, None] * local[:, :, 1])
-    pts = torch.stack([wx, wy], dim=-1)
-
-    dvx = viewpoint_xy[0] - poses[:, 0]
-    dvy = viewpoint_xy[1] - poses[:, 1]
-    vxl = c * dvx + s * dvy
-    vyl = -s * dvx + c * dvy
-    a = vyl[:, None] - anchor[:, :, 1]
-    b = anchor[:, :, 0] - vxl[:, None]
-    cc = anchor[:, :, 1] * vxl[:, None] - anchor[:, :, 0] * vyl[:, None]
-    ss = cur[:, :, 0] * a + cur[:, :, 1] * b + cc
-    keep_run = (ss >= 0.0) & dvalid
-    keep = torch.gather(keep_run, 1, nxt.clamp_min(0))
-    valid = (nxt >= 0) & keep & finite
-    if slot_valid is not None:
-        valid = valid & slot_valid[:, None]
-    C, B = local.shape[0], local.shape[1]
-    return pts.reshape(C * B, 2), valid.reshape(C * B)
-
-
 def _stream_raster_impl(state, odom, matcher, offset_pose, half_span):
     """Prior propagation + device FindValidPoints + raster of the ring.
     Returns (grid_flat, center_off, prior)."""
-    prior = _transform_between(
-        state["last_odom"], state["last_corrected"], odom
-    )
-    center = _compose(prior, offset_pose)
-    off = center[:2] - half_span
-    center_off = torch.cat([center, off])
+    center_off, prior = _stream_prior(state, odom, offset_pose, half_span)
     pts, valid = _ring_points(
         state["ring_pack"], state["ring_pose"], state["ring_slot_valid"],
-        center[:2],
+        center_off[:2], matcher.G,
     )
-    return matcher._raster(pts, valid, off), center_off, prior
-
-
-def _evict(ring_pose, head, count, run_buffer_size: int, max_sq: float):
-    """Running-buffer eviction by count and front-to-back distance
-    (Mapper.cpp:182-204) as one vectorized count: evicting from the front
-    never moves the back scan, so the reference's while-loop condition
-    after e evictions is a function of e alone, and the number of
-    evictions is the length of its leading run of True. Returns the new
-    (head, count), device scalars."""
-    K = ring_pose.shape[0]
-    e = torch.arange(K, device=ring_pose.device)
-    back = ring_pose.index_select(0, ((head + count - 1) % K).view(1))[0]
-    front = ring_pose.index_select(0, (head + e) % K)
-    d = front[:, :2] - back[:2]
-    too_far = (d[:, 0] * d[:, 0] + d[:, 1] * d[:, 1]) > max_sq
-    ct = count - e
-    cond = (ct > 1) & ((ct > run_buffer_size) | too_far)
-    n_ev = torch.cumprod(cond.to(torch.int64), 0).sum()
-    return (head + n_ev) % K, count - n_ev
+    return matcher._raster(pts, valid, center_off[3:5]), center_off, prior
 
 
 def _stream_update_impl(grid_flat, center_off, prior, state, pack, odom,
                         offset_pose, run_buffer_size: int, max_sq: float,
                         score_kwargs: dict, eye9):
     """Score + pose update + ring push/evict + result append, in place on
-    `state`: every tensor keeps its storage, and the result row goes to
-    the device write index `ridx`, which advances modulo the ring."""
+    `state` (step_cuda.stream_update): every tensor keeps its storage,
+    the result row goes to the device write index `ridx`, which advances
+    modulo the ring, and the batch row `step` advances."""
     local_pts, _, _, _, finite, _ = _unpack_scan(pack)
     packed = _score_impl(grid_flat, center_off, local_pts, finite,
                          **score_kwargs)
-    is_first = state["count"] == 0
-    center = center_off[:3]
-    mean = torch.where(is_first, center, packed[1:4])
-    response = torch.where(is_first, 0.0, packed[0])
-    cov = torch.where(is_first, eye9, packed[4:13])
-    corrected = _corrected_at(mean, offset_pose)
-    out13 = torch.cat([response[None], mean, cov])
-
-    # push into the ring at (head + count) % K, a device index
-    K = state["ring_pack"].shape[0]
-    idx = ((state["head"] + state["count"]) % K).view(1)
-    state["ring_pack"].index_copy_(0, idx, pack[None])
-    state["ring_pose"].index_copy_(0, idx, mean[None])
-    state["ring_slot_valid"].index_fill_(0, idx, True)
-    head, count = _evict(
-        state["ring_pose"], state["head"], state["count"] + 1,
-        run_buffer_size, max_sq,
-    )
-    state["head"].copy_(head)
-    state["count"].copy_(count)
-    state["last_odom"].copy_(odom)
-    state["last_corrected"].copy_(corrected)
-
-    ridx = state["ridx"]
-    state["results"].index_copy_(0, ridx.view(1), out13[None])
-    ridx.copy_((ridx + 1) % state["results"].shape[0])
+    sc.stream_update(packed, center_off, pack, odom, offset_pose, eye9,
+                     state, run_buffer_size, max_sq,
+                     score_kwargs["grid_size"])
 
 
 def _stream_step(state, matcher, offset_pose, half_span,
@@ -314,18 +230,18 @@ def _stream_step(state, matcher, offset_pose, half_span,
     """One scan of a drain batch: the scan at row `step` of the batch
     buffers (a device index, which the step advances) through raster ->
     score -> state update. No host value enters it, so on a card it is
-    captured once as a CUDA graph and replayed."""
-    row = state["step"].view(1)
-    pack = state["batch_packs"].index_select(0, row)[0]
-    odom = state["batch_odoms"].index_select(0, row)[0]
-    grid_flat, center_off, prior = _stream_raster_impl(
-        state, odom, matcher, offset_pose, half_span,
-    )
-    _stream_update_impl(
-        grid_flat, center_off, prior, state, pack, odom, offset_pose,
-        run_buffer_size, max_sq, score_kwargs, eye9,
-    )
-    state["step"].add_(1)
+    captured once as a CUDA graph and replayed: seven launches, the ring
+    points with the prior (step_cuda.ring_points_step), the raster's two,
+    the score's three and the state update (step_cuda.stream_update)."""
+    G = matcher.G
+    pts, valid = sc.ring_points_step(state, offset_pose, half_span, G)
+    center_off = state["center_off"]
+    grid_flat = matcher._raster(pts, valid, center_off[3:5])
+    pack = state["scan_pack"]
+    packed = _score_impl(grid_flat, center_off, pack[:, 0:2],
+                         state["scan_finite"], **score_kwargs)
+    sc.stream_update(packed, center_off, pack, state["scan_odom"],
+                     offset_pose, eye9, state, run_buffer_size, max_sq, G)
 
 
 def _fit_batch(state, n: int) -> None:
@@ -387,6 +303,13 @@ def _new_state(K: int, B: int, result_cap: int, batch_cap: int,
         "batch_packs": zeros(batch_cap, B, 8),
         "batch_odoms": zeros(batch_cap, 3),
         "step": zeros(dtype=torch.int64),    # the batch row the step reads
+        # the step's scan and prior, written by its first launch
+        # (step_cuda.ring_points_step) and read by the rest
+        "center_off": zeros(5),
+        "prior": zeros(3),
+        "scan_pack": zeros(B, 8),
+        "scan_odom": zeros(3),
+        "scan_finite": zeros(B, dtype=torch.bool),
     }
 
 
@@ -424,43 +347,6 @@ class _StepGraph:
         for _ in range(n):
             self.graph.replay()
         mc.count_replay(self.tally, n)
-
-
-def _compose(a, b):
-    ca, sa = torch.cos(a[2]), torch.sin(a[2])
-    h = a[2] + b[2]
-    return torch.stack([
-        a[0] + ca * b[0] - sa * b[1],
-        a[1] + sa * b[0] + ca * b[1],
-        torch.atan2(torch.sin(h), torch.cos(h)),
-    ])
-
-
-def _transform_between(p1, p2, p):
-    dh = p2[2] - p1[2]
-    c, s = torch.cos(dh), torch.sin(dh)
-    tx = p2[0] - (c * p1[0] - s * p1[1])
-    ty = p2[1] - (s * p1[0] + c * p1[1])
-    h = p[2] + dh
-    return torch.stack([
-        tx + c * p[0] - s * p[1],
-        ty + s * p[0] + c * p[1],
-        torch.atan2(torch.sin(h), torch.cos(h)),
-    ])
-
-
-def _corrected_at(sensor_pose, offset_pose):
-    ox, oy, oh = offset_pose[0], offset_pose[1], offset_pose[2]
-    length = torch.sqrt(ox * ox + oy * oy)
-    alpha = torch.atan2(oy, ox)
-    hs = torch.atan2(torch.sin(sensor_pose[2]), torch.cos(sensor_pose[2]))
-    wx = length * torch.cos(hs + alpha - oh)
-    wy = length * torch.sin(hs + alpha - oh)
-    h = hs - oh
-    return torch.stack([
-        sensor_pose[0] - wx, sensor_pose[1] - wy,
-        torch.atan2(torch.sin(h), torch.cos(h)),
-    ])
 
 
 class PackPool:

@@ -17,6 +17,7 @@ sys.path.insert(0, {repo!r})
 import slam_toolbox_tpu_torch
 import slam_toolbox_tpu_torch.api, slam_toolbox_tpu_torch.interop
 import slam_toolbox_tpu_torch.kernels.match_cuda
+import slam_toolbox_tpu_torch.kernels.step_cuda
 import slam_toolbox_tpu_torch.kernels.loop_verify
 import slam_toolbox_tpu_torch.mapper.streaming
 import slam_toolbox_tpu_torch.io.dataset

@@ -1,0 +1,108 @@
+"""The scan step's four kernels (slam_toolbox_tpu_torch/kernels/step_cuda.py:
+ring_points, score_head, score_tail, stream_update) against their plain
+versions on a card, marked `cuda` and skipped without one: at the bench
+geometry (G 2051, the drain step's flags) and the loop geometry (G 561,
+the fused verify's coarse chain match), on chip_smoke.py's phase-2 inputs
+and edge cases. Integer and elementwise outputs are bit-equal;
+score_tail's coarse best and tie count bit-equal, its means within
+step_cuda.MEAN_ATOL and covariances within COV_RTOL of their scale (its
+sums run in another order than PyTorch's), its fine and angular parts
+bit-equal at its own means. Then a drain step captured as a CUDA graph
+launches the seven kernels once each. The file imports no JAX, so the
+card's machine runs it with
+`python -m pytest --noconftest tests/test_torch_step_kernels_card.py`."""
+import numpy as np
+import pytest
+import torch
+
+import chip_smoke as cs
+from slam_toolbox_tpu_torch.core.scan import LocalizedScan
+from slam_toolbox_tpu_torch.kernels import match_cuda as mc
+from slam_toolbox_tpu_torch.mapper import Mapper
+from slam_toolbox_tpu_torch.mapper import streaming as ts
+
+
+@pytest.fixture(scope="module")
+def bench():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc")
+    dev = torch.device("cuda")
+    cfg, laser, data = cs.bench_workload(n_laps=2)
+    mapper = Mapper(cfg, device=dev)
+    mapper.initialize(laser.range_threshold)
+
+    def scan_at(i):
+        s = LocalizedScan(laser, data[i][0].ranges, data[i][0].odom_pose)
+        s.set_corrected_pose(data[i][1])
+        return s
+
+    chain, q = cs.loop_chain(data, cfg.loop_search_maximum_distance)
+    ring = cfg.scan_buffer_size + 2
+    return dict(dev=dev, cfg=cfg, laser=laser, data=data, scan_at=scan_at,
+                cases={
+                    "seq": (mapper.sequential_matcher, list(range(ring)),
+                            ring + 1, (True, True, True)),
+                    "loop": (mapper.loop_matcher, chain, q,
+                             (False, False, False))})
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tag,G", [("seq", 2051), ("loop", 561)])
+def test_step_kernels_match_plain_on_card(bench, tag, G):
+    matcher, base, qi, path = bench["cases"][tag]
+    assert matcher.G == G
+    scan_at, dev = bench["scan_at"], bench["dev"]
+    inp = cs.kernel_inputs(matcher, [scan_at(i) for i in base], scan_at(qi),
+                           dev)
+    grid = matcher._raster(inp["pts"], inp["valid"], inp["off"])
+    si = cs.step_inputs(matcher, [scan_at(i) for i in base], scan_at(qi),
+                        dev)
+    out = cs.check_step_kernels(matcher, si, grid, tag, path, timing=False)
+    assert all(out[k]["err"] == 0 for k in
+               ("ring_points", "score_head", "stream_update"))
+    assert out["score_tail"]["mean_err"] <= 1e-5
+    assert all(out[k]["cases_checked"] > 0 for k in cs.STEP_KERNELS)
+
+
+@pytest.mark.cuda
+def test_replayed_step_launches_the_seven_kernels(bench):
+    """A drain step captured on a pipeline's state: its tally is one launch
+    each of ring_points, scatter_occupancy, smear_quantize, score_head,
+    score_windows, score_tail and stream_update; a profiler trace of its
+    replays shows fewer than 20 device kernels per step; 16 replays equal
+    16 eager steps bit for bit."""
+    cfg, laser, data, dev = (bench["cfg"], bench["laser"], bench["data"],
+                             bench["dev"])
+    mapper = Mapper(cfg, device=dev)
+    mapper.initialize(laser.range_threshold)
+    pipe = ts.StreamingPipeline(mapper, laser, drain_every=16)
+    scans = [bench["scan_at"](i) for i in range(12)]
+    sm = mapper.sensor_manager
+    for s in scans[:10]:
+        sm.add_scan(s)
+        sm.add_running_scan(s)
+        sm.set_last_scan(s)
+    pipe.refresh_state()
+    batch = [bench["scan_at"](i) for i in range(12, 28)]
+    packs = torch.from_numpy(np.stack([ts.scan_pack(s) for s in batch]))
+    odoms = torch.from_numpy(np.stack([s.odom_pose for s in batch]).astype(
+        np.float32))
+    packs, odoms = packs.to(dev), odoms.to(dev)
+    state = pipe.state
+    eager = cs.clone_state(state)
+    graph = pipe._step_graph(state, 16)
+    assert {k for k, _ in graph.tally} == set(cs.STEP_PATH)
+    assert all(n == 1 for n in graph.tally.values())
+    ts._load_batch(state, packs, odoms)
+    per_step, by_name = cs.device_kernels_per_replay(graph.graph, 16)
+    assert per_step < 20, by_name
+    restored = cs.clone_state(eager)
+    for k, v in restored.items():
+        if isinstance(v, torch.Tensor):
+            state[k].copy_(v)
+    mc.reset_launch_counts()
+    pipe._run_batch(state, packs, odoms)
+    pipe._run_eager(eager, packs, odoms)
+    for k, v in state.items():
+        if isinstance(v, torch.Tensor):
+            assert torch.equal(v, eager[k]), k
