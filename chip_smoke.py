@@ -5,7 +5,10 @@
 
 Phases, in order; any failure exits non-zero and nothing is caught:
   1. build    — compile the eight CUDA kernels from csrc/ with nvcc for
-                sm_90a (one process per source, in parallel);
+                sm_90a (one process per source, in parallel), and beside
+                them score_tail.cu with SCORE_TAIL_PHASE_CLOCK as a second
+                library that only this script loads; check score_tail's
+                static shared memory against step_cuda.TAIL_STATIC_SMEM;
   2. kernels  — for the scatter, smear and window-score kernels, at the
                 sequential matcher's (G = 2051) and the loop matcher's
                 (G = 561) geometry, hold each kernel against its plain
@@ -36,9 +39,13 @@ Phases, in order; any failure exits non-zero and nothing is caught:
                 elementwise outputs bit-equal, score_tail's coarse best
                 and tie count bit-equal, its means and covariances within
                 step_cuda's MEAN_ATOL and COV_RTOL, its fine and angular
-                parts bit-equal at its own means; each timed (CUDA events
-                and graph replays) beside its bound and the device time
-                of the PyTorch ops it replaces;
+                parts bit-equal at its own means, and 100 launches on the
+                path's inputs bit-identical (output and aux); each timed
+                (CUDA events and graph replays) beside its bound and the
+                device time of the PyTorch ops it replaces; score_tail
+                also with its cluster shape, its five phases timed apart
+                (the phase clock build) and the other launch geometries
+                of TAIL_SWEEP timed beside the chosen one;
                 and the window-score ceiling (score_ceiling), the
                 roofline measurement at the bench geometry: its device
                 time (CUDA graph replays) beside score_windows' on the
@@ -709,7 +716,6 @@ def check_step_kernels(matcher, si, grid, tag, path, timing=True):
     the plain version's at the kernel's means. Returns {kernel: record}."""
     import torch
 
-    from slam_toolbox_tpu_torch.kernels import match_cuda as mc
     from slam_toolbox_tpu_torch.kernels import step_cuda as sc
 
     G, dev = matcher.G, grid.device
@@ -794,14 +800,7 @@ def check_step_kernels(matcher, si, grid, tag, path, timing=True):
     co_edge[3] = co[0] - 0.1 * matcher.resolution
 
     def tail_args(g, c, fin, pz, rf):
-        ang, d, cand0 = sc.score_head(
-            c, local, kw["x_off_c"], kw["y_off_c"], kw["scale"],
-            kw["coarse_angle_offset"], kw["coarse_angle_res"], na, G)
-        raw = mc.score_windows(g, G, d, cand0[0:1], cand0[1:2], n, n, fin)
-        return (raw, g, c, local, fin, ang, kw["x_off_c"], kw["y_off_c"],
-                kw["x_off_f"], kw["y_off_f"], kw["scale"],
-                kw["fine_angle_offset"], kw["fine_angle_res"],
-                kw["coarse_angle_res"], pz, *pens, G, naf, rf)
+        return score_tail_args(matcher, g, c, local, fin, pz, rf)
 
     tail_cases = [(f"penalize {pz} refine {rf}", grid, co, finite, pz, rf)
                   for pz, rf in ((penalize, refine), (not penalize, refine),
@@ -848,10 +847,25 @@ def check_step_kernels(matcher, si, grid, tag, path, timing=True):
                                      mean_err)
         err["score_tail_cov_rel"] = max(err["score_tail_cov_rel"], e_cov)
 
+    # K7 repeats bit for bit: TAIL_REPEATS launches on the path's inputs
+    path_args = tail_args(grid, co, finite, penalize, refine)
+    geometry = sc.score_tail_launch(na, n, n, B, naf)
+    aux0 = torch.zeros(sc.aux_len(naf), device=dev)
+    packed0 = sc.score_tail(*path_args, aux=aux0)
+    repeats = []
+    for _ in range(TAIL_REPEATS):
+        repeats.append(torch.zeros_like(aux0))
+        repeats.append(sc.score_tail(*path_args, aux=repeats[-1]))
+    torch.cuda.synchronize()
+    for k in range(0, len(repeats), 2):
+        if not (torch.equal(repeats[k], aux0)
+                and torch.equal(repeats[k + 1], packed0)):
+            raise AssertionError(f"{tag} score_tail: launch {k // 2} of "
+                                 f"{TAIL_REPEATS} differs from the first")
+
     # K8 on copies of the state, after the path's match: the path (a
     # count eviction: the ring is above run_buffer_size), no eviction, a
     # distance eviction, the first scan, the result ring's last row
-    path_args = tail_args(grid, co, finite, penalize, refine)
     packed = sc.score_tail(*path_args)
     eye9 = torch.eye(3, device=dev).reshape(-1)
     first = clone_state(st)
@@ -871,8 +885,11 @@ def check_step_kernels(matcher, si, grid, tag, path, timing=True):
 
     out = {name: dict(err=err[name], cases_checked=cases[name],
                       library_ms=None) for name in STEP_KERNELS}
-    out["score_tail"]["mean_err"] = err["score_tail_mean"]
-    out["score_tail"]["cov_rel_err"] = err["score_tail_cov_rel"]
+    out["score_tail"].update(
+        mean_err=err["score_tail_mean"], cov_rel_err=err["score_tail_cov_rel"],
+        repeats_equal=TAIL_REPEATS,
+        cluster=dict(zip(("ctas", "threads", "dynamic_smem_bytes"),
+                         geometry)))
     if not timing:
         return out
 
@@ -938,7 +955,165 @@ def check_step_kernels(matcher, si, grid, tag, path, timing=True):
             replaced_device_ms=graph_ms(plain, 20)[0],
             bound=bound(nbytes[name], ops[name]), shape=shapes[name])
         print_record(tag, name, out[name])
+    if TAIL_PHASE_LIB is not None:
+        rec = out["score_tail"]
+        rec["phase_ms"] = tail_phase_ms(
+            TAIL_PHASE_LIB, lambda: sc._launch_score_tail(
+                path_args, None, geometry, TAIL_PHASE_LIB))
+        rec["geometries"] = tail_geometries(path_args, packed0, aux0, tag)
+        print(f"# {tag} score_tail cluster {rec['cluster']}: phases "
+              f"{json.dumps(dict(zip(TAIL_PHASES, rec['phase_ms'])))} ms; "
+              f"{TAIL_REPEATS} launches bit-identical; other geometries "
+              f"{json.dumps(rec['geometries'])}", flush=True)
     return out
+
+
+# K7's launches in the determinism check, and the other launch geometries
+# (CTAs, threads a CTA) timed beside the one score_tail_launch picks
+TAIL_REPEATS = 100
+TAIL_SWEEP = ((4, 512), (8, 256), (8, 512), (16, 256))
+# the SCORE_TAIL_PHASE_CLOCK build of score_tail.cu, which main() loads
+TAIL_PHASE_LIB = None
+
+
+def tail_geometries(args, ref, ref_aux, tag):
+    """K7 on the same inputs at TAIL_SWEEP's launch geometries whose
+    responses fit a CTA: device ms by graph replays, phase ms (the phase
+    clock build) and the output's largest distance from `ref`, the
+    chosen geometry's; the coarse tie count and best must equal
+    `ref_aux`'s."""
+    import torch
+
+    from slam_toolbox_tpu_torch.kernels import step_cuda as sc
+
+    raw = args[0]
+    na, ny, nx = raw.shape
+    room = sc.TAIL_SMEM_PER_CTA - sc.TAIL_STATIC_SMEM
+    out = {}
+    for ctas, threads in TAIL_SWEEP:
+        smem = sc.score_tail_smem(na, ny, nx, args[3].shape[0], ctas)
+        if smem > room:
+            continue
+        geom = (ctas, threads, smem)
+        aux = torch.zeros(sc.aux_len(args[-2]), device=raw.device)
+        got = sc._launch_score_tail(args, aux, geom)
+        torch.cuda.synchronize()
+        if not torch.equal(aux[:2], ref_aux[:2]):
+            raise AssertionError(f"{tag} score_tail at {geom}: coarse tie "
+                                 f"count and best {aux[:2].tolist()} "
+                                 f"against {ref_aux[:2].tolist()}")
+        out[f"{ctas}x{threads}"] = dict(
+            device_ms=graph_ms(
+                lambda: sc._launch_score_tail(args, None, geom), 50)[0],
+            phase_ms=tail_phase_ms(TAIL_PHASE_LIB, lambda: (
+                sc._launch_score_tail(args, None, geom, TAIL_PHASE_LIB))),
+            max_abs_diff=float((got - ref).abs().max()))
+    return out
+
+
+TAIL_PHASES = ("coarse responses and maximum", "tie sums",
+               "covariance sums", "fine pass", "angular pass")
+
+
+def start_phase_clock_build(src=None, name="score_tail_phases"):
+    """Start nvcc on score_tail.cu (or `src`) with SCORE_TAIL_PHASE_CLOCK
+    defined, into the build directory as lib<name>.so; the package never
+    loads it. Returns (process, library path)."""
+    from slam_toolbox_tpu_torch.kernels import match_cuda as mc
+
+    os.makedirs(os.path.dirname(mc._lib_path(name)), exist_ok=True)
+    path = mc._lib_path(name)
+    proc = subprocess.Popen(
+        [mc._nvcc(), *mc.NVCC_FLAGS, "-DSCORE_TAIL_PHASE_CLOCK", "-o", path,
+         src or mc._source("score_tail")],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    return proc, path
+
+
+def load_phase_clock(proc, path):
+    """Wait for start_phase_clock_build's nvcc and load its library with
+    the kernel's argument types; raises if the build failed."""
+    import ctypes
+
+    from slam_toolbox_tpu_torch.kernels import match_cuda as mc
+
+    log, _ = proc.communicate()
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed for {path}:\n{log}")
+    lib = ctypes.CDLL(path)
+    lib.score_tail.restype = ctypes.c_int
+    lib.score_tail.argtypes = mc._lib("score_tail").score_tail.argtypes
+    lib.score_tail_phases.restype = ctypes.c_int
+    lib.score_tail_phases.argtypes = [ctypes.c_void_p, ctypes.c_int]
+    return lib
+
+
+def tail_static_smem() -> int:
+    """score_tail's static shared bytes as ptxas reports them in its
+    build log; raises above step_cuda.TAIL_STATIC_SMEM, the part of a
+    CTA's 227 KB that score_tail_launch leaves to them."""
+    import re
+
+    from slam_toolbox_tpu_torch.kernels import match_cuda as mc
+    from slam_toolbox_tpu_torch.kernels import step_cuda as sc
+
+    log = open(os.path.join(os.path.dirname(mc._lib_path("score_tail")),
+                            "score_tail.log")).read()
+    found = re.findall(r"(\d+) bytes smem", log)
+    if not found:
+        raise AssertionError(f"no shared memory line in score_tail's log:\n"
+                             f"{log}")
+    static = max(int(x) for x in found)
+    if static > sc.TAIL_STATIC_SMEM:
+        raise AssertionError(f"score_tail takes {static} static shared bytes,"
+                             f" above TAIL_STATIC_SMEM {sc.TAIL_STATIC_SMEM}")
+    return static
+
+
+def tail_phase_ms(lib, launch, n: int = 200):
+    """Mean ms of each of score_tail's five phases (TAIL_PHASES) over `n`
+    launches of a SCORE_TAIL_PHASE_CLOCK build: `launch()` launches it
+    once; the kernel's first thread adds %globaltimer differences at each
+    phase's end. A phase the launch skips (no refine) reads 0."""
+    import ctypes
+
+    import torch
+
+    stamps = (ctypes.c_ulonglong * (len(TAIL_PHASES) + 1))()
+    torch.cuda.synchronize()
+    if lib.score_tail_phases(stamps, 1):
+        raise RuntimeError("score_tail_phases reset failed")
+    for _ in range(n):
+        launch()
+    torch.cuda.synchronize()
+    if lib.score_tail_phases(stamps, 0):
+        raise RuntimeError("score_tail_phases read failed")
+    runs = stamps[len(TAIL_PHASES)]
+    if runs != n:
+        raise AssertionError(f"phase clock counted {runs} of {n} launches")
+    return [stamps[k] / n / 1e6 for k in range(len(TAIL_PHASES))]
+
+
+def score_tail_args(matcher, grid, center_off, local, finite, penalize,
+                    refine):
+    """score_tail's arguments as a match forms them at `matcher`'s
+    geometry: K6's headings and tables around center_off, K1's window
+    sums of them on `grid`, the matcher's offsets and penalties."""
+    from slam_toolbox_tpu_torch.kernels import match_cuda as mc
+    from slam_toolbox_tpu_torch.kernels import step_cuda as sc
+
+    kw, G, n = matcher._score_args, matcher.G, len(matcher._xy_coarse)
+    ang, d, cand0 = sc.score_head(
+        center_off, local, kw["x_off_c"], kw["y_off_c"], kw["scale"],
+        kw["coarse_angle_offset"], kw["coarse_angle_res"], kw["na_coarse"],
+        G)
+    raw = mc.score_windows(grid, G, d, cand0[0:1], cand0[1:2], n, n, finite)
+    return (raw, grid, center_off, local, finite, ang, kw["x_off_c"],
+            kw["y_off_c"], kw["x_off_f"], kw["y_off_f"], kw["scale"],
+            kw["fine_angle_offset"], kw["fine_angle_res"],
+            kw["coarse_angle_res"], penalize, kw["dist_var_penalty"],
+            kw["ang_var_penalty"], kw["min_dist_pen"], kw["min_ang_pen"], G,
+            kw["na_fine"], refine)
 
 
 def tail_cells(matcher, args, pens) -> int:
@@ -3568,6 +3743,7 @@ def occ_row(scan, grid):
 
 
 def main() -> int:
+    global TAIL_PHASE_LIB
     import numpy as np
     import torch
 
@@ -3579,6 +3755,7 @@ def main() -> int:
     from slam_toolbox_tpu_torch.core.scan import LocalizedScan
     from slam_toolbox_tpu_torch.kernels import match_cuda as mc
     from slam_toolbox_tpu_torch.kernels import rasterize as rz
+    from slam_toolbox_tpu_torch.kernels import step_cuda as sc
     from slam_toolbox_tpu_torch.mapper import Mapper
 
     dev = torch.device("cuda")
@@ -3587,9 +3764,15 @@ def main() -> int:
           f"card {card}", flush=True)
 
     # 1. build
+    t0 = time.perf_counter()
+    clock = start_phase_clock_build()
     build_s = mc.build_kernels(force=True)
-    print(f"# build: {len(mc.KERNELS)} kernels in {build_s:.2f} s",
-          flush=True)
+    TAIL_PHASE_LIB = load_phase_clock(*clock)
+    static = tail_static_smem()
+    print(f"# build: {len(mc.KERNELS)} kernels in {build_s:.2f} s, with "
+          f"score_tail's phase clock build {time.perf_counter() - t0:.2f} "
+          f"s; score_tail's static shared memory {static} bytes (at most "
+          f"{sc.TAIL_STATIC_SMEM})", flush=True)
 
     # 2. kernels at both matcher geometries: the sequential matcher on the
     # running ring of scan_buffer_size scans, the loop matcher on a loop chain
@@ -3879,6 +4062,13 @@ def main() -> int:
             row["offset_classes"] = rec["offset_classes"]
             row["cases_checked"] = rec["cases_checked"]
             row["sass"] = rec["sass"]
+        if name == "score_tail":
+            for r, dst in ((rec, row), (loop, row["loop"])):
+                dst["cluster"] = r["cluster"]
+                dst["phase_ms"] = dict(zip(TAIL_PHASES, r["phase_ms"]))
+                dst["other_geometries"] = r["geometries"]
+            row["repeats_equal"] = (rec["repeats_equal"]
+                                    + loop["repeats_equal"])
         rows.append(row)
     print(json.dumps({"kernels": rows}))
     print(card)

@@ -310,7 +310,8 @@ def _lib(name: str):
                             p, p, p, p, p, p, p, p],
             "score_head": [p, p, i, i, p, p, f, f, f, i, p, p, p, p],
             "score_tail": [p, i, i, i, p, i, p, p, i, i, p, p, p, p, p,
-                           p, f, f, f, f, i, f, f, f, f, i, i, p, p, p],
+                           p, f, f, f, f, i, f, f, f, f, i, i, i, i, i,
+                           p, p, p],
             "stream_update": [p, p, p, p, p, p, p, p, p, p, p, p, p, p,
                               p, i, i, i, i, f, p],
         }[name]

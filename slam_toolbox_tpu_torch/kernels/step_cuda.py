@@ -40,9 +40,10 @@ integer outputs (tables, cells, window sums, validity, tie counts, the
 ring's indices) and elementwise outputs (points, center_off, prior, the
 corrected pose, the ring pose) equal the plain version's on the card bit
 for bit. The sums of the tie averages and covariances are taken in a
-fixed order inside one block, so a kernel repeats bit for bit, but not
-in PyTorch's order: the mean and the covariances agree with the plain
-version within the tolerances below (chip_smoke.py, the card tests).
+fixed order (score_tail's in fixed trees across its cluster), so a
+kernel repeats bit for bit, but not in PyTorch's order: the mean and the
+covariances agree with the plain version within the tolerances below
+(chip_smoke.py, the card tests).
 """
 from __future__ import annotations
 
@@ -631,20 +632,71 @@ def fill_aux_fine(aux, fp: dict, mean_f) -> None:
     aux[AUX_HEAD + 9 * n:AUX_HEAD + 10 * n] = fp["ang_sums"]
 
 
+# score_tail's kernel: at most 16 CTAs a cluster (the non-portable size),
+# 512 threads a CTA, kMaxHeadings coarse and kMaxFine fine headings; a
+# CTA's shared memory on Hopper is 227 KB (232,448 bytes), of which its
+# static part takes at most TAIL_STATIC_SMEM (chip_smoke checks the
+# build's) and the coarse responses and cell maxima of its cells the rest
+TAIL_MAX_CLUSTER = 16
+TAIL_MAX_THREADS = 512
+TAIL_MAX_HEADINGS = 512
+TAIL_MAX_FINE = 64
+TAIL_SMEM_PER_CTA = 232448
+TAIL_STATIC_SMEM = 16384
+
+
+def score_tail_smem(na: int, ny: int, nx: int, B: int, ctas: int) -> int:
+    """Dynamic shared bytes a CTA of score_tail's kernel takes in a
+    cluster of `ctas`: the coarse responses of its ceil(ny * nx / ctas)
+    cells, all na headings of each, and the cells' maxima (4 (na + 1)
+    bytes a cell), then the B beams' local x and y (8 bytes a beam)."""
+    return 4 * (na + 1) * -(-(ny * nx) // ctas) + 8 * B
+
+
+def score_tail_launch(na: int, ny: int, nx: int, B: int, na_fine: int):
+    """score_tail's launch geometry for na coarse headings on an ny x nx
+    lattice, B beams and na_fine fine headings: (CTAs in the cluster,
+    threads a CTA, dynamic shared bytes a CTA, score_tail_smem's). Always
+    16 CTAs of 512 threads, the fastest of the cluster shapes timed on
+    the H100 (chip_smoke's other geometries; PERF.md) at both the bench
+    (21 x 26 x 26) and the loop (21 x 81 x 81) lattice: the coarse walk
+    and the fine gathers spread over the SMs, while a phase's barriers
+    cost about the same at 8 and 16 CTAs. Raises ValueError where the
+    kernel cannot take the geometry."""
+    if not 1 <= na <= TAIL_MAX_HEADINGS:
+        raise ValueError(f"score_tail: {na} coarse headings, at most "
+                         f"{TAIL_MAX_HEADINGS}")
+    if not 1 <= na_fine <= TAIL_MAX_FINE:
+        raise ValueError(f"score_tail: {na_fine} fine headings, at most "
+                         f"{TAIL_MAX_FINE}")
+    if ny < 1 or nx < 2 or B < 1:
+        raise ValueError(f"score_tail: lattice {ny} x {nx}, {B} beams")
+    smem = score_tail_smem(na, ny, nx, B, TAIL_MAX_CLUSTER)
+    room = TAIL_SMEM_PER_CTA - TAIL_STATIC_SMEM
+    if smem > room:
+        raise ValueError(
+            f"score_tail: {na} x {ny} x {nx} responses and {B} beams need "
+            f"{smem} bytes a CTA in a cluster of {TAIL_MAX_CLUSTER}, above "
+            f"{room}")
+    return TAIL_MAX_CLUSTER, TAIL_MAX_THREADS, smem
+
+
 def score_tail(raw, grid_flat, center_off, local_pts, finite, ang_c,
                x_off_c, y_off_c, x_off_f, y_off_f, scale, fine_angle_offset,
                fine_angle_res, coarse_angle_res, penalize, dist_var_penalty,
                ang_var_penalty, min_dist_pen, min_ang_pen, G: int,
                na_fine: int, refine: bool, aux=None):
-    """See score_tail_plain. One block per match. The kernel takes a 3 x 3
-    fine lattice (x_off_f, y_off_f of 3), as the matchers build it."""
+    """See score_tail_plain. One thread-block cluster per match, shaped by
+    score_tail_launch, which also raises here on the CPU where a card's
+    kernel could not take the geometry. The kernel takes a 3 x 3 fine
+    lattice (x_off_f, y_off_f of 3), as the matchers build it."""
     dev = raw.device
     na, ny, nx = raw.shape
     B = local_pts.shape[0]
     mc._check(raw, "raw", torch.int32, (na, ny, nx), dev)
     mc._check(grid_flat, "grid_flat", torch.int8, (G * G + 1,), dev)
     mc._check(center_off, "center_off", _F32, (5,), dev)
-    stride = _rows(local_pts, "local_pts", _F32, 2, dev)
+    _rows(local_pts, "local_pts", _F32, 2, dev)
     mc._check(finite, "finite", torch.bool, (B,), dev)
     mc._check(ang_c, "ang_c", _F32, (na,), dev)
     mc._check(x_off_c, "x_off_c", _F32, (nx,), dev)
@@ -655,26 +707,40 @@ def score_tail(raw, grid_flat, center_off, local_pts, finite, ang_c,
         mc._check(aux, "aux", _F32, (aux_len(na_fine),), dev)
     if nx < 2:
         raise ValueError("the coarse lattice needs two columns (its step)")
+    geometry = score_tail_launch(na, ny, nx, B, na_fine)
     args = (raw, grid_flat, center_off, local_pts, finite, ang_c, x_off_c,
             y_off_c, x_off_f, y_off_f, scale, fine_angle_offset,
             fine_angle_res, coarse_angle_res, penalize, dist_var_penalty,
             ang_var_penalty, min_dist_pen, min_ang_pen, G, na_fine, refine)
     if not mc._on_cuda(dev):
         return score_tail_plain(*args, aux=aux)
-    out = torch.empty(13, dtype=_F32, device=dev)
-    lib = mc._lib("score_tail")
+    out = _launch_score_tail(args, aux, geometry)
+    mc._count("score_tail", G)
+    return out
+
+
+def _launch_score_tail(args, aux, geometry, lib=None):
+    """One launch of score_tail's kernel (from `lib`, else the package's
+    build) on score_tail's checked arguments at a launch geometry
+    (cluster, threads, dynamic shared bytes); uncounted."""
+    (raw, grid_flat, center_off, local_pts, finite, ang_c, x_off_c, y_off_c,
+     x_off_f, y_off_f, scale, fine_angle_offset, fine_angle_res,
+     coarse_angle_res, penalize, dist_var_penalty, ang_var_penalty,
+     min_dist_pen, min_ang_pen, G, na_fine, refine) = args
+    na, ny, nx = raw.shape
+    out = torch.empty(13, dtype=_F32, device=raw.device)
+    lib = lib or mc._lib("score_tail")
     mc._raise_if(lib.score_tail(
         raw.data_ptr(), na, ny, nx, grid_flat.data_ptr(), G,
-        center_off.data_ptr(), local_pts.data_ptr(), stride, B,
-        finite.data_ptr(), ang_c.data_ptr(), x_off_c.data_ptr(),
-        y_off_c.data_ptr(), x_off_f.data_ptr(), y_off_f.data_ptr(),
-        float(scale), float(fine_angle_offset), float(fine_angle_res),
-        float(coarse_angle_res), int(bool(penalize)),
+        center_off.data_ptr(), local_pts.data_ptr(), local_pts.stride(0),
+        local_pts.shape[0], finite.data_ptr(), ang_c.data_ptr(),
+        x_off_c.data_ptr(), y_off_c.data_ptr(), x_off_f.data_ptr(),
+        y_off_f.data_ptr(), float(scale), float(fine_angle_offset),
+        float(fine_angle_res), float(coarse_angle_res), int(bool(penalize)),
         float(dist_var_penalty), float(ang_var_penalty),
         float(min_dist_pen), float(min_ang_pen), na_fine, int(bool(refine)),
-        out.data_ptr(), _ptr(aux), mc._stream(),
+        *geometry, out.data_ptr(), _ptr(aux), mc._stream(),
     ), "score_tail")
-    mc._count("score_tail", G)
     return out
 
 

@@ -526,7 +526,8 @@ def test_wrappers_hold_no_fallback(sim, monkeypatch):
     a CUDA tensor a wrapper launches or raises (here the build fails),
     and a tensor on any other device raises."""
     for fn in (sc.ring_points, sc.ring_points_step, sc.score_head,
-               sc.score_tail, sc.stream_update, sc._launch_ring_points):
+               sc.score_tail, sc.stream_update, sc._launch_ring_points,
+               sc._launch_score_tail, sc.score_tail_launch):
         src = inspect.getsource(fn)
         assert "try:" not in src and "except" not in src
         assert "is_available" not in src
@@ -550,3 +551,102 @@ def test_wrappers_hold_no_fallback(sim, monkeypatch):
         sc.score_head(meta, torch.zeros(4, 2, device="meta"),
                       torch.zeros(3, device="meta"),
                       torch.zeros(3, device="meta"), 1.0, 0.1, 0.1, 3)
+
+
+# -- score_tail's launch geometry --------------------------------------------
+def _align_matcher():
+    """The matcher api/merge.py auto_align builds, at its defaults."""
+    return TorchMatcher(
+        search_size=8.0, resolution=0.05, smear_deviation=0.03,
+        range_threshold=10.0, coarse_angle_offset=np.deg2rad(20.0),
+        coarse_angle_resolution=np.deg2rad(2.0),
+        fine_angle_offset=np.deg2rad(0.2), dist_var_penalty=0.09,
+        ang_var_penalty=0.1218, min_dist_penalty=0.5, min_ang_penalty=0.9,
+        device=CPU)
+
+
+def _port_geometry(tag):
+    """(na, ny, nx, B, na_fine) of a matcher the port runs: bench.py's
+    sequential (26 x 26) and loop (81 x 81) matchers at 1,081 beams, the
+    CLI's (ONLINE_SYNC) at the CARMEN fixture's 271 beams, auto_align's."""
+    import chip_smoke as cs
+    from slam_toolbox_tpu_torch.core.params import ONLINE_SYNC
+    from slam_toolbox_tpu_torch.mapper import Mapper
+
+    if tag.startswith("bench"):
+        cfg, laser, _ = cs.bench_workload(0)
+        B, rth = laser.n_beams, laser.range_threshold
+    elif tag.startswith("cli"):
+        cfg, B, rth = ONLINE_SYNC, 271, 80.0
+    if tag == "align":   # on bench.py's laser, as chip_smoke's merge
+        m, B = _align_matcher(), cs.bench_workload(0)[1].n_beams
+    else:
+        mapper = Mapper(cfg, device=CPU)
+        mapper.initialize(rth)
+        m = (mapper.sequential_matcher if tag.endswith("seq")
+             else mapper.loop_matcher)
+    n = len(m._xy_coarse)
+    return m._na_coarse, n, n, B, m._na_fine
+
+
+@pytest.mark.parametrize("tag,lattice", [
+    ("bench seq", 26), ("bench loop", 81), ("cli seq", 26),
+    ("cli loop", 81), ("align", 81)])
+def test_score_tail_launch_fits_every_port_geometry(tag, lattice):
+    """Every geometry the port runs takes one cluster of 2-16 CTAs of at
+    most 1,024 threads whose dynamic shared memory (the coarse responses
+    and cell maxima of a CTA's cells) and static part fit 227 KB a CTA."""
+    na, ny, nx, B, naf = _port_geometry(tag)
+    assert (ny, nx, na, naf) == (lattice, lattice, 21, 11)
+    cluster, threads, smem = sc.score_tail_launch(na, ny, nx, B, naf)
+    assert 1 < cluster <= sc.TAIL_MAX_CLUSTER
+    assert 32 <= threads <= sc.TAIL_MAX_THREADS and threads % 32 == 0
+    per_cta = -(-(ny * nx) // cluster)
+    assert smem == sc.score_tail_smem(na, ny, nx, B, cluster) == (
+        4 * (na + 1) * per_cta + 8 * B)
+    assert smem + sc.TAIL_STATIC_SMEM <= sc.TAIL_SMEM_PER_CTA == 232448
+
+
+def _tail_inputs(na, ny, nx, B=16, G=9):
+    """score_tail's arguments on the CPU at an (na, ny, nx) lattice."""
+    kw = dict(
+        scale=10.0, fine_angle_offset=0.01, fine_angle_res=0.002,
+        coarse_angle_res=0.02, penalize=True, dist_var_penalty=0.5,
+        ang_var_penalty=1.0, min_dist_pen=0.5, min_ang_pen=0.9)
+    return (
+        torch.zeros((na, ny, nx), dtype=torch.int32),
+        torch.zeros(G * G + 1, dtype=torch.int8), torch.zeros(5),
+        torch.zeros((B, 2)), torch.ones(B, dtype=torch.bool),
+        torch.zeros(na), torch.arange(nx, dtype=torch.float32),
+        torch.arange(ny, dtype=torch.float32), torch.zeros(3),
+        torch.zeros(3), kw["scale"], kw["fine_angle_offset"],
+        kw["fine_angle_res"], kw["coarse_angle_res"], kw["penalize"],
+        kw["dist_var_penalty"], kw["ang_var_penalty"], kw["min_dist_pen"],
+        kw["min_ang_pen"], G)
+
+
+@pytest.mark.parametrize("what,na,ny,nx,na_fine,match", [
+    ("headings", sc.TAIL_MAX_HEADINGS + 1, 3, 3, 11, "coarse headings"),
+    ("fine headings", 21, 3, 3, sc.TAIL_MAX_FINE + 1, "fine headings"),
+    ("lattice", 1, 700, 700, 11, "bytes a CTA")])
+def test_score_tail_raises_where_its_kernel_cannot(what, na, ny, nx, na_fine,
+                                                   match):
+    """The wrapper raises, on the CPU too, above kMaxHeadings and kMaxFine
+    and on a lattice whose responses do not fit 16 CTAs' shared memory;
+    one heading fewer, one fine heading fewer and a lattice that fits
+    run."""
+    args = _tail_inputs(na, ny, nx)
+    with pytest.raises(ValueError, match=match):
+        sc.score_tail(*args, na_fine, True)
+    with pytest.raises(ValueError, match=match):
+        sc.score_tail_launch(na, ny, nx, 16, na_fine)
+    if what == "headings":
+        na -= 1
+    elif what == "fine headings":
+        na_fine -= 1
+    else:
+        ny = nx = 600
+    sc.score_tail_launch(na, ny, nx, 16, na_fine)
+    if what != "lattice":
+        out = sc.score_tail(*_tail_inputs(na, ny, nx), na_fine, True)
+        assert out.shape == (13,)

@@ -106,3 +106,56 @@ def test_replayed_step_launches_the_seven_kernels(bench):
     for k, v in state.items():
         if isinstance(v, torch.Tensor):
             assert torch.equal(v, eager[k]), k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("penalize,refine", [(False, False), (True, True)])
+def test_score_tail_cluster_at_loop_geometry(bench, penalize, refine):
+    """K7 at the loop geometry (G 561, 21 x 81 x 81 sums, 1,081 beams) as
+    one cluster of score_tail_launch's shape, on the fused verify's flags
+    and on align's (penalized and refined): the coarse tie count and best
+    bit-equal to the plain version, the means within MEAN_ATOL and the
+    covariances within COV_RTOL of their scale, the fine and angular
+    parts bit-equal at the kernel's own means; 100 launches give
+    bit-identical outputs and aux."""
+    from slam_toolbox_tpu_torch.kernels import step_cuda as sc
+
+    matcher, base, qi, _ = bench["cases"]["loop"]
+    scan_at, dev = bench["scan_at"], bench["dev"]
+    inp = cs.kernel_inputs(matcher, [scan_at(i) for i in base], scan_at(qi),
+                           dev)
+    grid = matcher._raster(inp["pts"], inp["valid"], inp["off"])
+    si = cs.step_inputs(matcher, [scan_at(i) for i in base], scan_at(qi),
+                        dev)
+    args = cs.score_tail_args(matcher, grid, si["center_off"], si["local"],
+                              si["finite"], penalize, refine)
+    na, ny, nx = args[0].shape
+    naf = args[-2]
+    ctas, _, _ = sc.score_tail_launch(na, ny, nx, si["local"].shape[0], naf)
+    assert (na, ny, nx) == (21, 81, 81) and ctas > 1
+    ak = torch.zeros(sc.aux_len(naf), device=dev)
+    ap = torch.zeros_like(ak)
+    pk = sc.score_tail(*args, aux=ak)
+    pp = sc.score_tail_plain(*args, aux=ap)
+    torch.cuda.synchronize()
+    assert torch.equal(ak[:2], ap[:2])
+    assert float((ak[2:5] - ap[2:5]).abs().max()) <= sc.MEAN_ATOL
+    assert float((pk[1:4] - pp[1:4]).abs().max()) <= sc.MEAN_ATOL
+    scale = float(pp[[4, 8, 12]].abs().max().clamp_min(1e-6))
+    assert float((pk[4:] - pp[4:]).abs().max()) / scale <= sc.COV_RTOL
+    if refine:
+        kw = matcher._score_args
+        pens = (kw["dist_var_penalty"], kw["ang_var_penalty"],
+                kw["min_dist_pen"], kw["min_ang_pen"])
+        fp = sc.fine_parts_plain(
+            grid, matcher.G, si["center_off"], si["local"], si["finite"],
+            ak[2:5], ak[7:10], kw["x_off_f"], kw["y_off_f"], kw["scale"],
+            kw["fine_angle_offset"], kw["fine_angle_res"], penalize, pens,
+            naf)
+        ref = ak.clone()
+        sc.fill_aux_fine(ref, fp, ak[7:10])
+        assert torch.equal(ak, ref)
+    for _ in range(100):
+        again = torch.zeros_like(ak)
+        assert torch.equal(sc.score_tail(*args, aux=again), pk)
+        assert torch.equal(again, ak)
