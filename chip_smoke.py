@@ -6,9 +6,10 @@
 Phases, in order; any failure exits non-zero and nothing is caught:
   1. build    — compile the eight CUDA kernels from csrc/ with nvcc for
                 sm_90a (one process per source, in parallel), and beside
-                them score_tail.cu with SCORE_TAIL_PHASE_CLOCK as a second
+                them score_tail.cu with SCORE_TAIL_PHASE_CLOCK as a
                 library that only this script loads; check score_tail's
-                static shared memory against step_cuda.TAIL_STATIC_SMEM;
+                static shared memory against
+                step_cuda.TAIL_STATIC_SMEM;
   2. kernels  — for the scatter, smear and window-score kernels, at the
                 sequential matcher's (G = 2051) and the loop matcher's
                 (G = 561) geometry, hold each kernel against its plain
@@ -43,9 +44,20 @@ Phases, in order; any failure exits non-zero and nothing is caught:
                 path's inputs bit-identical (output and aux); each timed
                 (CUDA events and graph replays) beside its bound and the
                 device time of the PyTorch ops it replaces; score_tail
-                also with its cluster shape, its five phases timed apart
-                (the phase clock build) and the other launch geometries
-                of TAIL_SWEEP timed beside the chosen one;
+                also with its cluster shape and the clusters the card
+                holds of it (cudaOccupancyMaxActiveClusters), its five
+                phases timed apart (the phase clock build), the other
+                launch geometries of TAIL_SWEEP timed beside the chosen
+                one, and its streamed mode bit-equal to the resident mode
+                under every flag pair and timed; ring_points also on a
+                ring of WIDE_BEAMS beams in both modes; then
+                score_tail's streamed mode on a 21 x 201 x 201 lattice
+                (a 20 m loop search) and at 600 headings on a 3 x 3
+                lattice, each at 1,081 and 271 beams, against its plain
+                version (check_tail_wide), and
+                stream_update at 12, 25, 100 and 4,096 slots with the
+                eviction's leading run ending at 0, 5, 32, 64 and K
+                (check_update_edges), bit-equal;
                 and the window-score ceiling (score_ceiling), the
                 roofline measurement at the bench geometry: its device
                 time (CUDA graph replays) beside score_windows' on the
@@ -768,6 +780,21 @@ def check_step_kernels(matcher, si, grid, tag, path, timing=True):
         equal("ring_points", f"{what} points", a[0], b[0])
         equal("ring_points", f"{what} validity", a[1], b[1])
         same_state("ring_points", what, s1, s2)
+    # a ring of WIDE_BEAMS beams (past one round of two beams a thread, so
+    # the kernel reads the earlier rounds' rows again), both modes
+    wide = wide_ring(dev)
+    a = sc.ring_points(wide["ring_pack"], wide["ring_pose"],
+                       wide["ring_slot_valid"], vp, G)
+    b = sc.ring_points_plain(wide["ring_pack"], wide["ring_pose"],
+                             wide["ring_slot_valid"], vp)
+    equal("ring_points", "wide chain points", a[0], b[0])
+    equal("ring_points", "wide chain validity", a[1], b[1])
+    s1, s2 = clone_state(wide), clone_state(wide)
+    a = sc.ring_points_step(s1, offset, half, G)
+    b = sc.ring_points_step_plain(s2, offset, half)
+    equal("ring_points", "wide step points", a[0], b[0])
+    equal("ring_points", "wide step validity", a[1], b[1])
+    same_state("ring_points", "wide step", s1, s2)
 
     # K6: the path's local points (the step's are the pack's strided
     # column), a heading at pi, a center whose lattice leaves the grid
@@ -863,6 +890,25 @@ def check_step_kernels(matcher, si, grid, tag, path, timing=True):
             raise AssertionError(f"{tag} score_tail: launch {k // 2} of "
                                  f"{TAIL_REPEATS} differs from the first")
 
+    # K7's streamed mode, forced through the geometry tuple, against the
+    # resident mode that score_tail_launch picks here: output and aux
+    # bit-equal under every flag pair; the clusters the card holds of each
+    streamed = geometry[:2] + (
+        sc.score_tail_smem(na, n, n, B, geometry[0], sc.TAIL_STREAMED),
+        sc.TAIL_STREAMED)
+    for pz, rf in ((False, False), (False, True), (True, False),
+                   (True, True)):
+        args = tail_args(grid, co, finite, pz, rf)
+        got = []
+        for geom in (geometry, streamed):
+            aux = torch.zeros(sc.aux_len(naf), device=dev)
+            got.append((sc._launch_score_tail(args, aux, geom), aux))
+        what = f"streamed = resident, penalize {pz} refine {rf}"
+        equal("score_tail", f"{what}: output", got[1][0], got[0][0])
+        equal("score_tail", f"{what}: aux", got[1][1], got[0][1])
+    clusters = {sc.TAIL_MODES[g[3]]: sc.tail_clusters(g, dev)
+                for g in (geometry, streamed)}
+
     # K8 on copies of the state, after the path's match: the path (a
     # count eviction: the ring is above run_buffer_size), no eviction, a
     # distance eviction, the first scan, the result ring's last row
@@ -887,9 +933,10 @@ def check_step_kernels(matcher, si, grid, tag, path, timing=True):
                       library_ms=None) for name in STEP_KERNELS}
     out["score_tail"].update(
         mean_err=err["score_tail_mean"], cov_rel_err=err["score_tail_cov_rel"],
-        repeats_equal=TAIL_REPEATS,
-        cluster=dict(zip(("ctas", "threads", "dynamic_smem_bytes"),
-                         geometry)))
+        repeats_equal=TAIL_REPEATS, mode=sc.TAIL_MODES[geometry[3]],
+        cluster=dict(ctas=geometry[0], threads=geometry[1],
+                     dynamic_smem_bytes=geometry[2],
+                     active_clusters=clusters))
     if not timing:
         return out
 
@@ -955,16 +1002,247 @@ def check_step_kernels(matcher, si, grid, tag, path, timing=True):
             replaced_device_ms=graph_ms(plain, 20)[0],
             bound=bound(nbytes[name], ops[name]), shape=shapes[name])
         print_record(tag, name, out[name])
+    tail = out["score_tail"]
+    tail["streamed_device_ms"] = graph_ms(
+        lambda: sc._launch_score_tail(path_args, None, streamed), 50)[0]
     if TAIL_PHASE_LIB is not None:
-        rec = out["score_tail"]
-        rec["phase_ms"] = tail_phase_ms(
+        tail["phase_ms"] = tail_phase_ms(
             TAIL_PHASE_LIB, lambda: sc._launch_score_tail(
                 path_args, None, geometry, TAIL_PHASE_LIB))
-        rec["geometries"] = tail_geometries(path_args, packed0, aux0, tag)
-        print(f"# {tag} score_tail cluster {rec['cluster']}: phases "
-              f"{json.dumps(dict(zip(TAIL_PHASES, rec['phase_ms'])))} ms; "
-              f"{TAIL_REPEATS} launches bit-identical; other geometries "
-              f"{json.dumps(rec['geometries'])}", flush=True)
+        tail["geometries"] = tail_geometries(path_args, packed0, aux0, tag)
+        print(f"# {tag} score_tail cluster {tail['cluster']} "
+              f"{tail['mode']} mode: phases "
+              f"{json.dumps(dict(zip(TAIL_PHASES, tail['phase_ms'])))} ms; "
+              f"{TAIL_REPEATS} launches bit-identical; streamed mode "
+              f"{tail['streamed_device_ms']} ms, bit-equal; other "
+              f"geometries {json.dumps(tail['geometries'])}", flush=True)
+    return out
+
+
+# K5's wide ring: beams a scan, slots
+WIDE_BEAMS = 2500
+WIDE_SLOTS = 6
+
+
+def wide_ring(dev, seed: int = 3):
+    """A drain state whose ring holds WIDE_SLOTS packs of WIDE_BEAMS
+    random beams (local, anchor and current points within 10 m,
+    delimiter indices in [-1, B), every flag pair), one slot invalid, at
+    random poses, with a random batch row 0 and the step at it."""
+    import numpy as np
+    import torch
+
+    from slam_toolbox_tpu_torch.mapper import streaming as ts
+
+    rng = np.random.default_rng(seed)
+    K, B = WIDE_SLOTS, WIDE_BEAMS
+    st = ts._new_state(K, B, 4, 2, dev)
+
+    def packs(n):
+        p = rng.uniform(-10.0, 10.0, (n, B, 8)).astype(np.float32)
+        p[:, :, 6] = rng.integers(-1, B, (n, B))
+        p[:, :, 7] = rng.integers(0, 4, (n, B))
+        return torch.from_numpy(p).to(dev)
+
+    st["ring_pack"].copy_(packs(K))
+    st["ring_pose"].copy_(torch.from_numpy(rng.uniform(
+        -5.0, 5.0, (K, 3)).astype(np.float32)).to(dev))
+    st["ring_slot_valid"].fill_(True)
+    st["ring_slot_valid"][2] = False
+    st["batch_packs"].copy_(packs(2))
+    for key in ("batch_odoms", "last_odom", "last_corrected"):
+        st[key].copy_(torch.from_numpy(rng.uniform(
+            -3.0, 3.0, tuple(st[key].shape)).astype(np.float32)).to(dev))
+    return st
+
+
+# K8's edge cases: ring slots, and where the eviction's leading run ends
+# (inside the first warp, at the warp boundaries 32 and 64, at K; 0 for
+# none)
+UPDATE_SLOTS = (12, 25, 100, 4096)
+UPDATE_RUNS = (0, 5, 32, 64)
+
+
+def update_edge_cases(dev, pack):
+    """(what, state, run_buffer_size, max_sq, evictions) of K8's edge
+    cases at each of UPDATE_SLOTS: the leading run ending at each of
+    UPDATE_RUNS that fits and at K, by count (a ring of K - 1 scans, K
+    for the run of K, with run_buffer_size set so that the first n slots
+    are over it) and, where n <= K - 2, by distance (the first n slots
+    10 m from the pushed pose, the rest 0.5 m, max_sq 1). The ring's head
+    sits 7 slots before its end, so the run wraps."""
+    import torch
+
+    from slam_toolbox_tpu_torch.mapper import streaming as ts
+
+    B = pack.shape[0]
+    out = []
+    for K in UPDATE_SLOTS:
+        for n in sorted({r for r in UPDATE_RUNS if r < K} | {K}):
+            for how in ("count", "distance"):
+                if how == "distance" and n > K - 2:
+                    continue
+                count = K if n == K else K - 1
+                st = ts._new_state(K, B, 8, 1, dev)
+                head = (K - 7) % K
+                st["head"].fill_(head)
+                st["count"].fill_(count)
+                st["ring_slot_valid"].fill_(True)
+                e = torch.arange(K, device=dev)
+                slots = (head + e) % K
+                st["ring_pose"][slots, 0] = torch.where(
+                    e < n, 10.0, 0.5) if how == "distance" else 0.5
+                if how == "count":
+                    rbs, max_sq = count + 1 - n, 1e30
+                else:
+                    rbs, max_sq = 10 * K, 1.0
+                out.append((f"K {K} run {n} by {how}", st, rbs, max_sq, n))
+    return out
+
+
+def check_update_edges(dev, pack, packed):
+    """K8 against its plain version on update_edge_cases: every state
+    tensor bit-equal, and the evictions the case was built for. The
+    pushed pose is packed[1:4] (packed (13,), its mean at the origin).
+    Returns the cases checked."""
+    import torch
+
+    from slam_toolbox_tpu_torch.kernels import step_cuda as sc
+
+    co = torch.zeros(5, device=dev)
+    odom = torch.tensor([0.1, 0.2, 0.3], device=dev)
+    offset = torch.tensor([0.05, -0.02, 0.01], device=dev)
+    eye9 = torch.eye(3, device=dev).reshape(-1)
+    n_cases = 0
+    for what, st, rbs, max_sq, n in update_edge_cases(dev, pack):
+        s1, s2 = clone_state(st), clone_state(st)
+        sc.stream_update(packed, co, pack, odom, offset, eye9, s1, rbs,
+                         max_sq)
+        sc.stream_update_plain(packed, co, pack, odom, offset, eye9, s2,
+                               rbs, max_sq)
+        torch.cuda.synchronize()
+        for k, v in s1.items():
+            if isinstance(v, torch.Tensor) and not torch.equal(v, s2[k]):
+                raise AssertionError(f"stream_update != plain: {what}, "
+                                     f"state[{k!r}]")
+        K = st["ring_pack"].shape[0]
+        got = int(st["count"]) + 1 - int(s1["count"])
+        if got != n or int(s1["head"]) != (int(st["head"]) + n) % K:
+            raise AssertionError(f"stream_update {what}: {got} evictions")
+        n_cases += 1
+    return n_cases
+
+
+# K7's streamed geometries (check_tail_wide): the loop matcher's config
+# changes and the (coarse headings, lattice side) they give
+TAIL_WIDE = {
+    # a 20 m loop search at 0.05 m: 21 x 201 x 201 sums
+    "lattice": (dict(loop_search_space_dimension=20.0), (21, 201)),
+    # a search over +-2.995 rad at 0.01 rad on a 3 x 3 lattice: 600
+    # headings, past kMaxHeadings, and 7 of the 16 CTAs with no cell
+    "headings": (dict(loop_search_space_dimension=0.2,
+                      coarse_search_angle_offset=2.995,
+                      coarse_angle_resolution=0.01,
+                      fine_search_angle_offset=0.001), (600, 3)),
+}
+
+
+def check_tail_wide(cfg, laser, data, dev, chain, q, what="lattice"):
+    """K7's streamed mode where it must be taken: bench.py's loop matcher
+    with TAIL_WIDE[what]'s changes (21 x 201 x 201 sums, or 600 x 3 x 3),
+    on the loop chain's raster, at 1,081 beams and at the CLI's 271
+    (every fourth), on the fused verify's flags and on align's
+    (penalized, refined): the coarse tie count and best bit-equal to the
+    plain version, the means within MEAN_ATOL, the covariances within
+    COV_RTOL of their scale, the fine and angular parts bit-equal at the
+    kernel's own means; device ms by graph replays on the verify's flags.
+    Returns {beams: record}."""
+    import torch
+
+    from slam_toolbox_tpu_torch.core.scan import LocalizedScan
+    from slam_toolbox_tpu_torch.kernels import step_cuda as sc
+    from slam_toolbox_tpu_torch.mapper import Mapper
+
+    changes, (na_want, n_want) = TAIL_WIDE[what]
+    wide_cfg = dataclasses.replace(cfg, **changes)
+    mapper = Mapper(wide_cfg, device=dev)
+    mapper.initialize(laser.range_threshold)
+    matcher = mapper.loop_matcher
+
+    def scan_at(i):
+        s = LocalizedScan(laser, data[i][0].ranges, data[i][0].odom_pose)
+        s.set_corrected_pose(data[i][1])
+        return s
+
+    inp = kernel_inputs(matcher, [scan_at(i) for i in chain], scan_at(q),
+                        dev)
+    grid = matcher._raster(inp["pts"], inp["valid"], inp["off"])
+    si = step_inputs(matcher, [scan_at(i) for i in chain], scan_at(q), dev)
+    kw = matcher._score_args
+    pens = (kw["dist_var_penalty"], kw["ang_var_penalty"],
+            kw["min_dist_pen"], kw["min_ang_pen"])
+    naf = kw["na_fine"]
+    out = {}
+    for step in (1, 4):
+        local = si["local"][::step].contiguous()
+        finite = si["finite"][::step].contiguous()
+        B = local.shape[0]
+        rec = dict(cases_checked=0, mean_err=0.0, cov_rel_err=0.0)
+        for pz, rf in ((False, False), (True, True)):
+            args = score_tail_args(matcher, grid, si["center_off"], local,
+                                   finite, pz, rf)
+            na, ny, nx = args[0].shape
+            geometry = sc.score_tail_launch(na, ny, nx, B, naf)
+            if (geometry[3] != sc.TAIL_STREAMED
+                    or (na, ny, nx) != (na_want, n_want, n_want)):
+                raise AssertionError(f"score_tail at {na} x {ny} x {nx}, "
+                                     f"{B} beams: {geometry}")
+            ak = torch.zeros(sc.aux_len(naf), device=dev)
+            ap = torch.zeros_like(ak)
+            pk = sc.score_tail(*args, aux=ak)
+            pp = sc.score_tail_plain(*args, aux=ap)
+            torch.cuda.synchronize()
+            what = f"score_tail streamed {ny}x{nx} B={B} penalize {pz}"
+            if not torch.equal(ak[:2], ap[:2]):
+                raise AssertionError(f"{what}: coarse tie count and best "
+                                     f"{ak[:2].tolist()} {ap[:2].tolist()}")
+            if rf:
+                fp = sc.fine_parts_plain(
+                    grid, matcher.G, si["center_off"], local, finite,
+                    ak[2:5], ak[7:10], kw["x_off_f"], kw["y_off_f"],
+                    kw["scale"], kw["fine_angle_offset"],
+                    kw["fine_angle_res"], pz, pens, naf)
+                ref = ak.clone()
+                sc.fill_aux_fine(ref, fp, ak[7:10])
+                if not torch.equal(ak, ref):
+                    raise AssertionError(f"{what}: fine and angular parts")
+            scale = float(pp[[4, 8, 12]].abs().max().clamp_min(1e-6))
+            e_mean = max(float((pk[1:4] - pp[1:4]).abs().max()),
+                         float((ak[2:5] - ap[2:5]).abs().max()))
+            e_cov = float((pk[4:] - pp[4:]).abs().max()) / scale
+            if e_mean > sc.MEAN_ATOL or e_cov > sc.COV_RTOL:
+                raise AssertionError(f"{what}: mean {e_mean}, covariance "
+                                     f"{e_cov} of its scale")
+            rec["cases_checked"] += 1
+            rec["mean_err"] = max(rec["mean_err"], e_mean)
+            rec["cov_rel_err"] = max(rec["cov_rel_err"], e_cov)
+            if not pz:
+                rec.update(
+                    shape=f"na={na} {ny}x{nx} B={B}", G=matcher.G,
+                    device_ms=graph_ms(lambda: sc._launch_score_tail(
+                        args, None, geometry), 20)[0],
+                    plain_ms=event_ms(lambda: sc.score_tail_plain(*args),
+                                      5),
+                    cluster=dict(ctas=geometry[0], threads=geometry[1],
+                                 dynamic_smem_bytes=geometry[2],
+                                 active_clusters=sc.tail_clusters(
+                                     geometry, dev)))
+        out[str(B)] = rec
+        print(f"# score_tail streamed {rec['shape']} G={matcher.G}: "
+              f"{rec['cases_checked']} cases held to plain (mean "
+              f"{rec['mean_err']}, covariance {rec['cov_rel_err']} of its "
+              f"scale), device {rec['device_ms']} ms, plain "
+              f"{rec['plain_ms']} ms, cluster {rec['cluster']}", flush=True)
     return out
 
 
@@ -988,13 +1266,12 @@ def tail_geometries(args, ref, ref_aux, tag):
 
     raw = args[0]
     na, ny, nx = raw.shape
-    room = sc.TAIL_SMEM_PER_CTA - sc.TAIL_STATIC_SMEM
     out = {}
     for ctas, threads in TAIL_SWEEP:
         smem = sc.score_tail_smem(na, ny, nx, args[3].shape[0], ctas)
-        if smem > room:
+        if smem > sc.TAIL_ROOM:
             continue
-        geom = (ctas, threads, smem)
+        geom = (ctas, threads, smem, sc.TAIL_RESIDENT)
         aux = torch.zeros(sc.aux_len(args[-2]), device=raw.device)
         got = sc._launch_score_tail(args, aux, geom)
         torch.cuda.synchronize()
@@ -1032,7 +1309,8 @@ def start_phase_clock_build(src=None, name="score_tail_phases"):
 
 def load_phase_clock(proc, path):
     """Wait for start_phase_clock_build's nvcc and load its library with
-    the kernel's argument types; raises if the build failed."""
+    the kernel's, the cluster query's and the phase clock's argument
+    types; raises if the build failed."""
     import ctypes
 
     from slam_toolbox_tpu_torch.kernels import match_cuda as mc
@@ -1043,6 +1321,7 @@ def load_phase_clock(proc, path):
     lib = ctypes.CDLL(path)
     lib.score_tail.restype = ctypes.c_int
     lib.score_tail.argtypes = mc._lib("score_tail").score_tail.argtypes
+    mc.set_cluster_query(lib)
     lib.score_tail_phases.restype = ctypes.c_int
     lib.score_tail_phases.argtypes = [ctypes.c_void_p, ctypes.c_int]
     return lib
@@ -3771,8 +4050,9 @@ def main() -> int:
     static = tail_static_smem()
     print(f"# build: {len(mc.KERNELS)} kernels in {build_s:.2f} s, with "
           f"score_tail's phase clock build {time.perf_counter() - t0:.2f} "
-          f"s; score_tail's static shared memory {static} bytes (at most "
-          f"{sc.TAIL_STATIC_SMEM})", flush=True)
+          f"s; score_tail's static "
+          f"shared memory {static} bytes (at most {sc.TAIL_STATIC_SMEM})",
+          flush=True)
 
     # 2. kernels at both matcher geometries: the sequential matcher on the
     # running ring of scan_buffer_size scans, the loop matcher on a loop chain
@@ -3795,20 +4075,32 @@ def main() -> int:
     # refine, step mode): the drain step at the sequential geometry, the
     # fused verify's coarse chain match at the loop geometry
     step_paths = {"seq": (True, True, True), "loop": (False, False, False)}
-    checks, grids, steps = {}, {}, {}
+    checks, grids, steps, sis = {}, {}, {}, {}
     for tag, (matcher, base, qi) in bases.items():
         print(f"# {tag}: {len(base)} base scans, query scan {qi}",
               flush=True)
         inp = kernel_inputs(matcher, [scan_at(i) for i in base],
                             scan_at(qi), dev)
         checks[tag], grids[tag] = check_kernels(matcher, inp, tag)
-        si = step_inputs(matcher, [scan_at(i) for i in base], scan_at(qi),
-                         dev)
+        si = sis[tag] = step_inputs(matcher, [scan_at(i) for i in base],
+                                    scan_at(qi), dev)
         steps[tag] = check_step_kernels(matcher, si, grids[tag], tag,
                                         step_paths[tag])
         if tag == "seq":
             ceiling = measure_ceiling(
                 matcher, grids[tag], inp["d"], inp["ncand"])
+    # K7's streamed mode on a 201 x 201 lattice and at 600 headings; K8's
+    # eviction edge cases (the pushed mean at the origin)
+    wide_tail = {what: check_tail_wide(cfg, laser, data, dev, chain, q,
+                                       what) for what in TAIL_WIDE}
+    edge_packed = torch.tensor(
+        [0.7, 0.0, 0.0, 0.1, 1e-3, 0.0, 0.0, 0.0, 1e-3, 0.0, 0.0, 0.0,
+         1e-3], device=dev)
+    n_update_edges = check_update_edges(dev, sis["seq"]["scan_pack"],
+                                        edge_packed)
+    print(f"# stream_update edge cases: {n_update_edges} bit-equal (K "
+          f"{UPDATE_SLOTS}, leading runs ending at {UPDATE_RUNS} and K, by "
+          f"count and by distance)", flush=True)
     taps = {(m.G, m.half_kernel): m._w
             for m in (mapper.sequential_matcher, mapper.loop_matcher)}
     n_patterns, dense_ms = 0, {}
@@ -4064,11 +4356,16 @@ def main() -> int:
             row["sass"] = rec["sass"]
         if name == "score_tail":
             for r, dst in ((rec, row), (loop, row["loop"])):
+                dst["mode"] = r["mode"]
                 dst["cluster"] = r["cluster"]
+                dst["streamed_device_ms"] = r["streamed_device_ms"]
                 dst["phase_ms"] = dict(zip(TAIL_PHASES, r["phase_ms"]))
                 dst["other_geometries"] = r["geometries"]
             row["repeats_equal"] = (rec["repeats_equal"]
                                     + loop["repeats_equal"])
+            row["streamed"] = wide_tail
+        if name == "stream_update":
+            row["edge_cases_checked"] = n_update_edges
         rows.append(row)
     print(json.dumps({"kernels": rows}))
     print(card)

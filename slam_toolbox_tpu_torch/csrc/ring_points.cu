@@ -21,10 +21,18 @@
 //
 // Bound: bytes. It reads each pack once (32 bytes a beam) and writes 9
 // bytes a beam; at the bench geometry (12 slots x 1081 beams) that is
-// about 0.5 MB, 0.15 us at 3.35 TB/s, so a launch costs its fixed time.
-// Design: one block per scan, so the keep_run gather through next_delim
-// (which stays within a scan) reads shared memory, and each block forms
-// the viewpoint itself (a few trig calls) instead of a second launch.
+// about 0.5 MB, 0.15 us at 3.35 TB/s, so a launch costs its latency
+// chain. Design: one block per scan, so the keep_run gather through
+// next_delim (which stays within a scan) reads shared memory. A block has
+// threads enough for two beams each (up to 1,024): every thread first
+// starts the two 16-byte loads of each of its beams' rows and keeps them
+// in registers across the keep_run barrier, so a row is read once (past
+// 2,048 beams the earlier rounds are read again). In step mode the first
+// thread of every block forms the viewpoint (transform_between, compose)
+// while those loads are in flight; in chain mode every thread reads it.
+// Step mode's last block copies the scan's pack with pack_copy.cuh's
+// vector copy on warps 1.., which needs only the batch row, while its
+// first thread forms and writes the prior.
 //
 // Numerics: built with --fmad=false, every f32 operation in the plain
 // version's order (no contraction may flip the side test ss >= 0 or move a
@@ -33,9 +41,12 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "pack_copy.cuh"
+
 namespace {
 
-constexpr int kThreads = 256;
+constexpr int kMaxThreads = 1024;
+constexpr int kRows = 2;   // beams a thread holds in registers
 
 struct StepArgs {
     const long long* step;
@@ -74,84 +85,140 @@ __device__ void compose(const float* a, const float* b, float* out) {
     out[2] = atan2f(sinf(h), cosf(h));
 }
 
-__global__ void __launch_bounds__(kThreads)
-ring_points_kernel(const float* packs, const float* poses, int pose_stride,
-                   const bool* slot_valid, const float* viewpoint, int C,
-                   int B, StepArgs st, float* pts, bool* valid) {
+// the step's prior and sensor pose from batch row `row`
+__device__ void step_prior(const StepArgs& st, long long row, float* prior,
+                           float* center) {
+    transform_between(st.last_odom, st.last_corrected,
+                      st.batch_odoms + 3 * row, prior);
+    compose(prior, st.offset_pose, center);
+}
+
+// the rows of beams base + tid + k * T (k < kRows) into registers
+__device__ __forceinline__ void load_rows(const float4* __restrict__ scan,
+                                          int base, int B, float4* lo,
+                                          float4* hi) {
+#pragma unroll
+    for (int k = 0; k < kRows; ++k) {
+        const int b = base + threadIdx.x + k * blockDim.x;
+        if (b < B) {
+            lo[k] = scan[2 * b];
+            hi[k] = scan[2 * b + 1];
+        }
+    }
+}
+
+__global__ void __launch_bounds__(kMaxThreads)
+ring_points_kernel(const float4* __restrict__ packs,
+                   const float* __restrict__ poses, int pose_stride,
+                   const bool* __restrict__ slot_valid,
+                   const float* __restrict__ viewpoint, int C, int B,
+                   StepArgs st, float2* __restrict__ pts,
+                   bool* __restrict__ valid) {
     extern __shared__ unsigned char keep_run[];   // B flags of this scan
     __shared__ float vp[2];
-    __shared__ long long row;
     const int c = blockIdx.x;
-    const int tid = threadIdx.x;
+    const int tid = threadIdx.x, T = blockDim.x;
+    const bool step_mode = st.step != nullptr;
 
-    if (tid == 0) {
-        if (st.step != nullptr) {
-            row = *st.step;
-            const float* odom = st.batch_odoms + 3 * row;
-            float prior[3], center[3];
-            transform_between(st.last_odom, st.last_corrected, odom, prior);
-            compose(prior, st.offset_pose, center);
-            vp[0] = center[0];
-            vp[1] = center[1];
-            if (c == C) {
+    if (c == C) {   // step mode's last block: the scan's own buffers
+        const long long row = *st.step;
+        if (tid < 32) {
+            if (tid == 0) {
+                float prior[3], center[3];
+                step_prior(st, row, prior, center);
                 for (int k = 0; k < 3; ++k) {
                     st.center_off[k] = center[k];
                     st.prior[k] = prior[k];
-                    st.scan_odom[k] = odom[k];
+                    st.scan_odom[k] = st.batch_odoms[3 * row + k];
                 }
                 st.center_off[3] = center[0] - st.half_span;
                 st.center_off[4] = center[1] - st.half_span;
             }
         } else {
-            vp[0] = viewpoint[0];
-            vp[1] = viewpoint[1];
+            pack_copy::copy_pack<8>(
+                reinterpret_cast<float4*>(st.scan_pack),
+                reinterpret_cast<const float4*>(st.batch_packs)
+                    + row * 2LL * B,
+                2 * B, tid - 32, T - 32, st.scan_finite);
         }
-    }
-    __syncthreads();
-
-    if (c == C) {   // step mode's last block: the scan's own buffers
-        const float* src = st.batch_packs + row * (long long)B * 8;
-        for (int i = tid; i < B * 8; i += kThreads) st.scan_pack[i] = src[i];
-        for (int b = tid; b < B; b += kThreads)
-            st.scan_finite[b] = (((int)src[8 * b + 7]) & 1) > 0;
         return;
     }
 
+    // this scan's rows, in flight while the viewpoint is formed
+    const float4* scan = packs + (long long)c * B * 2;
+    float4 lo[kRows], hi[kRows];
+    load_rows(scan, 0, B, lo, hi);
     const float px = poses[(long long)c * pose_stride];
     const float py = poses[(long long)c * pose_stride + 1];
     const float ph = poses[(long long)c * pose_stride + 2];
+    const bool slot = slot_valid == nullptr || slot_valid[c];
+    float vx, vy;
+    if (step_mode) {
+        if (tid == 0) {
+            float prior[3], center[3];
+            step_prior(st, *st.step, prior, center);
+            vp[0] = center[0];
+            vp[1] = center[1];
+        }
+        __syncthreads();
+        vx = vp[0];
+        vy = vp[1];
+    } else {
+        vx = viewpoint[0];
+        vy = viewpoint[1];
+    }
     const float cs = cosf(ph), sn = sinf(ph);
-    const float dvx = vp[0] - px;
-    const float dvy = vp[1] - py;
+    const float dvx = vx - px;
+    const float dvy = vy - py;
     const float vxl = cs * dvx + sn * dvy;
     const float vyl = -sn * dvx + cs * dvy;
-    const float* scan = packs + (long long)c * B * 8;
 
-    for (int b = tid; b < B; b += kThreads) {
-        const float* q = scan + 8 * b;
-        float ax = q[2], ay = q[3];
-        float a = vyl - ay;
-        float bb = ax - vxl;
-        float cc = ay * vxl - ax * vyl;
-        float ss = q[4] * a + q[5] * bb + cc;
-        int flags = (int)q[7];
-        keep_run[b] = (ss >= 0.0f) && ((flags & 2) > 0);
+    // keep_run of every beam; the last round's rows stay in registers
+    const int per_round = kRows * T;
+    const int last = ((B - 1) / per_round) * per_round;
+    for (int base = 0;; base += per_round) {
+#pragma unroll
+        for (int k = 0; k < kRows; ++k) {
+            const int b = base + tid + k * T;
+            if (b < B) {
+                const float ax = lo[k].z, ay = lo[k].w;
+                const float a = vyl - ay;
+                const float bb = ax - vxl;
+                const float cc = ay * vxl - ax * vyl;
+                const float ss = hi[k].x * a + hi[k].y * bb + cc;
+                const int flags = (int)hi[k].w;
+                keep_run[b] = (ss >= 0.0f) && ((flags & 2) > 0);
+            }
+        }
+        if (base == last) break;
+        load_rows(scan, base + per_round, B, lo, hi);
     }
     __syncthreads();
 
-    const bool slot = slot_valid == nullptr || slot_valid[c];
-    for (int b = tid; b < B; b += kThreads) {
-        const float* q = scan + 8 * b;
-        float lx = q[0], ly = q[1];
-        long long o = (long long)c * B + b;
-        pts[2 * o] = px + cs * lx - sn * ly;
-        pts[2 * o + 1] = py + sn * lx + cs * ly;
-        long long nxt = (long long)q[6];
-        int flags = (int)q[7];
-        // next_delim indexes a delimiter slot of the same scan; the clamp
-        // to the scan keeps a malformed pack inside shared memory
-        long long k = nxt < 0 ? 0 : (nxt >= B ? B - 1 : nxt);
-        valid[o] = nxt >= 0 && keep_run[k] && ((flags & 1) > 0) && slot;
+    // points and validity: the last round from registers, then any
+    // earlier round read again
+    for (int base = last;;) {
+#pragma unroll
+        for (int k = 0; k < kRows; ++k) {
+            const int b = base + tid + k * T;
+            if (b < B) {
+                const float lx = lo[k].x, ly = lo[k].y;
+                const long long o = (long long)c * B + b;
+                pts[o] = make_float2(px + cs * lx - sn * ly,
+                                     py + sn * lx + cs * ly);
+                const long long nxt = (long long)hi[k].z;
+                const int flags = (int)hi[k].w;
+                // next_delim indexes a delimiter slot of the same scan;
+                // the clamp to the scan keeps a malformed pack inside
+                // shared memory
+                const long long j = nxt < 0 ? 0 : (nxt >= B ? B - 1 : nxt);
+                valid[o] = nxt >= 0 && keep_run[j] && ((flags & 1) > 0)
+                           && slot;
+            }
+        }
+        base = base == last ? 0 : base + per_round;
+        if (base >= last) break;
+        load_rows(scan, base, B, lo, hi);
     }
 }
 
@@ -165,14 +232,25 @@ extern "C" int ring_points(
     const float* last_corrected, const float* offset_pose, float half_span,
     float* center_off, float* prior, float* scan_pack, float* scan_odom,
     bool* scan_finite, float* pts, bool* valid, cudaStream_t stream) {
-    if (C < 1 || B < 1 || (step == nullptr && viewpoint == nullptr))
+    if (C < 1 || B < 1 || (step == nullptr && viewpoint == nullptr)
+            || reinterpret_cast<size_t>(packs) % 16 != 0
+            || (step != nullptr
+                && (reinterpret_cast<size_t>(batch_packs) % 16 != 0
+                    || reinterpret_cast<size_t>(scan_pack) % 16 != 0))
+            || reinterpret_cast<size_t>(pts) % 8 != 0)
         return (int)cudaErrorInvalidValue;
     StepArgs st{step, batch_packs, batch_odoms, last_odom, last_corrected,
                 offset_pose, half_span, center_off, prior, scan_pack,
                 scan_odom, scan_finite};
+    // two beams a thread, whole warps, at least two of them (the step
+    // block's first warp forms the prior, the others copy)
+    int threads = ((B + kRows - 1) / kRows + 31) / 32 * 32;
+    threads = threads < 64 ? 64 : (threads > kMaxThreads ? kMaxThreads
+                                                         : threads);
     int blocks = C + (step != nullptr ? 1 : 0);
-    ring_points_kernel<<<blocks, kThreads, B, stream>>>(
-        packs, poses, pose_stride, slot_valid, viewpoint, C, B, st, pts,
+    ring_points_kernel<<<blocks, threads, B, stream>>>(
+        reinterpret_cast<const float4*>(packs), poses, pose_stride,
+        slot_valid, viewpoint, C, B, st, reinterpret_cast<float2*>(pts),
         valid);
     return (int)cudaGetLastError();
 }

@@ -16,9 +16,11 @@
 //   (na,), the coarse offsets x_off (nx,) / y_off (ny,), the fine offsets
 //   x_off_f / y_off_f (3,) -> out (13,) f32 [best, mean (3), cov (9)];
 //   aux (18 + 10 na_f,) f32 or null: the intermediates step_cuda.AUX_HEAD
-//   describes. The launch geometry (cluster, threads, smem) is
+//   describes. The launch geometry (cluster, threads, smem, mode) is
 //   step_cuda.score_tail_launch's: 16 CTAs of 512 threads, the fastest of
-//   2-16 CTAs of 128-1,024 threads at both of the port's lattices.
+//   2-16 CTAs of 128-1,024 threads at both of the port's lattices, in the
+//   resident mode wherever a CTA's responses fit its shared memory and
+//   na <= kMaxHeadings, else in the streamed mode (below).
 //
 // Bound: bytes at the loop geometry (21 x 81 x 81 sums, 0.55 MB), about
 // 0.16 us at 3.35 TB/s; at the bench geometry the fine pass's 11 x 9 x
@@ -38,7 +40,16 @@
 //     in the CTA, and no element index needs a division. Each coarse
 //     response is formed once from `raw` (read once, coalesced along the
 //     cells) into the CTA's dynamic shared memory, with the cell maxima;
-//     the tie and covariance passes read shared memory only.
+//     the tie and covariance passes read shared memory only. That is the
+//     resident mode. In the streamed mode (any lattice, any na) nothing
+//     of the responses is kept: the tie pass and the covariance pass form
+//     each response and cell maximum again from `raw` (3.4 MB at 21 x 201
+//     x 201, which stays in the 50 MB L2 between passes) with the same
+//     penalty and response calls in the same order, and the tie pass
+//     forms each heading's cosine and sine by the same cosf / sinf of the
+//     same angle; every thread walks the same cells and the reduction
+//     trees do not change, so the two modes' outputs are equal bit for
+//     bit. Its dynamic shared memory is the beams alone.
 //   - Reductions: each CTA reduces its part in a fixed warp-shuffle tree;
 //     after a cluster barrier one warp of each CTA reads the CTAs'
 //     partials through distributed shared memory and combines them in a
@@ -75,6 +86,7 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include <algorithm>
 #include <mutex>
 
 namespace cg = cooperative_groups;
@@ -141,7 +153,7 @@ constexpr int kPart = 6;
 
 struct Shared {
     float red[kMaxWarps * 5 + 5];
-    float cos_a[kMaxHeadings], sin_a[kMaxHeadings];
+    float cos_a[kMaxHeadings], sin_a[kMaxHeadings];   // resident mode
     float part[kPart];
     float total[kPart];            // the cluster's, combined in rank order
     float qall[kMaxCluster * 4];   // rank 0: each rank's covariance sums
@@ -181,6 +193,35 @@ __device__ __forceinline__ float response(int raw, float inv_b100,
     float r = (float)raw * inv_b100;
     if (!penalize) return r;
     return fabsf(r) > kTol ? r * pen : r;
+}
+
+// The coarse responses of lattice cell e (of `cells`) in heading order,
+// each as phase 1 forms it: f(a, heading angle, response) for a = 0..na-1,
+// the sums loaded kBatch headings at once
+template <typename F>
+__device__ __forceinline__ void cell_responses(const TailArgs& p, int e,
+                                               int cells, float dpen,
+                                               float ch, float inv_avp,
+                                               float inv_b100, bool pz,
+                                               F f) {
+    for (int a0 = 0; a0 < p.na; a0 += kBatch) {
+        int v[kBatch];
+        float h[kBatch];
+#pragma unroll
+        for (int k = 0; k < kBatch; ++k) {
+            const bool in = a0 + k < p.na;
+            v[k] = in ? __ldg(p.raw + (size_t)(a0 + k) * cells + e) : 0;
+            h[k] = in ? __ldg(p.ang + a0 + k) : 0.0f;
+        }
+#pragma unroll
+        for (int k = 0; k < kBatch; ++k) {
+            if (a0 + k < p.na) {
+                const float d = h[k] - ch;
+                const float apen = penalty(d * d, inv_avp, p.min_ang_pen);
+                f(a0 + k, h[k], response(v[k], inv_b100, pz, dpen * apen));
+            }
+        }
+    }
 }
 
 // The N values of every thread of the CTA summed in a fixed tree (warp
@@ -279,9 +320,13 @@ __device__ __forceinline__ void rotated(const float* beams, int b, float c,
     *dy = (int)round_half_away((s * lx + c * ly) * scale);
 }
 
+// kStreamed: the streamed mode (one instantiation per mode, so the
+// resident mode's code carries none of the streamed mode's branches)
+template <bool kStreamed>
 __global__ void __launch_bounds__(kMaxThreads)
 score_tail_kernel(TailArgs p) {
-    // resp (na, cpc), cmax (cpc,), then the beams' local x, y (B, 2)
+    // resident: resp (na, cpc), cmax (cpc,), then the beams' local x, y
+    // (B, 2); streamed: the beams alone
     extern __shared__ float dyn[];
     __shared__ Shared s;
     cg::cluster_group cluster = cg::this_cluster();
@@ -303,9 +348,10 @@ score_tail_kernel(TailArgs p) {
     const int cpc = p.cpc;
     const int lo = rank * cpc;
     const int mine = max(0, min(cells - lo, cpc));   // cells of this CTA
+    constexpr bool streamed = kStreamed;
     float* resp = dyn;
     float* cmax = dyn + (size_t)na * cpc;
-    float* beams = cmax + cpc;
+    float* beams = streamed ? dyn : cmax + cpc;
 
     // under refine, the beams copied into shared memory while the coarse
     // phases run (4-byte asynchronous copies: any row stride)
@@ -319,16 +365,19 @@ score_tail_kernel(TailArgs p) {
     }
 
     // the headings' cosines and sines for phase 2 (published by phase 1's
-    // barriers); rank 0's angular sums start at 0
-    for (int a = tid; a < na; a += T) {
-        s.cos_a[a] = cosf(p.ang[a]);
-        s.sin_a[a] = sinf(p.ang[a]);
+    // barriers; the streamed mode forms them there); rank 0's angular sums
+    // start at 0
+    if (!streamed) {
+        for (int a = tid; a < na; a += T) {
+            s.cos_a[a] = cosf(p.ang[a]);
+            s.sin_a[a] = sinf(p.ang[a]);
+        }
     }
     for (int k = tid; k < kMaxFine; k += T) s.asum[k] = 0;
 
-    // 1. the coarse responses of this CTA's cells into shared memory, the
-    // cells' maxima over headings, and the best response; the headings'
-    // penalties are formed beside the sums' loads
+    // 1. the coarse responses of this CTA's cells (into shared memory in
+    // the resident mode), the cells' maxima over headings, and the best
+    // response; the headings' penalties are formed beside the sums' loads
     float best = -INFINITY;
     for (int l = tid; l < mine; l += T) {
         const int e = lo + l;
@@ -337,29 +386,12 @@ score_tail_kernel(TailArgs p) {
         const float dpen = penalty(yi * yi + xj * xj, inv_dvp,
                                    p.min_dist_pen);
         float pr = -INFINITY;
-        for (int a0 = 0; a0 < na; a0 += kBatch) {
-            int v[kBatch];
-            float h[kBatch];
-#pragma unroll
-            for (int k = 0; k < kBatch; ++k) {
-                const bool in = a0 + k < na;
-                v[k] = in ? __ldg(p.raw + (size_t)(a0 + k) * cells + e) : 0;
-                h[k] = in ? __ldg(p.ang + a0 + k) : 0.0f;
-            }
-#pragma unroll
-            for (int k = 0; k < kBatch; ++k) {
-                if (a0 + k < na) {
-                    const float d = h[k] - ch;
-                    const float apen = penalty(d * d, inv_avp,
-                                               p.min_ang_pen);
-                    const float r = response(v[k], inv_b100, pz,
-                                             dpen * apen);
-                    resp[(size_t)(a0 + k) * cpc + l] = r;
-                    pr = nan_max(pr, r);
-                }
-            }
-        }
-        cmax[l] = pr;
+        cell_responses(p, e, cells, dpen, ch, inv_avp, inv_b100, pz,
+                       [&](int a, float, float r) {
+                           if (!streamed) resp[(size_t)a * cpc + l] = r;
+                           pr = nan_max(pr, r);
+                       });
+        if (!streamed) cmax[l] = pr;
         best = nan_max(best, pr);
     }
     block_max_to(best, s.red, &s.part[0]);
@@ -376,6 +408,21 @@ score_tail_kernel(TailArgs p) {
         const int e = lo + l;
         const int i = e / nx, j = e - i * nx;
         const float yi = p.y_off[i], xj = p.x_off[j];
+        if (streamed) {
+            const float dpen = penalty(yi * yi + xj * xj, inv_dvp,
+                                       p.min_dist_pen);
+            cell_responses(p, e, cells, dpen, ch, inv_avp, inv_b100, pz,
+                           [&](int, float h, float r) {
+                               if (r >= thr) {
+                                   t[0] += 1.0f;
+                                   t[1] += c0 + xj;
+                                   t[2] += c1 + yi;
+                                   t[3] += cosf(h);
+                                   t[4] += sinf(h);
+                               }
+                           });
+            continue;
+        }
         for (int a = 0; a < na; ++a) {
             if (resp[(size_t)a * cpc + l] >= thr) {
                 t[0] += 1.0f;
@@ -403,9 +450,20 @@ score_tail_kernel(TailArgs p) {
     const float use_thr = best_c - 0.1f;
     float q[4] = {0.0f, 0.0f, 0.0f, 0.0f};
     for (int l = tid; l < mine; l += T) {
-        const float pr = cmax[l];
+        const int e = lo + l;
+        float pr;
+        if (streamed) {
+            const int i = e / nx, j = e - i * nx;
+            const float yi = p.y_off[i], xj = p.x_off[j];
+            const float dpen = penalty(yi * yi + xj * xj, inv_dvp,
+                                       p.min_dist_pen);
+            pr = -INFINITY;
+            cell_responses(p, e, cells, dpen, ch, inv_avp, inv_b100, pz,
+                           [&](int, float, float r) { pr = nan_max(pr, r); });
+        } else {
+            pr = cmax[l];
+        }
         if (pr >= use_thr) {
-            const int e = lo + l;
             const int i = e / nx, j = e - i * nx;
             const float xm = p.x_off[j] - dx, ym = p.y_off[i] - dy;
             q[0] += pr;
@@ -640,25 +698,51 @@ std::once_flag g_attr_once;
 cudaError_t g_attr_err = cudaSuccess;
 int g_max_dynamic = 0;   // the dynamic shared bytes a CTA may take
 
+// the kernel of a mode (0 resident, 1 streamed)
+const void* kernel_of(int mode) {
+    return mode == 1 ? (const void*)score_tail_kernel<true>
+                     : (const void*)score_tail_kernel<false>;
+}
+
 void set_attributes() {
     int dev = 0, optin = 0;
-    cudaFuncAttributes fa;
     g_attr_err = cudaGetDevice(&dev);
     if (g_attr_err == cudaSuccess)
         g_attr_err = cudaDeviceGetAttribute(
             &optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-    if (g_attr_err == cudaSuccess)
-        g_attr_err = cudaFuncGetAttributes(&fa, score_tail_kernel);
-    if (g_attr_err == cudaSuccess) {
-        g_max_dynamic = optin - (int)fa.sharedSizeBytes;
-        g_attr_err = cudaFuncSetAttribute(
-            score_tail_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-            g_max_dynamic);
+    g_max_dynamic = optin;
+    for (int mode = 0; mode < 2 && g_attr_err == cudaSuccess; ++mode) {
+        cudaFuncAttributes fa;
+        g_attr_err = cudaFuncGetAttributes(&fa, kernel_of(mode));
+        if (g_attr_err == cudaSuccess)
+            g_max_dynamic = std::min(g_max_dynamic,
+                                     optin - (int)fa.sharedSizeBytes);
     }
-    if (g_attr_err == cudaSuccess)
+    for (int mode = 0; mode < 2 && g_attr_err == cudaSuccess; ++mode) {
         g_attr_err = cudaFuncSetAttribute(
-            score_tail_kernel,
-            cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+            kernel_of(mode), cudaFuncAttributeMaxDynamicSharedMemorySize,
+            g_max_dynamic);
+        if (g_attr_err == cudaSuccess)
+            g_attr_err = cudaFuncSetAttribute(
+                kernel_of(mode),
+                cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    }
+}
+
+// the launch configuration of one cluster (attr holds its dimension)
+void launch_config(int cluster, int threads, int smem, cudaStream_t stream,
+                   cudaLaunchConfig_t* cfg, cudaLaunchAttribute* attr) {
+    *cfg = cudaLaunchConfig_t{};
+    cfg->gridDim = dim3(cluster, 1, 1);
+    cfg->blockDim = dim3(threads, 1, 1);
+    cfg->dynamicSmemBytes = smem;
+    cfg->stream = stream;
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = cluster;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    cfg->attrs = attr;
+    cfg->numAttrs = 1;
 }
 
 }  // namespace
@@ -671,17 +755,21 @@ extern "C" int score_tail(
     float scale, float fine_angle_offset, float fine_angle_res,
     float coarse_angle_res, int penalize, float dist_var_penalty,
     float ang_var_penalty, float min_dist_pen, float min_ang_pen, int na_f,
-    int refine, int cluster, int threads, int smem, float* out, float* aux,
-    cudaStream_t stream) {
-    if (na < 1 || na > kMaxHeadings || ny < 1 || nx < 2 || B < 1
-            || na_f < 1 || na_f > kMaxFine || G < 1 || cluster < 1
+    int refine, int cluster, int threads, int smem, int mode, float* out,
+    float* aux, cudaStream_t stream) {
+    const bool streamed = mode == 1;
+    if (na < 1 || (!streamed && na > kMaxHeadings) || ny < 1 || nx < 2
+            || B < 1 || na_f < 1 || na_f > kMaxFine || G < 1 || cluster < 1
             || cluster > kMaxCluster || threads < 32
-            || threads > kMaxThreads || threads % 32 != 0)
+            || threads > kMaxThreads || threads % 32 != 0
+            || (mode != 0 && mode != 1))
         return (int)cudaErrorInvalidValue;
     const int cells = ny * nx;
     const int cpc = (cells + cluster - 1) / cluster;
-    if ((long long)(na + 1) * cpc * 4 + 8LL * B != (long long)smem)
-        return (int)cudaErrorInvalidValue;
+    // the dynamic shared bytes of the mode's layout
+    const long long need = (streamed ? 0LL : (long long)(na + 1) * cpc * 4)
+                           + 8LL * B;
+    if (need != (long long)smem) return (int)cudaErrorInvalidValue;
     std::call_once(g_attr_once, set_attributes);
     if (g_attr_err != cudaSuccess) return (int)g_attr_err;
     if (smem > g_max_dynamic) return (int)cudaErrorInvalidValue;
@@ -690,21 +778,31 @@ extern "C" int score_tail(
                fine_angle_offset, fine_angle_res, coarse_angle_res,
                penalize, dist_var_penalty, ang_var_penalty, min_dist_pen,
                min_ang_pen, na_f, refine, cpc, out, aux};
-    cudaLaunchConfig_t cfg = {};
-    cfg.gridDim = dim3(cluster, 1, 1);
-    cfg.blockDim = dim3(threads, 1, 1);
-    cfg.dynamicSmemBytes = smem;
-    cfg.stream = stream;
+    cudaLaunchConfig_t cfg;
     cudaLaunchAttribute attr[1];
-    attr[0].id = cudaLaunchAttributeClusterDimension;
-    attr[0].val.clusterDim.x = cluster;
-    attr[0].val.clusterDim.y = 1;
-    attr[0].val.clusterDim.z = 1;
-    cfg.attrs = attr;
-    cfg.numAttrs = 1;
-    cudaError_t err = cudaLaunchKernelEx(&cfg, score_tail_kernel, p);
+    launch_config(cluster, threads, smem, stream, &cfg, attr);
+    cudaError_t err = streamed
+        ? cudaLaunchKernelEx(&cfg, score_tail_kernel<true>, p)
+        : cudaLaunchKernelEx(&cfg, score_tail_kernel<false>, p);
     if (err != cudaSuccess) return (int)err;
     return (int)cudaGetLastError();
+}
+
+// The clusters of `cluster` CTAs x `threads` threads with `smem` dynamic
+// shared bytes a CTA, of the mode's kernel, that the card can hold at
+// once (cudaOccupancyMaxActiveClusters) into *count; 0 where the card
+// cannot schedule one (another part, a partition), where a launch would
+// fail.
+extern "C" int score_tail_clusters(int cluster, int threads, int smem,
+                                   int mode, int* count) {
+    if (mode != 0 && mode != 1) return (int)cudaErrorInvalidValue;
+    std::call_once(g_attr_once, set_attributes);
+    if (g_attr_err != cudaSuccess) return (int)g_attr_err;
+    cudaLaunchConfig_t cfg;
+    cudaLaunchAttribute attr[1];
+    launch_config(cluster, threads, smem, nullptr, &cfg, attr);
+    return (int)cudaOccupancyMaxActiveClusters(count, kernel_of(mode),
+                                               &cfg);
 }
 
 #ifdef SCORE_TAIL_PHASE_CLOCK

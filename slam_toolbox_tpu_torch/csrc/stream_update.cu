@@ -22,12 +22,17 @@
 //
 // Bound: bytes. The push copies one pack (32 bytes a beam: 35 KB at 1081
 // beams), about 0.02 us at 3.35 TB/s; the rest is a few hundred bytes, so
-// a launch costs its fixed time. Design: one block; thread 0 reads the
-// state's scalars and writes the pose, the row and the scalars, all
-// threads copy the pack and test one eviction slot each, and thread 0
-// takes the leading run of the slots' flags from shared memory. The back
-// scan of the eviction test is the pushed one, so its pose is `mean`
-// itself, read from a register.
+// a launch costs its latency chain. Design: one block of 1,024 threads
+// with no barrier before its last. Every thread reads head and count and
+// forms the push slot and the pushed pose itself. Warp 0's first lane runs
+// the pose chain (corrected_at, the ring pose, the result row, ridx and
+// step) while warps 1-31 copy the pack (pack_copy.cuh: each thread's
+// loads all in flight before its stores) and test the eviction slots, a
+// warp's 32 at once:
+// __ballot_sync of the flags, the first false one by __ffs, and after the
+// one barrier the first lane takes the minimum over the warps: the
+// leading run. The back scan of the test is the pushed one, so its pose
+// is `mean` itself, from registers.
 //
 // Numerics: built with --fmad=false, corrected_at's f32 operations in the
 // plain version's order with sqrtf, cosf, sinf and atan2f without fast
@@ -36,10 +41,14 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "pack_copy.cuh"
+
 namespace {
 
-constexpr int kThreads = 256;
+constexpr int kThreads = 1024;
+constexpr int kWarps = kThreads / 32;
 constexpr int kMaxSlots = 4096;
+constexpr unsigned kFull = 0xffffffffu;
 
 // streaming._corrected_at, term by term
 __device__ void corrected_at(const float* m, const float* off, float* out) {
@@ -56,68 +65,97 @@ __device__ void corrected_at(const float* m, const float* off, float* out) {
 }
 
 __global__ void __launch_bounds__(kThreads)
-stream_update_kernel(const float* packed, const float* center_off,
-                     const float* pack, const float* odom,
-                     const float* offset_pose, float* ring_pack,
-                     float* ring_pose, bool* ring_slot_valid,
-                     long long* head_p, long long* count_p, float* last_odom,
-                     float* last_corrected, float* results, long long* ridx_p,
-                     long long* step_p, int K, int B, int R,
+stream_update_kernel(const float* __restrict__ packed,
+                     const float* __restrict__ center_off,
+                     const float4* __restrict__ pack,
+                     const float* __restrict__ odom,
+                     const float* __restrict__ offset_pose,
+                     float4* __restrict__ ring_pack,
+                     float* __restrict__ ring_pose,
+                     bool* __restrict__ ring_slot_valid,
+                     long long* __restrict__ head_p,
+                     long long* __restrict__ count_p,
+                     float* __restrict__ last_odom,
+                     float* __restrict__ last_corrected,
+                     float* __restrict__ results,
+                     long long* __restrict__ ridx_p,
+                     long long* __restrict__ step_p, int K, int B, int R,
                      int run_buffer_size, float max_sq) {
-    __shared__ long long head, count, idx;
-    __shared__ float mean[3];
-    __shared__ unsigned char cond[kMaxSlots];
-    const int tid = threadIdx.x;
+    __shared__ int first_false[kWarps];
+    const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
 
-    if (tid == 0) {
-        head = *head_p;
-        count = *count_p;
-        idx = (head + count) % K;
-        const bool is_first = count == 0;
-        for (int k = 0; k < 3; ++k)
-            mean[k] = is_first ? center_off[k] : packed[1 + k];
-        float corrected[3];
-        corrected_at(mean, offset_pose, corrected);
-        for (int k = 0; k < 3; ++k) {
-            ring_pose[3 * idx + k] = mean[k];
-            last_odom[k] = odom[k];
-            last_corrected[k] = corrected[k];
-        }
-        ring_slot_valid[idx] = true;
-        const long long ridx = *ridx_p;
-        float* row = results + 13 * ridx;
-        row[0] = is_first ? 0.0f : packed[0];
-        for (int k = 0; k < 3; ++k) row[1 + k] = mean[k];
-        for (int k = 0; k < 9; ++k)
-            row[4 + k] = is_first ? (k % 4 == 0 ? 1.0f : 0.0f)
-                                  : packed[4 + k];
-        *ridx_p = (ridx + 1) % R;
-        *step_p = *step_p + 1;
-    }
-    __syncthreads();
-
-    float* dst = ring_pack + idx * (long long)B * 8;
-    for (int i = tid; i < B * 8; i += kThreads) dst[i] = pack[i];
-
-    // the eviction test after e evictions; the back scan is the pushed one
+    // every thread: the scalars, the push slot and the pushed pose
+    const long long head = *head_p, count = *count_p;
+    const long long idx = (head + count) % K;
+    const bool is_first = count == 0;
+    const float mx = is_first ? center_off[0] : packed[1];
+    const float my = is_first ? center_off[1] : packed[2];
     const long long ct0 = count + 1;
-    for (int e = tid; e < K; e += kThreads) {
-        long long slot = (head + e) % K;
-        float fx = slot == idx ? mean[0] : ring_pose[3 * slot];
-        float fy = slot == idx ? mean[1] : ring_pose[3 * slot + 1];
-        float dx = fx - mean[0];
-        float dy = fy - mean[1];
-        bool too_far = (dx * dx + dy * dy) > max_sq;
-        long long ct = ct0 - e;
-        cond[e] = ct > 1 && (ct > run_buffer_size || too_far);
+
+    if (warp == 0) {
+        // the pose chain
+        if (lane == 0) {
+            const float mean[3] = {mx, my,
+                                   is_first ? center_off[2] : packed[3]};
+            float corrected[3];
+            corrected_at(mean, offset_pose, corrected);
+            const long long ridx = *ridx_p;
+            float* row = results + 13 * ridx;
+            row[0] = is_first ? 0.0f : packed[0];
+            for (int k = 0; k < 9; ++k)
+                row[4 + k] = is_first ? (k % 4 == 0 ? 1.0f : 0.0f)
+                                      : packed[4 + k];
+            for (int k = 0; k < 3; ++k) {
+                ring_pose[3 * idx + k] = mean[k];
+                row[1 + k] = mean[k];
+                last_odom[k] = odom[k];
+                last_corrected[k] = corrected[k];
+            }
+            ring_slot_valid[idx] = true;
+            *ridx_p = (ridx + 1) % R;
+            *step_p = *step_p + 1;
+            first_false[0] = K;   // warp 0 tests no slot
+        }
+    } else {
+        // the push: warps 1-31 copy the pack
+        pack_copy::copy_pack<4>(ring_pack + idx * 2LL * B, pack, 2 * B,
+                                    tid - 32, kThreads - 32, nullptr);
+        // the eviction test after e evictions, 32 slots a warp at once;
+        // slots past K count as true (the run stops at K)
+        const int h0 = (int)(head % K);
+        int first = K;
+        for (int e0 = (warp - 1) * 32; e0 < K; e0 += kThreads - 32) {
+            const int e = e0 + lane;
+            bool cond = true;
+            if (e < K) {
+                int slot = h0 + e;
+                if (slot >= K) slot -= K;
+                const float fx = slot == idx ? mx : ring_pose[3 * slot];
+                const float fy = slot == idx ? my : ring_pose[3 * slot + 1];
+                const float dx = fx - mx;
+                const float dy = fy - my;
+                const bool too_far = (dx * dx + dy * dy) > max_sq;
+                const long long ct = ct0 - e;
+                cond = ct > 1 && (ct > run_buffer_size || too_far);
+            }
+            const unsigned m = __ballot_sync(kFull, cond);
+            if (m != kFull) {
+                first = e0 + __ffs(~m) - 1;
+                break;
+            }
+        }
+        if (lane == 0) first_false[warp] = first;
     }
     __syncthreads();
 
-    if (tid == 0) {
-        int n_ev = 0;
-        while (n_ev < K && cond[n_ev]) ++n_ev;
-        *head_p = (head + n_ev) % K;
-        *count_p = ct0 - n_ev;
+    if (warp == 0) {
+        int n_ev = first_false[lane];
+        for (int o = 16; o > 0; o >>= 1)
+            n_ev = min(n_ev, __shfl_down_sync(kFull, n_ev, o));
+        if (lane == 0) {
+            *head_p = (head + n_ev) % K;
+            *count_p = ct0 - n_ev;
+        }
     }
 }
 
@@ -130,10 +168,13 @@ extern "C" int stream_update(
     long long* count, float* last_odom, float* last_corrected,
     float* results, long long* ridx, long long* step, int K, int B, int R,
     int run_buffer_size, float max_sq, cudaStream_t stream) {
-    if (K < 1 || K > kMaxSlots || B < 1 || R < 1)
+    if (K < 1 || K > kMaxSlots || B < 1 || R < 1
+            || reinterpret_cast<size_t>(pack) % 16 != 0
+            || reinterpret_cast<size_t>(ring_pack) % 16 != 0)
         return (int)cudaErrorInvalidValue;
     stream_update_kernel<<<1, kThreads, 0, stream>>>(
-        packed, center_off, pack, odom, offset_pose, ring_pack, ring_pose,
+        packed, center_off, reinterpret_cast<const float4*>(pack), odom,
+        offset_pose, reinterpret_cast<float4*>(ring_pack), ring_pose,
         ring_slot_valid, head, count, last_odom, last_corrected, results,
         ridx, step, K, B, R, run_buffer_size, max_sq);
     return (int)cudaGetLastError();

@@ -257,16 +257,20 @@ def _nvcc() -> str:
 
 def build_kernels(names=KERNELS, force: bool = False) -> float:
     """Compile the named kernels (one nvcc process per source, run in
-    parallel) unless an up-to-date library exists. Writes each compiler
+    parallel) unless a library newer than its source and the headers of
+    csrc/ (*.cuh, which the sources include) exists. Writes each compiler
     log (registers, shared memory, spills) next to its library. Returns
     the wall seconds; raises RuntimeError if any build fails."""
     t0 = time.perf_counter()
     os.makedirs(BUILD_DIR, exist_ok=True)
     procs = {}
+    headers = [os.path.join(_CSRC, f) for f in os.listdir(_CSRC)
+               if f.endswith(".cuh")]
     for name in names:
         src, lib = _source(name), _lib_path(name)
+        newest = max(os.path.getmtime(f) for f in [src, *headers])
         if (not force and os.path.exists(lib)
-                and os.path.getmtime(lib) >= os.path.getmtime(src)):
+                and os.path.getmtime(lib) >= newest):
             continue
         # per process and thread: concurrent builds never share a file
         tmp = f"{lib}.{os.getpid()}.{threading.get_ident()}.tmp"
@@ -311,12 +315,23 @@ def _lib(name: str):
             "score_head": [p, p, i, i, p, p, f, f, f, i, p, p, p, p],
             "score_tail": [p, i, i, i, p, i, p, p, i, i, p, p, p, p, p,
                            p, f, f, f, f, i, f, f, f, f, i, i, i, i, i,
-                           p, p, p],
+                           i, p, p, p],
             "stream_update": [p, p, p, p, p, p, p, p, p, p, p, p, p, p,
                               p, i, i, i, i, f, p],
         }[name]
+        if name == "score_tail":
+            set_cluster_query(lib)
         _libs[name] = lib
     return lib
+
+
+def set_cluster_query(lib) -> None:
+    """The argument types of score_tail_clusters (csrc/score_tail.cu) in
+    a library built from score_tail.cu."""
+    fn = lib.score_tail_clusters
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                   ctypes.POINTER(ctypes.c_int)]
 
 
 def _check(t, name, dtype, shape, device):

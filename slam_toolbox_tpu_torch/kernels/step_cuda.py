@@ -47,6 +47,7 @@ covariances agree with the plain version within the tolerances below
 """
 from __future__ import annotations
 
+import ctypes
 import math
 
 import torch
@@ -92,6 +93,17 @@ def _rows(t, name, dtype, width, device):
 
 def _ptr(t):
     return None if t is None else t.data_ptr()
+
+
+def _aligned16(t, name):
+    """Raise unless `t` starts on a 16-byte boundary: ring_points' and
+    stream_update's kernels move packs as 16-byte vectors (a pack's row
+    stride, B * 32 bytes, keeps every pack of an aligned buffer
+    aligned). Checked just before a launch: the plain versions take any
+    buffer."""
+    if t.data_ptr() % 16:
+        raise ValueError(f"{name}: starts at {t.data_ptr():#x}, not on a "
+                         "16-byte boundary (the kernel's 16-byte loads)")
 
 
 # -- the plain pieces ---------------------------------------------------------
@@ -372,6 +384,10 @@ def _launch_ring_points(packs, poses, slot_valid, viewpoint, G, step=None):
     pts = torch.empty((C * B, 2), dtype=_F32, device=dev)
     valid = torch.empty(C * B, dtype=torch.bool, device=dev)
     s = step or {}
+    _aligned16(packs, "ring_pack" if step else "packs")
+    for key in ("batch_packs", "scan_pack"):
+        if key in s:
+            _aligned16(s[key], key)
     lib = mc._lib("ring_points")
     mc._raise_if(lib.ring_points(
         packs.data_ptr(), poses.data_ptr(), poses.stride(0),
@@ -391,7 +407,8 @@ def _launch_ring_points(packs, poses, slot_valid, viewpoint, G, step=None):
 def ring_points(packs, poses, slot_valid, viewpoint_xy, G: int = 0):
     """Chain mode: see ring_points_plain. `poses` may be a column slice
     (its rows strided, as a chain record's); `G` is the side of the
-    raster the points feed (the launch counts' key)."""
+    raster the points feed (the launch counts' key). On a card `packs`
+    must start on a 16-byte boundary."""
     dev = packs.device
     if packs.dim() != 3 or packs.shape[2] != 8:
         raise ValueError(f"packs: shape {tuple(packs.shape)}, expected "
@@ -441,7 +458,7 @@ STEP_OUTPUTS = ("center_off", "prior", "scan_pack", "scan_odom",
 def ring_points_step(state, offset_pose, half_span: float, G: int = 0):
     """Step mode; see ring_points_step_plain. One launch: a block per ring
     slot (each forms the prior itself) and one that writes the scan's
-    buffers."""
+    buffers. On a card the packs must start on 16-byte boundaries."""
     ring = state["ring_pack"]
     dev = ring.device
     K, B = ring.shape[0], ring.shape[1]
@@ -633,52 +650,66 @@ def fill_aux_fine(aux, fp: dict, mean_f) -> None:
 
 
 # score_tail's kernel: at most 16 CTAs a cluster (the non-portable size),
-# 512 threads a CTA, kMaxHeadings coarse and kMaxFine fine headings; a
-# CTA's shared memory on Hopper is 227 KB (232,448 bytes), of which its
-# static part takes at most TAIL_STATIC_SMEM (chip_smoke checks the
-# build's) and the coarse responses and cell maxima of its cells the rest
+# 512 threads a CTA, kMaxFine fine headings, and in the resident mode
+# kMaxHeadings coarse headings; a CTA's shared memory on Hopper is 227 KB
+# (232,448 bytes), of which its static part takes at most
+# TAIL_STATIC_SMEM (chip_smoke checks the build's) and the dynamic part
+# (score_tail_smem) the rest
 TAIL_MAX_CLUSTER = 16
 TAIL_MAX_THREADS = 512
 TAIL_MAX_HEADINGS = 512
 TAIL_MAX_FINE = 64
 TAIL_SMEM_PER_CTA = 232448
 TAIL_STATIC_SMEM = 16384
+TAIL_ROOM = TAIL_SMEM_PER_CTA - TAIL_STATIC_SMEM
+# the kernel's modes, the last entry of a launch geometry: the coarse
+# responses kept in shared memory, or formed again from the sums in each
+# coarse pass (any lattice, any number of coarse headings)
+TAIL_RESIDENT, TAIL_STREAMED = 0, 1
+TAIL_MODES = ("resident", "streamed")
 
 
-def score_tail_smem(na: int, ny: int, nx: int, B: int, ctas: int) -> int:
+def score_tail_smem(na: int, ny: int, nx: int, B: int, ctas: int,
+                    mode: int = TAIL_RESIDENT) -> int:
     """Dynamic shared bytes a CTA of score_tail's kernel takes in a
-    cluster of `ctas`: the coarse responses of its ceil(ny * nx / ctas)
-    cells, all na headings of each, and the cells' maxima (4 (na + 1)
-    bytes a cell), then the B beams' local x and y (8 bytes a beam)."""
-    return 4 * (na + 1) * -(-(ny * nx) // ctas) + 8 * B
+    cluster of `ctas`: in the resident mode the coarse responses of its
+    ceil(ny * nx / ctas) cells, all na headings of each, and the cells'
+    maxima (4 (na + 1) bytes a cell); in both modes the B beams' local x
+    and y (8 bytes a beam)."""
+    cells = 0 if mode == TAIL_STREAMED else -(-(ny * nx) // ctas)
+    return 4 * (na + 1) * cells + 8 * B
 
 
 def score_tail_launch(na: int, ny: int, nx: int, B: int, na_fine: int):
     """score_tail's launch geometry for na coarse headings on an ny x nx
     lattice, B beams and na_fine fine headings: (CTAs in the cluster,
-    threads a CTA, dynamic shared bytes a CTA, score_tail_smem's). Always
-    16 CTAs of 512 threads, the fastest of the cluster shapes timed on
-    the H100 (chip_smoke's other geometries; PERF.md) at both the bench
-    (21 x 26 x 26) and the loop (21 x 81 x 81) lattice: the coarse walk
-    and the fine gathers spread over the SMs, while a phase's barriers
-    cost about the same at 8 and 16 CTAs. Raises ValueError where the
-    kernel cannot take the geometry."""
-    if not 1 <= na <= TAIL_MAX_HEADINGS:
-        raise ValueError(f"score_tail: {na} coarse headings, at most "
-                         f"{TAIL_MAX_HEADINGS}")
+    threads a CTA, dynamic shared bytes a CTA, mode). Always 16 CTAs of
+    512 threads, the fastest of the cluster shapes timed on the H100
+    (chip_smoke's other geometries; PERF.md) at both the bench (21 x 26 x
+    26) and the loop (21 x 81 x 81) lattice: the coarse walk and the fine
+    gathers spread over the SMs, while a phase's barriers cost about the
+    same at 8 and 16 CTAs. The resident mode wherever a CTA's responses
+    and beams fit its shared memory and na is at most kMaxHeadings (every
+    matcher the port builds at its defaults), else the streamed mode.
+    Raises ValueError where neither mode takes it: fine headings above
+    kMaxFine, or beams whose 8 bytes each pass a CTA's room."""
+    if na < 1:
+        raise ValueError(f"score_tail: {na} coarse headings")
     if not 1 <= na_fine <= TAIL_MAX_FINE:
         raise ValueError(f"score_tail: {na_fine} fine headings, at most "
                          f"{TAIL_MAX_FINE}")
     if ny < 1 or nx < 2 or B < 1:
         raise ValueError(f"score_tail: lattice {ny} x {nx}, {B} beams")
     smem = score_tail_smem(na, ny, nx, B, TAIL_MAX_CLUSTER)
-    room = TAIL_SMEM_PER_CTA - TAIL_STATIC_SMEM
-    if smem > room:
+    if na <= TAIL_MAX_HEADINGS and smem <= TAIL_ROOM:
+        return TAIL_MAX_CLUSTER, TAIL_MAX_THREADS, smem, TAIL_RESIDENT
+    smem = score_tail_smem(na, ny, nx, B, TAIL_MAX_CLUSTER, TAIL_STREAMED)
+    if smem > TAIL_ROOM:
         raise ValueError(
-            f"score_tail: {na} x {ny} x {nx} responses and {B} beams need "
-            f"{smem} bytes a CTA in a cluster of {TAIL_MAX_CLUSTER}, above "
-            f"{room}")
-    return TAIL_MAX_CLUSTER, TAIL_MAX_THREADS, smem
+            f"score_tail: {B} beams need {smem} bytes a CTA (8 a beam), "
+            f"above {TAIL_ROOM} ({TAIL_SMEM_PER_CTA} less "
+            f"TAIL_STATIC_SMEM {TAIL_STATIC_SMEM})")
+    return TAIL_MAX_CLUSTER, TAIL_MAX_THREADS, smem, TAIL_STREAMED
 
 
 def score_tail(raw, grid_flat, center_off, local_pts, finite, ang_c,
@@ -688,8 +719,10 @@ def score_tail(raw, grid_flat, center_off, local_pts, finite, ang_c,
                na_fine: int, refine: bool, aux=None):
     """See score_tail_plain. One thread-block cluster per match, shaped by
     score_tail_launch, which also raises here on the CPU where a card's
-    kernel could not take the geometry. The kernel takes a 3 x 3 fine
-    lattice (x_off_f, y_off_f of 3), as the matchers build it."""
+    kernel could not take the geometry; on a card, before a geometry's
+    first launch, tail_clusters checks that the card can hold the
+    cluster. The kernel takes a 3 x 3 fine lattice (x_off_f, y_off_f of
+    3), as the matchers build it."""
     dev = raw.device
     na, ny, nx = raw.shape
     B = local_pts.shape[0]
@@ -719,17 +752,47 @@ def score_tail(raw, grid_flat, center_off, local_pts, finite, ang_c,
     return out
 
 
+# active clusters by launch geometry, as tail_clusters found them
+_TAIL_CLUSTERS = {}
+
+
+def tail_clusters(geometry, device, lib=None) -> int:
+    """The clusters of a launch geometry (CTAs, threads, dynamic shared
+    bytes, mode) that the card can hold at once, asked of the CUDA
+    runtime (cudaOccupancyMaxActiveClusters) once per geometry. Raises
+    RuntimeError, naming the card and the cluster's shape, where the
+    answer is 0 or the question fails: a card or partition that cannot
+    schedule the cluster, where a launch would fail. There is no other
+    shape to fall back to."""
+    n = _TAIL_CLUSTERS.get(geometry)
+    if n is None:
+        lib = lib or mc._lib("score_tail")
+        count = (ctypes.c_int * 1)()
+        err = lib.score_tail_clusters(*geometry, count)
+        n = count[0] if err == 0 else 0
+        if n == 0:
+            ctas, threads, smem, mode = geometry
+            raise RuntimeError(
+                f"score_tail: {torch.cuda.get_device_name(device)} holds no "
+                f"cluster of {ctas} CTAs x {threads} threads with {smem} "
+                f"dynamic shared bytes a CTA ({TAIL_MODES[mode]} mode; "
+                f"cudaOccupancyMaxActiveClusters: {n}, cudaError {err})")
+        _TAIL_CLUSTERS[geometry] = n
+    return n
+
+
 def _launch_score_tail(args, aux, geometry, lib=None):
     """One launch of score_tail's kernel (from `lib`, else the package's
     build) on score_tail's checked arguments at a launch geometry
-    (cluster, threads, dynamic shared bytes); uncounted."""
+    (cluster, threads, dynamic shared bytes, mode); uncounted."""
     (raw, grid_flat, center_off, local_pts, finite, ang_c, x_off_c, y_off_c,
      x_off_f, y_off_f, scale, fine_angle_offset, fine_angle_res,
      coarse_angle_res, penalize, dist_var_penalty, ang_var_penalty,
      min_dist_pen, min_ang_pen, G, na_fine, refine) = args
     na, ny, nx = raw.shape
-    out = torch.empty(13, dtype=_F32, device=raw.device)
     lib = lib or mc._lib("score_tail")
+    tail_clusters(geometry, raw.device, lib)
+    out = torch.empty(13, dtype=_F32, device=raw.device)
     mc._raise_if(lib.score_tail(
         raw.data_ptr(), na, ny, nx, grid_flat.data_ptr(), G,
         center_off.data_ptr(), local_pts.data_ptr(), local_pts.stride(0),
@@ -791,7 +854,9 @@ def stream_update_plain(packed, center_off, pack, odom, offset_pose, eye9,
 def stream_update(packed, center_off, pack, odom, offset_pose, eye9, state,
                   run_buffer_size: int, max_sq: float, G: int = 0):
     """See stream_update_plain. One block: the pose update, the push, the
-    eviction's leading run over the K slots and the state's scalars."""
+    eviction's leading run over the K slots and the state's scalars.
+    On a card `pack` and the ring's packs must start on 16-byte
+    boundaries."""
     ring = state["ring_pack"]
     dev = ring.device
     K, B = ring.shape[0], ring.shape[1]
@@ -813,11 +878,23 @@ def stream_update(packed, center_off, pack, odom, offset_pose, eye9, state,
         return stream_update_plain(packed, center_off, pack, odom,
                                    offset_pose, eye9, state, run_buffer_size,
                                    max_sq, G)
+    _launch_stream_update(packed, center_off, pack, odom, offset_pose,
+                          state, run_buffer_size, max_sq)
+    mc._count("stream_update", G)
+
+
+def _launch_stream_update(packed, center_off, pack, odom, offset_pose, state,
+                          run_buffer_size: int, max_sq: float):
+    """One launch of stream_update's kernel on stream_update's checked
+    arguments; uncounted."""
+    K, B = state["ring_pack"].shape[0], state["ring_pack"].shape[1]
+    _aligned16(pack, "pack")
+    _aligned16(state["ring_pack"], "ring_pack")
     lib = mc._lib("stream_update")
     mc._raise_if(lib.stream_update(
         packed.data_ptr(), center_off.data_ptr(), pack.data_ptr(),
         odom.data_ptr(), offset_pose.data_ptr(),
         *(state[k].data_ptr() for k in UPDATE_STATE),
-        K, B, R, int(run_buffer_size), float(max_sq), mc._stream(),
+        K, B, state["results"].shape[0], int(run_buffer_size),
+        float(max_sq), mc._stream(),
     ), "stream_update")
-    mc._count("stream_update", G)

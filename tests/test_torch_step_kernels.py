@@ -15,8 +15,14 @@ versions on the CPU, against the JAX package's functions they stand for:
   the same packed rows) over a run that starts from an empty ring (the
   first scan), fills it, evicts by count and by distance and wraps the
   result ring;
+- score_tail on lattices past its kernel's resident mode (21 x 200 x 200
+  at 16 beams; 600 coarse headings on a 3 x 3 lattice) against JAX's
+  _score_impl on its XLA path;
 - every wrapper given CPU tensors takes its plain version, each new
-  source is in KERNELS and in the build, and no wrapper falls back.
+  source is in KERNELS and in the build, and no wrapper falls back;
+  score_tail's launch geometry and limits, its cluster check's message,
+  and the 16-byte alignment that ring_points' and stream_update's
+  kernels need.
 
 Inputs are made from numpy with a seed (rasters, beams, poses) or are
 simulated scans of one seed; both packages get the same arrays.
@@ -527,7 +533,8 @@ def test_wrappers_hold_no_fallback(sim, monkeypatch):
     and a tensor on any other device raises."""
     for fn in (sc.ring_points, sc.ring_points_step, sc.score_head,
                sc.score_tail, sc.stream_update, sc._launch_ring_points,
-               sc._launch_score_tail, sc.score_tail_launch):
+               sc._launch_score_tail, sc.score_tail_launch,
+               sc.tail_clusters, sc._launch_stream_update):
         src = inspect.getsource(fn)
         assert "try:" not in src and "except" not in src
         assert "is_available" not in src
@@ -589,21 +596,53 @@ def _port_geometry(tag):
     return m._na_coarse, n, n, B, m._na_fine
 
 
+def _wide_loop_geometry():
+    """bench.py's loop matcher with a 20 m loop search at its 0.05 m (a
+    201 x 201 lattice) and 1,081 beams."""
+    import dataclasses
+
+    import chip_smoke as cs
+    from slam_toolbox_tpu_torch.mapper import Mapper
+
+    cfg, laser, _ = cs.bench_workload(0)
+    cfg = dataclasses.replace(cfg, loop_search_space_dimension=20.0)
+    mapper = Mapper(cfg, device=CPU)
+    mapper.initialize(laser.range_threshold)
+    m = mapper.loop_matcher
+    n = len(m._xy_coarse)
+    return m._na_coarse, n, n, laser.n_beams, m._na_fine
+
+
 @pytest.mark.parametrize("tag,lattice", [
     ("bench seq", 26), ("bench loop", 81), ("cli seq", 26),
-    ("cli loop", 81), ("align", 81)])
+    ("cli loop", 81), ("align", 81), ("bench loop 20 m", 201),
+    ("200 x 200, 16 beams", 200)])
 def test_score_tail_launch_fits_every_port_geometry(tag, lattice):
-    """Every geometry the port runs takes one cluster of 2-16 CTAs of at
-    most 1,024 threads whose dynamic shared memory (the coarse responses
-    and cell maxima of a CTA's cells) and static part fit 227 KB a CTA."""
-    na, ny, nx, B, naf = _port_geometry(tag)
+    """Every geometry the port runs at its defaults takes one cluster of
+    2-16 CTAs of at most 1,024 threads in the resident mode: its dynamic
+    shared memory (the coarse responses and cell maxima of a CTA's cells,
+    the beams) and static part fit 227 KB a CTA. A 20 m loop search
+    (201 x 201) and the CPU test's 200 x 200 lattice at 16 beams do not
+    fit and take the streamed mode, whose dynamic part is the beams."""
+    if tag == "bench loop 20 m":
+        na, ny, nx, B, naf = _wide_loop_geometry()
+    elif tag.startswith("200"):
+        na, ny, nx, B, naf = 21, 200, 200, 16, 11
+    else:
+        na, ny, nx, B, naf = _port_geometry(tag)
     assert (ny, nx, na, naf) == (lattice, lattice, 21, 11)
-    cluster, threads, smem = sc.score_tail_launch(na, ny, nx, B, naf)
+    cluster, threads, smem, mode = sc.score_tail_launch(na, ny, nx, B, naf)
     assert 1 < cluster <= sc.TAIL_MAX_CLUSTER
     assert 32 <= threads <= sc.TAIL_MAX_THREADS and threads % 32 == 0
     per_cta = -(-(ny * nx) // cluster)
-    assert smem == sc.score_tail_smem(na, ny, nx, B, cluster) == (
-        4 * (na + 1) * per_cta + 8 * B)
+    resident = sc.score_tail_smem(na, ny, nx, B, cluster)
+    assert resident == 4 * (na + 1) * per_cta + 8 * B
+    if lattice <= 81:
+        assert mode == sc.TAIL_RESIDENT and smem == resident
+    else:
+        assert resident > sc.TAIL_ROOM
+        assert mode == sc.TAIL_STREAMED and smem == 8 * B == (
+            sc.score_tail_smem(na, ny, nx, B, cluster, sc.TAIL_STREAMED))
     assert smem + sc.TAIL_STATIC_SMEM <= sc.TAIL_SMEM_PER_CTA == 232448
 
 
@@ -625,28 +664,184 @@ def _tail_inputs(na, ny, nx, B=16, G=9):
         kw["min_ang_pen"], G)
 
 
-@pytest.mark.parametrize("what,na,ny,nx,na_fine,match", [
-    ("headings", sc.TAIL_MAX_HEADINGS + 1, 3, 3, 11, "coarse headings"),
-    ("fine headings", 21, 3, 3, sc.TAIL_MAX_FINE + 1, "fine headings"),
-    ("lattice", 1, 700, 700, 11, "bytes a CTA")])
-def test_score_tail_raises_where_its_kernel_cannot(what, na, ny, nx, na_fine,
-                                                   match):
-    """The wrapper raises, on the CPU too, above kMaxHeadings and kMaxFine
-    and on a lattice whose responses do not fit 16 CTAs' shared memory;
-    one heading fewer, one fine heading fewer and a lattice that fits
-    run."""
-    args = _tail_inputs(na, ny, nx)
+@pytest.mark.parametrize("what,na,ny,nx,B,na_fine,match", [
+    ("headings", sc.TAIL_MAX_HEADINGS + 1, 3, 3, 16, 11, None),
+    ("fine headings", 21, 3, 3, 16, sc.TAIL_MAX_FINE + 1, "fine headings"),
+    ("lattice", 1, 700, 700, 16, 11, None),
+    ("beams", 21, 3, 3, sc.TAIL_ROOM // 8 + 1, 11, "bytes a CTA")])
+def test_score_tail_raises_where_its_kernel_cannot(what, na, ny, nx, B,
+                                                   na_fine, match):
+    """The wrapper raises, on the CPU too, above kMaxFine fine headings and
+    for beams whose 8 bytes each pass a CTA's room (about 27,000); one
+    fine heading and one beam fewer run. Above kMaxHeadings coarse
+    headings and on a lattice whose responses do not fit 16 CTAs' shared
+    memory the kernel takes its streamed mode, so the wrapper runs; one
+    heading fewer and a lattice that fits take the resident mode."""
+    if match is None:
+        geometry = sc.score_tail_launch(na, ny, nx, B, na_fine)
+        assert geometry[3] == sc.TAIL_STREAMED
+        out = sc.score_tail(*_tail_inputs(na, ny, nx, B), na_fine, True)
+        assert out.shape == (13,) and bool(torch.isfinite(out).all())
+        fits = (na - 1, ny, nx) if what == "headings" else (na, 600, 600)
+        assert sc.score_tail_launch(*fits, B, na_fine)[3] == sc.TAIL_RESIDENT
+        return
+    args = _tail_inputs(na, ny, nx, B)
     with pytest.raises(ValueError, match=match):
         sc.score_tail(*args, na_fine, True)
     with pytest.raises(ValueError, match=match):
-        sc.score_tail_launch(na, ny, nx, 16, na_fine)
-    if what == "headings":
-        na -= 1
-    elif what == "fine headings":
+        sc.score_tail_launch(na, ny, nx, B, na_fine)
+    if what == "fine headings":
         na_fine -= 1
-    else:
-        ny = nx = 600
-    sc.score_tail_launch(na, ny, nx, 16, na_fine)
-    if what != "lattice":
-        out = sc.score_tail(*_tail_inputs(na, ny, nx), na_fine, True)
+        out = sc.score_tail(*_tail_inputs(na, ny, nx, B), na_fine, True)
         assert out.shape == (13,)
+    else:
+        B -= 1
+    assert sc.score_tail_launch(na, ny, nx, B, na_fine)[3] == (
+        sc.TAIL_STREAMED if what == "beams" else sc.TAIL_RESIDENT)
+
+
+# -- score_tail past its resident mode, against JAX ---------------------------
+def _streamed_kw(what):
+    """Matcher arguments whose coarse pass passes the kernel's resident
+    mode: a 200 x 200 lattice at 21 headings (0.1 m cells, a 39.8 m
+    search, G 409), or 600 headings (a 2.995 rad offset at 0.01 rad) on a
+    3 x 3 lattice (G 15)."""
+    kw = _kw(39.8, 0.1, 0.5) if what == "lattice" else _kw(0.4, 0.1, 0.5)
+    if what == "lattice":
+        kw.update(coarse_angle_resolution=np.deg2rad(1.0))
+    else:
+        kw.update(coarse_angle_offset=2.995, coarse_angle_resolution=0.01,
+                  fine_angle_offset=0.001)
+    return kw
+
+
+@pytest.mark.parametrize("what,lattice,na", [("lattice", 200, 21),
+                                             ("headings", 3, 600)])
+def test_score_tail_streamed_geometry_matches_jax(what, lattice, na):
+    """score_head -> score_windows -> score_tail where the kernel takes its
+    streamed mode, on a random raster and 16 beams (B small keeps both
+    sides' gathers, 21 x 40,000 x 16, within a worker's time and memory),
+    penalized and refined, against JAX's _score_impl on its XLA path,
+    with test_score_matches_jax_score_impl's tolerances."""
+    kw = _streamed_kw(what)
+    jm, tm = JaxMatcher(**kw), TorchMatcher(**kw, device=CPU)
+    n = len(tm._xy_coarse)
+    assert (n, tm._na_coarse) == (lattice, na) == (len(jm._xy_coarse),
+                                                   jm._na_coarse)
+    rng = np.random.default_rng(11)
+    G, B = tm.G, 16
+    assert G == jm.G and G <= 409
+    grid = np.zeros(G * G + 1, np.int8)
+    grid[:-1] = rng.integers(0, 101, G * G)
+    local = rng.uniform(-2.0, 2.0, (B, 2)).astype(np.float32)
+    finite = np.ones(B, bool)
+    finite[3] = False
+    center = np.float32([0.3, -0.2, 0.1])
+    off = center[:2] - np.float32(0.5 * (G - 1) * tm.resolution)
+    co = np.concatenate([center, off]).astype(np.float32)
+    geometry = sc.score_tail_launch(na, n, n, B, tm._na_fine)
+    assert geometry[3] == sc.TAIL_STREAMED
+    *_, raw, packed = _port_score(tm, grid, co, local, finite, True, True)
+    assert int(raw.max()) > 0
+    ref = _jax_score(jm, grid, co, local, finite, True, True, False)
+    _assert_packed(packed.numpy(), ref)
+
+
+# -- the checks before a launch ----------------------------------------------
+def test_score_tail_cluster_check_names_the_card(monkeypatch):
+    """Where the CUDA runtime reports no active cluster for a launch
+    geometry (cudaOccupancyMaxActiveClusters 0, as on a card or partition
+    that cannot schedule 16 CTAs in a cluster), the launch raises a
+    RuntimeError naming the card and the cluster's shape before the
+    kernel is called; a failed query raises the same way."""
+    class StubLib:
+        def __init__(self, err):
+            self.err, self.launched = err, 0
+
+        def score_tail_clusters(self, ctas, threads, smem, mode, count):
+            assert (ctas, threads, mode) == (16, 512, sc.TAIL_RESIDENT)
+            count[0] = 0
+            return self.err
+
+        def score_tail(self, *a):
+            self.launched += 1
+            return 0
+
+    monkeypatch.setattr(sc, "_TAIL_CLUSTERS", {})
+    monkeypatch.setattr(torch.cuda, "get_device_name",
+                        lambda dev=None: "Stub Hopper (MIG 1g.10gb)")
+    na, n, B, naf = 21, 81, 1081, 11
+    args = _tail_inputs(na, n, n, B) + (naf, True)
+    geometry = sc.score_tail_launch(na, n, n, B, naf)
+    for err in (0, 801):
+        lib = StubLib(err)
+        with pytest.raises(RuntimeError) as info:
+            sc._launch_score_tail(args, None, geometry, lib)
+        msg = str(info.value)
+        assert "Stub Hopper (MIG 1g.10gb)" in msg
+        assert f"16 CTAs x 512 threads with {geometry[2]}" in msg
+        assert "resident mode" in msg and f"cudaError {err}" in msg
+        assert lib.launched == 0 and not sc._TAIL_CLUSTERS
+
+
+@pytest.mark.parametrize("kernel", ["stream_update pack",
+                                    "stream_update ring_pack",
+                                    "ring_points packs",
+                                    "ring_points_step batch_packs"])
+def test_pack_kernels_raise_on_a_misaligned_pack(sim, kernel):
+    """stream_update's and ring_points' kernels move packs as 16-byte
+    vectors: a pack buffer that starts off a 16-byte boundary (here 4
+    bytes past one) raises ValueError at the launch, before the kernel's
+    library is loaded. On the CPU the wrapper takes its plain version,
+    which needs no alignment: it gives what it gives on aligned copies."""
+    def shifted(t):
+        out = torch.zeros(t.numel() + 1)[1:].view(*t.shape)
+        assert out.data_ptr() % 16
+        return out.copy_(t)
+
+    def state():
+        return _step_state(sim, [1, 2], 0, 2)
+
+    if kernel.startswith("stream_update"):
+        args = (torch.zeros(13), torch.zeros(5), None, torch.zeros(3),
+                torch.zeros(3))
+        runs = []
+        for misaligned in (False, True):
+            st = state()
+            pack = st["scan_pack"].clone()
+            if misaligned and kernel.endswith(" pack"):
+                pack = shifted(pack)
+            elif misaligned:
+                st["ring_pack"] = shifted(st["ring_pack"])
+            sc.stream_update(*args[:2], pack, *args[3:],
+                             torch.eye(3).reshape(-1), st, 5, 1.0)
+            runs.append(st)
+        for k in sc.UPDATE_STATE:
+            assert torch.equal(runs[0][k], runs[1][k]), k
+        with pytest.raises(ValueError, match="16-byte"):
+            sc._launch_stream_update(*args[:2], pack, *args[3:], st, 5, 1.0)
+    elif kernel == "ring_points packs":
+        st = state()
+        view = (st["ring_pose"], None, torch.zeros(2))
+        packs = shifted(st["ring_pack"])
+        for a, b in zip(sc.ring_points(st["ring_pack"], *view),
+                        sc.ring_points(packs, *view)):
+            assert torch.equal(a, b)
+        with pytest.raises(ValueError, match="16-byte"):
+            sc._launch_ring_points(packs, *view, 0)
+    else:
+        runs = []
+        for misaligned in (False, True):
+            st = state()
+            if misaligned:
+                st["batch_packs"] = shifted(st["batch_packs"])
+            runs.append((sc.ring_points_step(st, torch.zeros(3), 1.0), st))
+        for a, b in zip(runs[0][0], runs[1][0]):
+            assert torch.equal(a, b)
+        for k in sc.STEP_OUTPUTS:
+            assert torch.equal(runs[0][1][k], runs[1][1][k]), k
+        step = {k: st[k] for k in sc.STEP_INPUTS + sc.STEP_OUTPUTS}
+        step.update(offset_pose=torch.zeros(3), half_span=1.0)
+        with pytest.raises(ValueError, match="16-byte"):
+            sc._launch_ring_points(st["ring_pack"], st["ring_pose"],
+                                   st["ring_slot_valid"], None, 0, step)

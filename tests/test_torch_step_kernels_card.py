@@ -8,8 +8,12 @@ score_tail's coarse best and tie count bit-equal, its means within
 step_cuda.MEAN_ATOL and covariances within COV_RTOL of their scale (its
 sums run in another order than PyTorch's), its fine and angular parts
 bit-equal at its own means. Then a drain step captured as a CUDA graph
-launches the seven kernels once each. The file imports no JAX, so the
-card's machine runs it with
+launches the seven kernels once each. score_tail's streamed mode equals
+its resident mode bit for bit at both geometries and holds to the plain
+version on a 21 x 201 x 201 lattice and at 600 coarse headings on a
+3 x 3 lattice; stream_update holds to its plain
+version on its eviction edge cases up to 4,096 slots. The file imports
+no JAX, so the card's machine runs it with
 `python -m pytest --noconftest tests/test_torch_step_kernels_card.py`."""
 import numpy as np
 import pytest
@@ -131,8 +135,10 @@ def test_score_tail_cluster_at_loop_geometry(bench, penalize, refine):
                               si["finite"], penalize, refine)
     na, ny, nx = args[0].shape
     naf = args[-2]
-    ctas, _, _ = sc.score_tail_launch(na, ny, nx, si["local"].shape[0], naf)
+    ctas, _, _, mode = sc.score_tail_launch(na, ny, nx,
+                                            si["local"].shape[0], naf)
     assert (na, ny, nx) == (21, 81, 81) and ctas > 1
+    assert mode == sc.TAIL_RESIDENT
     ak = torch.zeros(sc.aux_len(naf), device=dev)
     ap = torch.zeros_like(ak)
     pk = sc.score_tail(*args, aux=ak)
@@ -159,3 +165,83 @@ def test_score_tail_cluster_at_loop_geometry(bench, penalize, refine):
         again = torch.zeros_like(ak)
         assert torch.equal(sc.score_tail(*args, aux=again), pk)
         assert torch.equal(again, ak)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tag", ["seq", "loop"])
+@pytest.mark.parametrize("penalize,refine", [(False, False), (False, True),
+                                             (True, False), (True, True)])
+def test_score_tail_streamed_equals_resident(bench, tag, penalize, refine):
+    """K7's streamed mode, forced through the launch geometry, against the
+    resident mode score_tail_launch picks at 21 x 26 x 26 and 21 x 81 x
+    81: output and aux bit-equal; the card holds at least one cluster of
+    either shape."""
+    from slam_toolbox_tpu_torch.kernels import step_cuda as sc
+
+    matcher, base, qi, _ = bench["cases"][tag]
+    scan_at, dev = bench["scan_at"], bench["dev"]
+    inp = cs.kernel_inputs(matcher, [scan_at(i) for i in base], scan_at(qi),
+                           dev)
+    grid = matcher._raster(inp["pts"], inp["valid"], inp["off"])
+    si = cs.step_inputs(matcher, [scan_at(i) for i in base], scan_at(qi),
+                        dev)
+    args = cs.score_tail_args(matcher, grid, si["center_off"], si["local"],
+                              si["finite"], penalize, refine)
+    na, ny, nx = args[0].shape
+    B, naf = si["local"].shape[0], args[-2]
+    resident = sc.score_tail_launch(na, ny, nx, B, naf)
+    assert resident[3] == sc.TAIL_RESIDENT and ny == nx == (
+        26 if tag == "seq" else 81)
+    streamed = resident[:2] + (8 * B, sc.TAIL_STREAMED)
+    got = []
+    for geom in (resident, streamed):
+        assert sc.tail_clusters(geom, dev) >= 1
+        aux = torch.zeros(sc.aux_len(naf), device=dev)
+        got.append((sc._launch_score_tail(args, aux, geom), aux))
+    torch.cuda.synchronize()
+    assert torch.equal(got[0][0], got[1][0])
+    assert torch.equal(got[0][1], got[1][1])
+
+
+@pytest.mark.cuda
+def test_score_tail_streamed_on_a_201_lattice(bench):
+    """bench.py's loop matcher with a 20 m loop search (21 x 201 x 201
+    sums, past the resident mode) at 1,081 and 271 beams: the streamed
+    K7 held to its plain version (chip_smoke.check_tail_wide: exact parts
+    bit-equal, means within MEAN_ATOL, covariances within COV_RTOL)."""
+    chain, q = cs.loop_chain(bench["data"],
+                             bench["cfg"].loop_search_maximum_distance)
+    out = cs.check_tail_wide(bench["cfg"], bench["laser"], bench["data"],
+                             bench["dev"], chain, q)
+    assert sorted(out) == ["1081", "271"]
+    assert all(r["cases_checked"] == 2 for r in out.values())
+
+
+@pytest.mark.cuda
+def test_score_tail_streamed_at_600_headings(bench):
+    """bench.py's loop matcher searching +-2.995 rad at 0.01 rad (600
+    coarse headings, past kMaxHeadings) on a 3 x 3 lattice, so 7 of the
+    cluster's 16 CTAs hold no cell, at 1,081 and 271 beams: the streamed
+    K7 held to its plain version as on the 201 x 201 lattice."""
+    chain, q = cs.loop_chain(bench["data"],
+                             bench["cfg"].loop_search_maximum_distance)
+    out = cs.check_tail_wide(bench["cfg"], bench["laser"], bench["data"],
+                             bench["dev"], chain, q, "headings")
+    assert sorted(out) == ["1081", "271"]
+    assert all(r["cases_checked"] == 2 and r["shape"].startswith("na=600 ")
+               for r in out.values())
+
+
+@pytest.mark.cuda
+def test_stream_update_edge_cases(bench):
+    """K8 against its plain version at K = 12, 25, 100 and 4,096 slots
+    with the eviction's leading run ending inside the first warp, at the
+    warp boundaries 32 and 64, at K and at 0, by count and by distance:
+    every state tensor bit-equal (chip_smoke.check_update_edges)."""
+    dev = bench["dev"]
+    scan = bench["scan_at"](3)
+    pack = torch.from_numpy(ts.scan_pack(scan)).to(dev)
+    packed = torch.zeros(13, device=dev)
+    packed[0], packed[3] = 0.7, 0.1
+    packed[4] = packed[8] = packed[12] = 1e-3
+    assert cs.check_update_edges(dev, pack, packed) == 28
