@@ -12,12 +12,16 @@ Each of REPS rounds (default 3) runs, in this order:
     ("classic") and with the matchers' eager route ("classic eager").
 Then REPS times the step kernels' wrappers on chip_smoke's step inputs
 at the sequential matcher's geometry: K5 (ring_points_step), K7
-(score_tail) and K8 (stream_update), with K2 (scatter_occupancy) and K6
-(score_head) as controls, each the mean of 200 calls timed with CUDA
-events (the host's launch path, since each kernel takes a few
-microseconds on the card). Each run prints one `AB {...}` JSON line: the
-rate, ATE, closures and the host stages of the pipeline, or the
-wrappers' ms.
+(score_tail), K8 (stream_update) and a match's coarse pass (K1's head
+form, score_windows_head, where the tree has it, else the separate head
+kernel and K1 it replaces, "score_head+score_windows"), with K2
+(scatter_occupancy) as the control, each the mean of 200 calls timed
+with CUDA events (the host's launch path, since each kernel takes a few
+microseconds on the card); and the device ms of the coarse pass and of
+K1's table form on the plain head's tables (`device_ms`: CUDA graph
+replays of 50 calls, chip_smoke.graph_ms). Each run prints one `AB
+{...}` JSON line: the rate, ATE, closures and the host stages of the
+pipeline, or the wrappers' ms.
 
 Run it from the root of each tree in one chip call, in turns (parent,
 change, change, parent), with the parent unpacked by `git archive` into
@@ -31,9 +35,10 @@ import time
 
 
 def wrapper_ms(cs, dev, n: int = 200) -> dict:
-    """K2's, K5's, K6's, K7's and K8's wrappers on the sequential
-    matcher's step inputs (chip_smoke.step_inputs): ms a call, CUDA
-    events over n."""
+    """K2's, K5's, K7's and K8's wrappers and a match's coarse pass on the
+    sequential matcher's step inputs (chip_smoke.step_inputs): ms a call,
+    CUDA events over n; and the coarse pass's and K1 table form's device
+    ms (graph replays)."""
     import torch
 
     from slam_toolbox_tpu_torch.core.scan import LocalizedScan
@@ -69,14 +74,25 @@ def wrapper_ms(cs, dev, n: int = 200) -> dict:
            si["offset_pose"], eye9)
     s5, s8 = cs.clone_state(st), cs.clone_state(st)
     kw = m._score_args
+    head = (si["center_off"], si["local"], kw["x_off_c"], kw["y_off_c"],
+            kw["scale"], kw["coarse_angle_offset"], kw["coarse_angle_res"],
+            kw["na_coarse"])
+    n_c = len(m._xy_coarse)
+
+    def coarse_pass():
+        if hasattr(sc, "score_windows_head"):
+            return sc.score_windows_head(grid, m.G, head[0], head[1],
+                                         si["finite"], *head[2:])
+        ang, d, cand0 = sc.score_head(*head, m.G)
+        return mc.score_windows(grid, m.G, d, cand0[0:1], cand0[1:2], n_c,
+                                n_c, si["finite"])
+
     calls = {
-        # K2 and K6, whose host code neither tree changes: the controls
+        # K2, whose host code neither tree changes: the control
         "scatter_occupancy": lambda: mc.scatter_occupancy(
             inp["pts"], inp["valid"], inp["off"], scale, m.G),
-        "score_head": lambda: sc.score_head(
-            si["center_off"], si["local"], kw["x_off_c"], kw["y_off_c"],
-            kw["scale"], kw["coarse_angle_offset"], kw["coarse_angle_res"],
-            kw["na_coarse"], m.G),
+        ("score_windows_head" if hasattr(sc, "score_windows_head")
+         else "score_head+score_windows"): coarse_pass,
         "ring_points_step": lambda: sc.ring_points_step(
             s5, si["offset_pose"], si["half"], m.G),
         "score_tail": lambda: sc.score_tail(*args),
@@ -84,6 +100,12 @@ def wrapper_ms(cs, dev, n: int = 200) -> dict:
                                                   m.G),
     }
     out = {name: cs.event_ms(fn, n) for name, fn in calls.items()}
+    _, d, cand0 = sc.score_head_plain(*head)
+    out["device_ms"] = {
+        "coarse_pass": cs.graph_ms(coarse_pass, 50)[0],
+        "score_windows_table": cs.graph_ms(lambda: mc.score_windows(
+            grid, m.G, d.contiguous(), cand0[0:1], cand0[1:2], n_c, n_c,
+            si["finite"]), 50)[0]}
     if hasattr(sc, "tail_clusters"):
         # the host checks the change adds before K7's and K8's launches:
         # us a call of tail_clusters (cached) and of one alignment test

@@ -4,8 +4,8 @@
     python3 chip_smoke.py
 
 Phases, in order; any failure exits non-zero and nothing is caught:
-  1. build    — compile the eight CUDA kernels from csrc/ with nvcc for
-                sm_90a (one process per source, in parallel), and beside
+  1. build    — compile the seven CUDA kernel sources from csrc/ with nvcc
+                for sm_90a (one process per source, in parallel), and beside
                 them score_tail.cu with SCORE_TAIL_PHASE_CLOCK as a
                 library that only this script loads; check score_tail's
                 static shared memory against
@@ -29,12 +29,15 @@ Phases, in order; any failure exits non-zero and nothing is caught:
                 edges, full rows and columns) at (G, hk) = (2051, 20),
                 (561, 1), (257, 0) and (257, 40), word- and bit-equal
                 required;
-                the scan step's four kernels (ring_points, score_head,
-                score_tail, stream_update) at both geometries on the
-                same scans, each against its plain version on the path's
-                inputs and on edge cases (masked and pad chain slots, NaN
-                beams, an empty ring; a heading at pi and a lattice off
-                the grid; every flag pair, no finite beam, an all-zero and
+                the scan step's kernels (ring_points, the window sums'
+                head form score_windows_head, score_tail, stream_update)
+                at both geometries on the same scans, each against its
+                plain version on the path's inputs and on edge cases
+                (masked and pad chain slots, NaN beams, an empty ring; a
+                strided local view, a heading at pi, a lattice off the
+                grid and no finite beam, the head form bit-equal to the
+                plain head then the plain sums; every flag pair, no finite
+                beam, an all-zero and
                 a flat raster; the first scan, evictions by count and
                 distance, the result ring's wrap): integer and
                 elementwise outputs bit-equal, score_tail's coarse best
@@ -48,16 +51,24 @@ Phases, in order; any failure exits non-zero and nothing is caught:
                 holds of it (cudaOccupancyMaxActiveClusters), its five
                 phases timed apart (the phase clock build), the other
                 launch geometries of TAIL_SWEEP timed beside the chosen
-                one, and its streamed mode bit-equal to the resident mode
-                under every flag pair and timed; ring_points also on a
+                one, and its streamed and wide modes bit-equal to the
+                resident mode under every flag pair and timed; ring_points
+                also on a
                 ring of WIDE_BEAMS beams in both modes; then
                 score_tail's streamed mode on a 21 x 201 x 201 lattice
                 (a 20 m loop search) and at 600 headings on a 3 x 3
                 lattice, each at 1,081 and 271 beams, against its plain
                 version (check_tail_wide), and
-                stream_update at 12, 25, 100 and 4,096 slots with the
-                eviction's leading run ending at 0, 5, 32, 64 and K
-                (check_update_edges), bit-equal;
+                stream_update at 12, 25, 100, 4,096, 4,097 and 20,000
+                slots with the eviction's leading run ending at 0, 5, 32,
+                64 and K (check_update_edges), bit-equal; every kernel
+                past its former limits (check_limits): K1 in both forms
+                at 70,000 headings, on a 2 x 70,000 lattice and on a
+                G 46,400 raster (2.15 GB), K7 at 65 and 200 fine headings
+                and at 27,009 and 60,000 beams (its wide mode), K5 at
+                49,153 and 300,000 beams, each against its plain version
+                (exact parts bit-equal) and timed; K3 past its shared
+                memory at (G, hk) = (2051, 900) among the patterns;
                 and the window-score ceiling (score_ceiling), the
                 roofline measurement at the bench geometry: its device
                 time (CUDA graph replays) beside score_windows' on the
@@ -98,7 +109,7 @@ Phases, in order; any failure exits non-zero and nothing is caught:
                 to the loop's;
                 capture ms, host us per replay, device ms per step and
                 each route's batch launch on the host (`# graph:`); a
-                replay's launches by the tally (one each of the seven
+                replay's launches by the tally (one each of the six
                 step kernels) and its device kernels in a profiler trace
                 (fewer than 20) (`# graph step:`);
  5c. programs — on phase 4's workload, the per-event programs at the
@@ -210,16 +221,16 @@ import time
 
 MEM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3
 SCALAR_OPS_PER_S = 67e12       # H100 SXM f32 outside the tensor cores
-# the kernels every mapping path launches (each match: score_head,
-# score_windows, score_tail on its raster); score_ceiling runs only in its
-# own entry point, the roofline measurement of phase 2
+# the kernels every mapping path launches (each match: score_windows in
+# its head form, then score_tail, on its raster); score_ceiling runs only
+# in its own entry point, the roofline measurement of phase 2
 PATH_KERNELS = ("scatter_occupancy", "smear_quantize", "score_windows",
-                "score_head", "score_tail")
+                "score_tail")
 # the kernels only the streaming paths launch: the drain step's first and
 # last (ring_points also forms every chain raster of a fused verify)
 STREAM_KERNELS = ("ring_points", "stream_update")
 # the scan step's kernels, which replace no Pallas kernel
-STEP_KERNELS = ("ring_points", "score_head", "score_tail", "stream_update")
+STEP_KERNELS = ("ring_points", "score_tail", "stream_update")
 REPLACES = {
     "scatter_occupancy": "slam_toolbox_tpu/kernels/match_pallas.py:234",
     "smear_quantize": "slam_toolbox_tpu/kernels/match_pallas.py:394",
@@ -229,8 +240,6 @@ REPLACES = {
     "ring_points": "slam_toolbox_tpu/mapper/streaming.py:165 "
                    "_stream_raster_impl (prior, points, FindValidPoints); "
                    "slam_toolbox_tpu/kernels/loop_verify.py:47 _chain_raster",
-    "score_head": "slam_toolbox_tpu/kernels/match.py:717 _score_impl's "
-                  "coarse headings, tables (:612 _rotated_tables), origin",
     "score_tail": "slam_toolbox_tpu/kernels/match.py:717 _score_impl after "
                   "the window sums (:599 _tie_average, :626 "
                   "_positional_cov, :656 _angular_cov, :493 _score_tensor)",
@@ -245,10 +254,13 @@ DEVICE_KEYS = ("device_ms", "library_device_ms", "replaced_device_ms")
 SPEC_COUNTS = ("spec_pairs", "spec_chain_hit", "spec_chain_miss",
                "spec_dispatch_abort", "spec_loop_dispatched", "spec_loop_hit",
                "spec_loop_partial", "spec_loop_miss")
-# the adversarial occupancy patterns' geometries: both matchers', and a
-# grid one row past a multiple of 32 with a single tap and with hk > 32
-# (where the smear's row pass walks words beyond its three)
-PATTERN_GEOMETRIES = ((2051, 20), (561, 1), (257, 0), (257, 40))
+# the adversarial occupancy patterns' geometries: both matchers', a grid
+# one row past a multiple of 32 with a single tap and with hk > 32 (where
+# the smear's row pass walks words beyond its three), the bench grid with
+# hk 900 (a block's row values past its shared memory: the scratch
+# instantiation) and a grid narrower than its taps (hk clamped to G - 1)
+PATTERN_GEOMETRIES = ((2051, 20), (561, 1), (257, 0), (257, 40),
+                      (2051, 900), (257, 300))
 
 LAP = [
     (-6.0, -3.5), (1.5, -3.5), (5.5, -3.5), (5.5, 0.5), (5.5, 3.5),
@@ -796,8 +808,10 @@ def check_step_kernels(matcher, si, grid, tag, path, timing=True):
     equal("ring_points", "wide step validity", a[1], b[1])
     same_state("ring_points", "wide step", s1, s2)
 
-    # K6: the path's local points (the step's are the pack's strided
-    # column), a heading at pi, a center whose lattice leaves the grid
+    # K1's head form against the plain head then the plain sums: the
+    # path's local points (the step's are the pack's strided column), a
+    # heading at pi, a center whose lattice leaves the grid, no finite
+    # beam
     co = si["center_off"]
     co_pi = co.clone()
     co_pi[2] = 3.1415925
@@ -805,18 +819,20 @@ def check_step_kernels(matcher, si, grid, tag, path, timing=True):
     co_far[3] = co[0] - 0.1 * matcher.resolution
     co_far[4] = co[1] + G * matcher.resolution
     strided = si["scan_pack"][:, 0:2]
-    for what, c, loc in (("center", co, si["local"]),
-                         ("strided local", co, strided),
-                         ("heading pi", co_pi, si["local"]),
-                         ("off the grid", co_far, si["local"])):
-        args = (c, loc, kw["x_off_c"], kw["y_off_c"], kw["scale"],
-                kw["coarse_angle_offset"], kw["coarse_angle_res"], na, G)
-        for x, y, part in zip(sc.score_head(*args),
-                              sc.score_head_plain(*args),
-                              ("headings", "tables", "origin")):
-            equal("score_head", f"{what} {part}", x, y)
+    fin = si["finite"]
+    for what, c, loc, f in (
+            ("center", co, si["local"], fin),
+            ("strided local", co, strided, fin),
+            ("heading pi", co_pi, si["local"], fin),
+            ("off the grid", co_far, si["local"], fin),
+            ("no finite beam", co, si["local"], torch.zeros_like(fin))):
+        args = head_args(matcher, grid, c, loc, f)
+        for x, y, part in zip(sc.score_windows_head(*args),
+                              sc.score_windows_head_plain(*args),
+                              ("sums", "headings")):
+            equal("score_windows_head", f"{what} {part}", x, y)
 
-    # K7 on K1's sums of K6's tables: the path's flags and the other
+    # K7 on K1's head-form sums: the path's flags and the other
     # three, no finite beam, an all-zero raster, a flat raster (every cell
     # ties; unpenalized), a lattice half outside the grid
     local, finite = si["local"], si["finite"]
@@ -890,24 +906,27 @@ def check_step_kernels(matcher, si, grid, tag, path, timing=True):
             raise AssertionError(f"{tag} score_tail: launch {k // 2} of "
                                  f"{TAIL_REPEATS} differs from the first")
 
-    # K7's streamed mode, forced through the geometry tuple, against the
-    # resident mode that score_tail_launch picks here: output and aux
-    # bit-equal under every flag pair; the clusters the card holds of each
+    # K7's streamed and wide modes, forced through the geometry tuple,
+    # against the resident mode that score_tail_launch picks here: output
+    # and aux bit-equal under every flag pair; the clusters the card holds
+    # of each
     streamed = geometry[:2] + (
         sc.score_tail_smem(na, n, n, B, geometry[0], sc.TAIL_STREAMED),
         sc.TAIL_STREAMED)
+    wide = geometry[:2] + (0, sc.TAIL_WIDE)
     for pz, rf in ((False, False), (False, True), (True, False),
                    (True, True)):
         args = tail_args(grid, co, finite, pz, rf)
         got = []
-        for geom in (geometry, streamed):
+        for geom in (geometry, streamed, wide):
             aux = torch.zeros(sc.aux_len(naf), device=dev)
             got.append((sc._launch_score_tail(args, aux, geom), aux))
-        what = f"streamed = resident, penalize {pz} refine {rf}"
-        equal("score_tail", f"{what}: output", got[1][0], got[0][0])
-        equal("score_tail", f"{what}: aux", got[1][1], got[0][1])
+        for k, mode in ((1, "streamed"), (2, "wide")):
+            what = f"{mode} = resident, penalize {pz} refine {rf}"
+            equal("score_tail", f"{what}: output", got[k][0], got[0][0])
+            equal("score_tail", f"{what}: aux", got[k][1], got[0][1])
     clusters = {sc.TAIL_MODES[g[3]]: sc.tail_clusters(g, dev)
-                for g in (geometry, streamed)}
+                for g in (geometry, streamed, wide)}
 
     # K8 on copies of the state, after the path's match: the path (a
     # count eviction: the ring is above run_buffer_size), no eviction, a
@@ -930,7 +949,8 @@ def check_step_kernels(matcher, si, grid, tag, path, timing=True):
         same_state("stream_update", what, s1, s2)
 
     out = {name: dict(err=err[name], cases_checked=cases[name],
-                      library_ms=None) for name in STEP_KERNELS}
+                      library_ms=None)
+           for name in STEP_KERNELS + ("score_windows_head",)}
     out["score_tail"].update(
         mean_err=err["score_tail_mean"], cov_rel_err=err["score_tail_cov_rel"],
         repeats_equal=TAIL_REPEATS, mode=sc.TAIL_MODES[geometry[3]],
@@ -943,6 +963,8 @@ def check_step_kernels(matcher, si, grid, tag, path, timing=True):
     # the path's calls, timed: the wrapper, the kernel (graph replays)
     # and its plain version (event-timed, and replayed: the device time
     # of the PyTorch ops the kernel replaces)
+    head_local = strided if step_mode else local
+    path_head = head_args(matcher, grid, co, head_local, finite)
     ts_ = clone_state(st)
     tu = clone_state(st)
     mode = "step" if step_mode else "chain"
@@ -955,12 +977,9 @@ def check_step_kernels(matcher, si, grid, tag, path, timing=True):
                                     G),
              lambda: sc.ring_points_plain(chain, rec[:, 1:4], rec[:, 4] > 0,
                                           vp))),
-        "score_head": tuple(
-            (lambda f=f: f(co, strided if step_mode else local,
-                           kw["x_off_c"], kw["y_off_c"], kw["scale"],
-                           kw["coarse_angle_offset"], kw["coarse_angle_res"],
-                           na, G))
-            for f in (sc.score_head, sc.score_head_plain)),
+        "score_windows_head": tuple(
+            (lambda f=f: f(*path_head))
+            for f in (sc.score_windows_head, sc.score_windows_head_plain)),
         "score_tail": (lambda: sc.score_tail(*path_args),
                        lambda: sc.score_tail_plain(*path_args)),
         "stream_update": (
@@ -970,27 +989,36 @@ def check_step_kernels(matcher, si, grid, tag, path, timing=True):
     # bytes each function must move once and its operations on this run's
     # inputs: the chain's or ring's packs (32 B a beam) and poses, the
     # points and validity out (9 B a beam), about 16 operations a beam;
-    # the query's beams (8 B) and the table (8 B a pair), 12 operations a
-    # pair; the coarse sums (4 B each, about 10 operations each), the
+    # the distinct raster cells the window sums read, the query's beams
+    # (9 B), the sums out (4 B each), an add a gather and 12 operations a
+    # (heading, beam) rotation; the coarse sums (4 B each, about 10
+    # operations each), the
     # distinct raster cells of the fine and angular gathers, the query's
     # beams (9 B), about 30 operations a (fine heading, beam) pair; the
     # pack pushed (read and written) and the K ring poses
     Cc = K if step_mode else C
     fine_cells = tail_cells(matcher, path_args, pens) if refine else 0
+    _, d_path, cand0 = sc.score_head_plain(
+        co, head_local, kw["x_off_c"], kw["y_off_c"], kw["scale"],
+        kw["coarse_angle_offset"], kw["coarse_angle_res"], na)
+    cells, gathers = cells_read(G, d_path, cand0[0:1], cand0[1:2], n, n,
+                                finite)
     nbytes = {
         "ring_points": Cc * B * 41 + Cc * 13 + (B * 65 + 64 if step_mode
                                                 else 8),
-        "score_head": 28 + B * 8 + na * 4 + na * B * 8 + 8,
+        "score_windows_head": (cells + 20 + 8 * n + 8 * n + B * 9
+                               + na * n * n * 4 + na * 4),
         "score_tail": 4 * na * n * n + fine_cells + B * 9 + 20 + 52
                       + 4 * 6,
         "stream_update": 13 * 4 + 20 + 2 * B * 32 + K * 12 + 13 * 4 + 64,
     }
-    ops = {"ring_points": 16 * Cc * B, "score_head": 12 * na * B,
+    ops = {"ring_points": 16 * Cc * B,
+           "score_windows_head": gathers + 12 * na * B,
            "score_tail": 10 * na * n * n + (30 * naf * B if refine else 0),
            "stream_update": 6 * K + 60}
     shapes = {
         "ring_points": f"{mode} C={Cc} B={B}",
-        "score_head": f"na={na} B={B}",
+        "score_windows_head": f"G={G} na={na} B={B} {n}x{n} head form",
         "score_tail": f"na={na} {n}x{n} B={B} penalize={penalize} "
                       f"refine={refine}",
         "stream_update": f"K={K} B={B}",
@@ -1024,18 +1052,17 @@ WIDE_BEAMS = 2500
 WIDE_SLOTS = 6
 
 
-def wide_ring(dev, seed: int = 3):
-    """A drain state whose ring holds WIDE_SLOTS packs of WIDE_BEAMS
-    random beams (local, anchor and current points within 10 m,
-    delimiter indices in [-1, B), every flag pair), one slot invalid, at
-    random poses, with a random batch row 0 and the step at it."""
+def wide_ring(dev, seed: int = 3, K: int = WIDE_SLOTS, B: int = WIDE_BEAMS):
+    """A drain state whose ring holds K packs of B random beams (local,
+    anchor and current points within 10 m, delimiter indices in [-1, B),
+    every flag pair), one slot invalid, at random poses, with a random
+    batch row 0 and the step at it."""
     import numpy as np
     import torch
 
     from slam_toolbox_tpu_torch.mapper import streaming as ts
 
     rng = np.random.default_rng(seed)
-    K, B = WIDE_SLOTS, WIDE_BEAMS
     st = ts._new_state(K, B, 4, 2, dev)
 
     def packs(n):
@@ -1048,7 +1075,7 @@ def wide_ring(dev, seed: int = 3):
     st["ring_pose"].copy_(torch.from_numpy(rng.uniform(
         -5.0, 5.0, (K, 3)).astype(np.float32)).to(dev))
     st["ring_slot_valid"].fill_(True)
-    st["ring_slot_valid"][2] = False
+    st["ring_slot_valid"][min(2, K - 1)] = False
     st["batch_packs"].copy_(packs(2))
     for key in ("batch_odoms", "last_odom", "last_corrected"):
         st[key].copy_(torch.from_numpy(rng.uniform(
@@ -1059,7 +1086,7 @@ def wide_ring(dev, seed: int = 3):
 # K8's edge cases: ring slots, and where the eviction's leading run ends
 # (inside the first warp, at the warp boundaries 32 and 64, at K; 0 for
 # none)
-UPDATE_SLOTS = (12, 25, 100, 4096)
+UPDATE_SLOTS = (12, 25, 100, 4096, 4097, 20000)
 UPDATE_RUNS = (0, 5, 32, 64)
 
 
@@ -1131,6 +1158,270 @@ def check_update_edges(dev, pack, packed):
             raise AssertionError(f"stream_update {what}: {got} evictions")
         n_cases += 1
     return n_cases
+
+
+# the geometries past each kernel's former limits (check_limits): K1's
+# headings (past gridDim.y), lattice (past its 16-bit spans) and raster
+# side (offsets past int32: a 2.15 GB raster); K7's fine headings (past
+# kMaxFine) and beams (past a CTA's room at 8 bytes a beam); K5's beams
+# (past 48 KB of flags, and past a CTA's 227 KB)
+LIMIT_HEADINGS = 70000
+LIMIT_LATTICE = (2, 70000)
+LIMIT_G = 46400
+LIMIT_FINE = (65, 200)
+LIMIT_TAIL_BEAMS = (27009, 60000)
+LIMIT_RING_BEAMS = (49153, 300000)
+
+
+def window_limit_cases(grid, G, scale, si, dev):
+    """(name, raster, G, table-form args after the raster and G, head-form
+    args after them) of K1's limit geometries at cells of 1 / scale m:
+    LIMIT_HEADINGS headings over the full turn on a 3 x 3 lattice at 16
+    beams on `grid`; a LIMIT_LATTICE lattice whose grid lies at the far
+    end of its columns (column spans start past 65,535) at 64 beams on
+    `grid`; and a LIMIT_G raster of random values with a 26 x 26 lattice
+    near its far corner at 8 beams. Tables are random within a few hundred
+    cells; the head form takes the path's local points and finite
+    mask."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(23)
+    f32 = dict(dtype=torch.float32, device=dev)
+
+    def table(na, B, reach):
+        return torch.from_numpy(rng.integers(
+            -reach, reach, (na, B, 2)).astype(np.int32)).to(dev)
+
+    def i32(v):
+        return torch.tensor([v], dtype=torch.int32, device=dev)
+
+    local, finite = si["local"], si["finite"]
+    step = 2.0 / scale          # a lattice step: two cells
+    cases = []
+    # headings: the full turn in LIMIT_HEADINGS steps around the center
+    na, B = LIMIT_HEADINGS, 16
+    c0 = (G - 1) // 2 - 2
+    off3 = torch.tensor([-step, 0.0, step], **f32)
+    cases.append(("headings", grid, G,
+                  (table(na, B, 300), i32(c0), i32(c0), 3, 3, finite[:B]),
+                  (si["center_off"], local[:B], finite[:B], off3, off3,
+                   scale, 3.14159265, 2 * 3.14159265 / na, na)))
+    # lattice: 2 x 70,000, the grid's columns at its far end
+    ny, nx = LIMIT_LATTICE
+    B = 64
+    cx0, cy0 = G + 50 - 2 * (nx - 1), G // 2
+    x_off = ((torch.arange(nx, **f32) - 0.5 * (nx - 1)) * step).contiguous()
+    y_off = torch.tensor([0.0, step], **f32)
+    co = torch.tensor([cx0 / scale + 0.5 * (nx - 1) * step, cy0 / scale,
+                       0.1, 0.0, 0.0], **f32)
+    cases.append(("lattice", grid, G,
+                  (table(3, B, 100), i32(cx0), i32(cy0), ny, nx,
+                   finite[:B]),
+                  (co, local[:B], finite[:B], x_off, y_off, scale, 0.02,
+                   0.02, 3)))
+    # raster: LIMIT_G, the lattice's rows past 46,281 (offsets past int32)
+    big = torch.randint(0, 101, (LIMIT_G * LIMIT_G + 1,), dtype=torch.int8,
+                        device=dev)
+    big[-1] = 0
+    B = 8
+    off26 = ((torch.arange(26, **f32) - 12.5) * step).contiguous()
+    co = torch.tensor([(LIMIT_G - 475) / scale, (LIMIT_G - 55) / scale, 0.2,
+                       0.0, 0.0], **f32)
+    cases.append(("raster", big, LIMIT_G,
+                  (table(3, B, 200), i32(LIMIT_G - 500), i32(LIMIT_G - 80),
+                   26, 26, finite[:B]),
+                  (co, local[:B], finite[:B], off26, off26, scale, 0.02,
+                   0.02, 3)))
+    return cases
+
+
+def check_window_limits(grid, G, scale, si, dev, timing=True):
+    """K1 in both forms past its narrow instantiation's limits
+    (window_limit_cases), each held bit-equal to its plain version (the
+    head form to the plain head then the plain sums); with `timing`, each
+    form's ms (CUDA events, 3 calls) and its plain version's (1 call).
+    Returns {case: record}."""
+    import torch
+
+    from slam_toolbox_tpu_torch.kernels import match_cuda as mc
+    from slam_toolbox_tpu_torch.kernels import step_cuda as sc
+
+    out = {}
+    for name, raster, g, targs, hargs in window_limit_cases(grid, G, scale,
+                                                            si, dev):
+        d, cx, cy, ny, nx, fin = targs
+        table = (raster, g, d, cx, cy, ny, nx, fin)
+        head = (raster, g, *hargs)
+        s = mc.score_windows(*table)
+        s_p = mc.score_windows_plain(*table)
+        raw, ang = sc.score_windows_head(*head)
+        raw_p, ang_p = sc.score_windows_head_plain(*head)
+        torch.cuda.synchronize()
+        if not torch.equal(s, s_p):
+            raise AssertionError(f"score_windows past its limits ({name}) "
+                                 "!= plain")
+        if not (torch.equal(raw, raw_p) and torch.equal(ang, ang_p)):
+            raise AssertionError(f"score_windows_head past its limits "
+                                 f"({name}) != plain")
+        if int(s_p.abs().sum()) == 0 or int(raw_p.abs().sum()) == 0:
+            raise AssertionError(f"K1 limit case {name}: no sum")
+        rec = dict(shape=f"G={g} na={d.shape[0]}/{hargs[-1]} "
+                         f"B={d.shape[1]} {ny}x{nx}", cases_checked=2)
+        if timing:
+            rec.update(
+                ms=event_ms(lambda: mc.score_windows(*table), 3),
+                plain_ms=event_ms(lambda: mc.score_windows_plain(*table), 1,
+                                  warm=0),
+                head_ms=event_ms(lambda: sc.score_windows_head(*head), 3),
+                head_plain_ms=event_ms(
+                    lambda: sc.score_windows_head_plain(*head), 1, warm=0))
+        out[name] = rec
+        print(f"# limits score_windows {name} [{rec['shape']}]: both forms "
+              f"bit-equal to plain; {json.dumps(rec)}", flush=True)
+    torch.cuda.empty_cache()
+    return out
+
+
+def hold_tail(what, args, pens, timing=True):
+    """K7 on `args` (score_tail's) against its plain version: the coarse
+    tie count and best bit-equal, the fine and angular parts bit-equal at
+    the kernel's own means, the means within MEAN_ATOL and the covariances
+    within COV_RTOL of their scale; a second launch bit-identical. Returns
+    a record (mode, errors, ms by CUDA events)."""
+    import torch
+
+    from slam_toolbox_tpu_torch.kernels import step_cuda as sc
+
+    (raw, grid, co, local, finite, _, _, _, x_off_f, y_off_f, scale,
+     fao, far, _, penalize, *_, G, naf, refine) = args
+    na, ny, nx = raw.shape
+    geometry = sc.score_tail_launch(na, ny, nx, local.shape[0], naf)
+    ak = torch.zeros(sc.aux_len(naf), device=raw.device)
+    ap, again = torch.zeros_like(ak), torch.zeros_like(ak)
+    pk = sc.score_tail(*args, aux=ak)
+    pp = sc.score_tail_plain(*args, aux=ap)
+    pk2 = sc.score_tail(*args, aux=again)
+    torch.cuda.synchronize()
+    if not torch.equal(ak[:2], ap[:2]):
+        raise AssertionError(f"score_tail {what}: coarse tie count and best")
+    if not (torch.equal(pk, pk2) and torch.equal(ak, again)):
+        raise AssertionError(f"score_tail {what}: a second launch differs")
+    if refine:
+        fp = sc.fine_parts_plain(grid, G, co, local, finite, ak[2:5],
+                                 ak[7:10], x_off_f, y_off_f, scale, fao, far,
+                                 penalize, pens, naf)
+        ref = ak.clone()
+        sc.fill_aux_fine(ref, fp, ak[7:10])
+        if not torch.equal(ak, ref):
+            raise AssertionError(f"score_tail {what}: fine and angular "
+                                 "parts")
+    cov_scale = float(pp[[4, 8, 12]].abs().max().clamp_min(1e-6))
+    e_mean = max(float((pk[1:4] - pp[1:4]).abs().max()),
+                 float((ak[2:5] - ap[2:5]).abs().max()))
+    e_cov = float((pk[4:] - pp[4:]).abs().max()) / cov_scale
+    if e_mean > sc.MEAN_ATOL or e_cov > sc.COV_RTOL:
+        raise AssertionError(f"score_tail {what}: mean {e_mean}, covariance "
+                             f"{e_cov} of its scale")
+    rec = dict(shape=f"na={na} {ny}x{nx} B={local.shape[0]} na_f={naf}",
+               mode=sc.TAIL_MODES[geometry[3]], cases_checked=1,
+               mean_err=e_mean, cov_rel_err=e_cov)
+    if timing:
+        rec.update(ms=event_ms(lambda: sc.score_tail(*args), 5),
+                   plain_ms=event_ms(lambda: sc.score_tail_plain(*args), 2))
+    return rec
+
+
+def check_tail_limits(matcher, grid, si, dev, timing=True):
+    """K7 past its streamed mode at `matcher`'s geometry on `grid`,
+    penalized and refined: LIMIT_FINE fine headings over the matcher's
+    fine span, and LIMIT_TAIL_BEAMS beams (the path's local points
+    repeated with 5 cm of noise, its finite mask repeated), each through
+    the wide mode and held to its plain version (hold_tail). Returns
+    {case: record}."""
+    import numpy as np
+    import torch
+
+    kw = matcher._score_args
+    pens = (kw["dist_var_penalty"], kw["ang_var_penalty"],
+            kw["min_dist_pen"], kw["min_ang_pen"])
+    co, local, finite = si["center_off"], si["local"], si["finite"]
+    out = {}
+    for naf in LIMIT_FINE:
+        args = list(score_tail_args(matcher, grid, co, local, finite, True,
+                                    True))
+        args[12] = 2.0 * kw["fine_angle_offset"] / (naf - 1)
+        args[20] = naf
+        out[f"fine headings {naf}"] = hold_tail(f"{naf} fine headings",
+                                                tuple(args), pens, timing)
+    rng = np.random.default_rng(17)
+    for B in LIMIT_TAIL_BEAMS:
+        reps = -(-B // local.shape[0])
+        noise = torch.from_numpy(rng.normal(0.0, 0.05, (B, 2)).astype(
+            np.float32)).to(dev)
+        loc = (local.repeat(reps, 1)[:B] + noise).contiguous()
+        fin = finite.repeat(reps)[:B].contiguous()
+        args = score_tail_args(matcher, grid, co, loc, fin, True, True)
+        out[f"beams {B}"] = hold_tail(f"{B} beams", args, pens, timing)
+    for name, rec in out.items():
+        if rec["mode"] != "wide":
+            raise AssertionError(f"score_tail {name}: {rec['mode']} mode")
+        print(f"# limits score_tail {name}: held to plain; "
+              f"{json.dumps(rec)}", flush=True)
+    return out
+
+
+def check_ring_limits(dev, vp, offset, half, G, timing=True):
+    """K5 past 48 KB of flags a block (its opt-in shared memory) and past
+    a block's shared memory (its scratch flags): rings of 3 slots of
+    LIMIT_RING_BEAMS random beams (wide_ring), chain and step mode, each
+    bit-equal to its plain version. Returns {beams: record}."""
+    import torch
+
+    from slam_toolbox_tpu_torch.kernels import step_cuda as sc
+
+    out = {}
+    for B in LIMIT_RING_BEAMS:
+        st = wide_ring(dev, seed=5, K=3, B=B)
+        view = (st["ring_pack"], st["ring_pose"], st["ring_slot_valid"], vp)
+        a = sc.ring_points(*view, G)
+        b = sc.ring_points_plain(*view)
+        s1, s2 = clone_state(st), clone_state(st)
+        c = sc.ring_points_step(s1, offset, half, G)
+        d = sc.ring_points_step_plain(s2, offset, half)
+        torch.cuda.synchronize()
+        same = all(torch.equal(x, y) for x, y in zip(a + c, b + d))
+        same = same and all(torch.equal(v, s2[k]) for k, v in s1.items()
+                            if isinstance(v, torch.Tensor))
+        if not same:
+            raise AssertionError(f"ring_points at {B} beams != plain")
+        rec = dict(shape=f"C=3 B={B}", cases_checked=2,
+                   flags="scratch" if sc.ring_scratch_bytes(3, B) else
+                   "shared (opt-in)")
+        if timing:
+            rec.update(ms=event_ms(lambda: sc.ring_points(*view, G), 5),
+                       plain_ms=event_ms(lambda: sc.ring_points_plain(*view),
+                                         2))
+        out[str(B)] = rec
+        print(f"# limits ring_points {B} beams: chain and step mode "
+              f"bit-equal to plain; {json.dumps(rec)}", flush=True)
+    return out
+
+
+def check_limits(matcher, grid, si, dev, timing=True):
+    """Phase 2's geometries past the kernels' former limits, at the
+    sequential matcher's geometry: K1 (check_window_limits), K7
+    (check_tail_limits), K5 (check_ring_limits). Returns {kernel:
+    {case: record}}."""
+    return {
+        "score_windows": check_window_limits(
+            grid, matcher.G, float(matcher._score_args["scale"]), si, dev,
+            timing),
+        "score_tail": check_tail_limits(matcher, grid, si, dev, timing),
+        "ring_points": check_ring_limits(
+            dev, si["center_off"][:2], si["offset_pose"], si["half"],
+            matcher.G, timing),
+    }
 
 
 # K7's streamed geometries (check_tail_wide): the loop matcher's config
@@ -1376,23 +1667,28 @@ def tail_phase_ms(lib, launch, n: int = 200):
 def score_tail_args(matcher, grid, center_off, local, finite, penalize,
                     refine):
     """score_tail's arguments as a match forms them at `matcher`'s
-    geometry: K6's headings and tables around center_off, K1's window
-    sums of them on `grid`, the matcher's offsets and penalties."""
-    from slam_toolbox_tpu_torch.kernels import match_cuda as mc
+    geometry: K1's head-form window sums on `grid` and headings around
+    center_off, the matcher's offsets and penalties."""
     from slam_toolbox_tpu_torch.kernels import step_cuda as sc
 
-    kw, G, n = matcher._score_args, matcher.G, len(matcher._xy_coarse)
-    ang, d, cand0 = sc.score_head(
-        center_off, local, kw["x_off_c"], kw["y_off_c"], kw["scale"],
-        kw["coarse_angle_offset"], kw["coarse_angle_res"], kw["na_coarse"],
-        G)
-    raw = mc.score_windows(grid, G, d, cand0[0:1], cand0[1:2], n, n, finite)
+    kw, G = matcher._score_args, matcher.G
+    raw, ang = sc.score_windows_head(*head_args(matcher, grid, center_off,
+                                                local, finite))
     return (raw, grid, center_off, local, finite, ang, kw["x_off_c"],
             kw["y_off_c"], kw["x_off_f"], kw["y_off_f"], kw["scale"],
             kw["fine_angle_offset"], kw["fine_angle_res"],
             kw["coarse_angle_res"], penalize, kw["dist_var_penalty"],
             kw["ang_var_penalty"], kw["min_dist_pen"], kw["min_ang_pen"], G,
             kw["na_fine"], refine)
+
+
+def head_args(matcher, grid, center_off, local, finite):
+    """score_windows_head's arguments as a match forms them at `matcher`'s
+    geometry (its coarse offsets, scale and headings) on `grid`."""
+    kw = matcher._score_args
+    return (grid, matcher.G, center_off, local, finite, kw["x_off_c"],
+            kw["y_off_c"], kw["scale"], kw["coarse_angle_offset"],
+            kw["coarse_angle_res"], kw["na_coarse"])
 
 
 def tail_cells(matcher, args, pens) -> int:
@@ -2185,7 +2481,7 @@ def check_graph(cfg, laser, data, dev):
 # the launches of one drain step, in order, and the replays phase 5b
 # traces to count its device kernels
 STEP_PATH = ("ring_points", "scatter_occupancy", "smear_quantize",
-             "score_head", "score_windows", "score_tail", "stream_update")
+             "score_windows", "score_tail", "stream_update")
 STEP_TRACE = 16
 
 
@@ -2629,15 +2925,12 @@ def continued(data, n_laps: int, seed: int, margin: float = 0.5):
     return out
 
 
-def check_cli_kernels(fixture: str, dev):
-    """K1-K3 and the step kernels at the CLI's geometries on the CARMEN
-    fixture: ONLINE_SYNC's sequential and loop matchers for the log's
-    laser (G 2403 and G 633 at 271 beams), their inputs formed as phase 2
-    forms them from the log's scans at their true poses, thinned as the
-    mapper's travel gate thins them, each kernel held to its plain version
-    as phase 2 holds it; K2 and K3 also on the adversarial patterns at
-    both (G, hk). Returns ({G: {kernel:
-    record}}, patterns checked)."""
+def cli_cases(fixture: str, dev):
+    """The CLI's geometries on the CARMEN fixture: [(matcher, base scans,
+    query scan)] for ONLINE_SYNC's sequential matcher (the running ring)
+    and loop matcher (a loop chain) for the log's laser (G 2403 and G 633
+    at 271 beams), on the log's scans at their true poses, thinned as the
+    mapper's travel gate thins them."""
     import numpy as np
 
     from slam_toolbox_tpu_torch.core.params import ONLINE_SYNC
@@ -2660,19 +2953,26 @@ def check_cli_kernels(fixture: str, dev):
             last = tp
     chain, q = loop_chain(kept, cfg.loop_search_maximum_distance)
     ring = cfg.scan_buffer_size + 2
+    print(f"# cli: {len(kept)} scans past the travel gate", flush=True)
+    return [(mapper.sequential_matcher, [kept[i][0] for i in range(ring)],
+             kept[ring + 1][0]),
+            (mapper.loop_matcher, [kept[i][0] for i in chain], kept[q][0])]
+
+
+def check_cli_kernels(fixture: str, dev):
+    """K1-K3 and the step kernels at the CLI's geometries (cli_cases),
+    their inputs formed as phase 2 forms them, each kernel held to its
+    plain version as phase 2 holds it; K2 and K3 also on the adversarial
+    patterns at both (G, hk). Returns ({G: {kernel: record}}, patterns
+    checked)."""
     out, n_patterns = {}, 0
-    for matcher, base, qi in (
-            (mapper.sequential_matcher, list(range(ring)), ring + 1),
-            (mapper.loop_matcher, chain, q)):
+    for k, (matcher, base, query) in enumerate(cli_cases(fixture, dev)):
         tag = f"cli G={matcher.G}"
-        print(f"# {tag}: {len(kept)} scans past the travel gate, "
-              f"{len(base)} base scans, query scan {qi}", flush=True)
-        inp = kernel_inputs(matcher, [kept[i][0] for i in base],
-                            kept[qi][0], dev)
+        print(f"# {tag}: {len(base)} base scans", flush=True)
+        inp = kernel_inputs(matcher, base, query, dev)
         out[str(matcher.G)], grid = check_kernels(matcher, inp, tag)
-        si = step_inputs(matcher, [kept[i][0] for i in base], kept[qi][0],
-                         dev)
-        seq = matcher is mapper.sequential_matcher
+        si = step_inputs(matcher, base, query, dev)
+        seq = k == 0
         out[str(matcher.G)].update(check_step_kernels(
             matcher, si, grid, tag, (seq, seq, seq)))
         n_patterns += check_patterns(matcher.G, matcher.half_kernel,
@@ -4101,6 +4401,9 @@ def main() -> int:
     print(f"# stream_update edge cases: {n_update_edges} bit-equal (K "
           f"{UPDATE_SLOTS}, leading runs ending at {UPDATE_RUNS} and K, by "
           f"count and by distance)", flush=True)
+    # K1, K7 and K5 past their former limits
+    limits = check_limits(mapper.sequential_matcher, grids["seq"],
+                          sis["seq"], dev)
     taps = {(m.G, m.half_kernel): m._w
             for m in (mapper.sequential_matcher, mapper.loop_matcher)}
     n_patterns, dense_ms = 0, {}
@@ -4248,10 +4551,21 @@ def main() -> int:
                               map_launches["grids"])
 
     # 13. kernels line, card line, result line
+    def summary(r):
+        return {"shape": r["shape"], "ms": r["ms"],
+                "device_ms": r["device_ms"], "plain_ms": r["plain_ms"],
+                "bound_ms": r["bound"][0], "bound_by": r["bound"][1],
+                "library_ms": r["library_ms"]}
+
     rows = []
     for name in mc.KERNELS:
         if name == "score_ceiling":
             rec, loop = ceiling, None
+        elif name == "score_windows":
+            # the form every match launches (the head form) on top; the
+            # table form (the exact match's, K4's comparison) beside it
+            rec = steps["seq"]["score_windows_head"]
+            loop = steps["loop"]["score_windows_head"]
         elif name in STEP_KERNELS:
             rec, loop = steps["seq"][name], steps["loop"][name]
         else:
@@ -4292,16 +4606,15 @@ def main() -> int:
                 for tag, counts in map_launches["cli"].items()}
             row["cli"] = {}
             for G, recs in map_launches["checks"].items():
-                r = recs[name]
+                head = name == "score_windows"
+                r = recs["score_windows_head" if head else name]
                 row["max_abs_err"] = max(row["max_abs_err"], r["err"])
-                row["cli"][G] = {
-                    "shape": r["shape"], "ms": r["ms"],
-                    "device_ms": r["device_ms"], "plain_ms": r["plain_ms"],
-                    "bound_ms": r["bound"][0], "bound_by": r["bound"][1],
-                    "library_ms": r["library_ms"]}
-                if name in STEP_KERNELS:
+                row["cli"][G] = summary(r)
+                if name in STEP_KERNELS or head:
                     row["cli"][G]["replaced_device_ms"] = r[
                         "replaced_device_ms"]
+                if head:
+                    row["cli"][G]["table_form"] = summary(recs[name])
             row["dist_launches_by_grid"] = dist_launches[name]
             row["lifelong_launches_by_grid"] = modes["lifelong"][name]
             row["loc_launches_by_grid"] = modes["loc"][name]
@@ -4336,10 +4649,22 @@ def main() -> int:
                 row["empty_tile_rows"] = rec["empty_tile_rows"]
                 row["loop"]["empty_tile_rows"] = loop["empty_tile_rows"]
             if name == "score_windows":
-                row["beam_classes"] = rec["beam_classes"]
-                row["loop"]["beam_classes"] = loop["beam_classes"]
-                row["cases_checked"] = rec["cases_checked"] + loop[
-                    "cases_checked"]
+                table, table_loop = checks["seq"][name], checks["loop"][name]
+                row["form"] = ("head (step_cuda.score_windows_head: the "
+                               "match's headings, tables and origin formed "
+                               "in the kernel)")
+                row["also_replaces"] = (
+                    "slam_toolbox_tpu/kernels/match.py:749-760 _score_impl's "
+                    "coarse headings, tables (:612 _rotated_tables), origin")
+                row["table_form"] = summary(table)
+                row["table_form"]["loop"] = summary(table_loop)
+                row["table_form"]["max_abs_err"] = max(table["err"],
+                                                       table_loop["err"])
+                row["beam_classes"] = table["beam_classes"]
+                row["loop"]["beam_classes"] = table_loop["beam_classes"]
+                row["cases_checked"] = (
+                    rec["cases_checked"] + loop["cases_checked"]
+                    + table["cases_checked"] + table_loop["cases_checked"])
         else:
             row["launched_by"] = "the ceiling measurement of phase 2"
             row["measurement_launches"] = rec["launches"]
@@ -4366,6 +4691,18 @@ def main() -> int:
             row["streamed"] = wide_tail
         if name == "stream_update":
             row["edge_cases_checked"] = n_update_edges
+            row["edge_case_slots"] = list(UPDATE_SLOTS)
+        if name in limits:
+            row["over_limit"] = limits[name]
+        if name == "smear_quantize":
+            row["over_limit"] = {
+                f"G={G} hk={hk}": {"patterns_checked": True,
+                                   "dense_device_ms": dense_ms[
+                                       f"G={G} hk={hk}"],
+                                   "scratch_bytes": mc.smear_scratch_bytes(
+                                       G, hk)}
+                for G, hk in PATTERN_GEOMETRIES
+                if mc.smear_scratch_bytes(G, hk) or hk >= G}
         rows.append(row)
     print(json.dumps({"kernels": rows}))
     print(card)

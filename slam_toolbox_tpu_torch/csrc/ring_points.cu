@@ -34,6 +34,14 @@
 // vector copy on warps 1.., which needs only the batch row, while its
 // first thread forms and writes the prior.
 //
+// Geometry: a block's keep_run flags (a byte a beam) are its dynamic
+// shared memory, opted in past 48 KB, up to its 227 KB less the static
+// part (about 232,000 beams); past that the
+// global instantiation keeps them in a scratch buffer the wrapper
+// allocates, a scan's B bytes a block, written and read by that block
+// across the same barrier. The arithmetic is the same in both, so any B
+// runs on the kernel with the same outputs.
+//
 // Numerics: built with --fmad=false, every f32 operation in the plain
 // version's order (no contraction may flip the side test ss >= 0 or move a
 // point across a cell edge), cosf / sinf / atan2f without fast math: the
@@ -107,16 +115,21 @@ __device__ __forceinline__ void load_rows(const float4* __restrict__ scan,
     }
 }
 
+// kGlobal: the keep_run flags in `flags` (B bytes a block) in place of
+// dynamic shared memory
+template <bool kGlobal>
 __global__ void __launch_bounds__(kMaxThreads)
 ring_points_kernel(const float4* __restrict__ packs,
                    const float* __restrict__ poses, int pose_stride,
                    const bool* __restrict__ slot_valid,
                    const float* __restrict__ viewpoint, int C, int B,
                    StepArgs st, float2* __restrict__ pts,
-                   bool* __restrict__ valid) {
-    extern __shared__ unsigned char keep_run[];   // B flags of this scan
+                   bool* __restrict__ valid, unsigned char* flags) {
+    extern __shared__ unsigned char s_keep[];
     __shared__ float vp[2];
     const int c = blockIdx.x;
+    // B flags of this scan
+    unsigned char* keep_run = kGlobal ? flags + (size_t)c * B : s_keep;
     const int tid = threadIdx.x, T = blockDim.x;
     const bool step_mode = st.step != nullptr;
 
@@ -222,7 +235,32 @@ ring_points_kernel(const float4* __restrict__ packs,
     }
 }
 
+// the dynamic shared bytes a block of the shared instantiation may take
+int max_flags() {
+    static int n = -1;
+    if (n < 0) {
+        int dev = 0, optin = 0;
+        cudaFuncAttributes fa;
+        if (cudaGetDevice(&dev) != cudaSuccess
+                || cudaDeviceGetAttribute(
+                       &optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                       dev) != cudaSuccess
+                || cudaFuncGetAttributes(
+                       &fa, (const void*)ring_points_kernel<false>)
+                       != cudaSuccess)
+            return 0;
+        n = optin - (int)fa.sharedSizeBytes;
+    }
+    return n;
+}
+
 }  // namespace
+
+// The scratch bytes ring_points needs for C scans of B beams: 0 where a
+// block's flags fit its shared memory, else B bytes a scan.
+extern "C" long long ring_points_scratch_bytes(int C, int B) {
+    return B <= max_flags() ? 0 : (long long)C * B;
+}
 
 extern "C" int ring_points(
     const float* packs, const float* poses, int pose_stride,
@@ -231,7 +269,8 @@ extern "C" int ring_points(
     const float* batch_odoms, const float* last_odom,
     const float* last_corrected, const float* offset_pose, float half_span,
     float* center_off, float* prior, float* scan_pack, float* scan_odom,
-    bool* scan_finite, float* pts, bool* valid, cudaStream_t stream) {
+    bool* scan_finite, float* pts, bool* valid, unsigned char* flags,
+    cudaStream_t stream) {
     if (C < 1 || B < 1 || (step == nullptr && viewpoint == nullptr)
             || reinterpret_cast<size_t>(packs) % 16 != 0
             || (step != nullptr
@@ -248,9 +287,23 @@ extern "C" int ring_points(
     threads = threads < 64 ? 64 : (threads > kMaxThreads ? kMaxThreads
                                                          : threads);
     int blocks = C + (step != nullptr ? 1 : 0);
-    ring_points_kernel<<<blocks, threads, B, stream>>>(
+    if (flags != nullptr) {
+        ring_points_kernel<true><<<blocks, threads, 0, stream>>>(
+            reinterpret_cast<const float4*>(packs), poses, pose_stride,
+            slot_valid, viewpoint, C, B, st, reinterpret_cast<float2*>(pts),
+            valid, flags);
+        return (int)cudaGetLastError();
+    }
+    if (B > max_flags()) return (int)cudaErrorInvalidValue;
+    if (B > 48 * 1024) {
+        cudaError_t e = cudaFuncSetAttribute(
+            (const void*)ring_points_kernel<false>,
+            cudaFuncAttributeMaxDynamicSharedMemorySize, B);
+        if (e != cudaSuccess) return (int)e;
+    }
+    ring_points_kernel<false><<<blocks, threads, B, stream>>>(
         reinterpret_cast<const float4*>(packs), poses, pose_stride,
         slot_valid, viewpoint, C, B, st, reinterpret_cast<float2*>(pts),
-        valid);
+        valid, nullptr);
     return (int)cudaGetLastError();
 }

@@ -20,7 +20,10 @@
 //   step_cuda.score_tail_launch's: 16 CTAs of 512 threads, the fastest of
 //   2-16 CTAs of 128-1,024 threads at both of the port's lattices, in the
 //   resident mode wherever a CTA's responses fit its shared memory and
-//   na <= kMaxHeadings, else in the streamed mode (below).
+//   na <= kMaxHeadings, else in the streamed mode, and in the wide mode
+//   where na_f > kMaxFine or the beams' 8 bytes each pass a CTA's room
+//   (below). ws (10 na_f,) int32 is the wide mode's workspace (null in
+//   the others).
 //
 // Bound: bytes at the loop geometry (21 x 81 x 81 sums, 0.55 MB), about
 // 0.16 us at 3.35 TB/s; at the bench geometry the fine pass's 11 x 9 x
@@ -50,6 +53,16 @@
 //     same angle; every thread walks the same cells and the reduction
 //     trees do not change, so the two modes' outputs are equal bit for
 //     bit. Its dynamic shared memory is the beams alone.
+//   - The wide mode is the streamed mode with nothing sized by the match
+//     in shared memory: the beams' local x, y are read from `local` (L1
+//     and L2) at each rotation, and the fine window sums and angular sums
+//     are added by every CTA straight into the workspace in global memory
+//     (int32 atomics, exact in any order; zeroed at the start, ordered by
+//     the cluster barriers, read back through L2), while the fine
+//     headings' angles, cosines, sines, penalties and responses are formed
+//     again where they are used, by the same calls on the same operands.
+//     So it takes any number of fine headings and any B, and its outputs
+//     equal the streamed mode's bit for bit.
 //   - Reductions: each CTA reduces its part in a fixed warp-shuffle tree;
 //     after a cluster barrier one warp of each CTA reads the CTAs'
 //     partials through distributed shared memory and combines them in a
@@ -145,6 +158,7 @@ struct TailArgs {
     int cpc;    // lattice cells per CTA
     float* out;
     float* aux;
+    int* ws;    // the wide mode's fine sums (9 na_f) and angular sums (na_f)
 };
 
 // a CTA's partials that the other CTAs read: [0] maximum, [1:6] tie count
@@ -309,24 +323,44 @@ __device__ void cluster_combine(cg::cluster_group& cluster,
     __syncthreads();
 }
 
-// the rotated beam offset of beam b (its local x, y at beams[2b:2b+2] in
-// shared memory) under heading (c, s), in cells, as _rotated_tables forms
-// it (int32, then widened as .long() does)
-__device__ __forceinline__ void rotated(const float* beams, int b, float c,
-                                        float s, float scale, long long* dx,
-                                        long long* dy) {
-    const float lx = beams[2 * b], ly = beams[2 * b + 1];
+// the rotated beam offset of beam b (its local x, y at beams[stride * b]
+// and the next float: shared memory, or `local` in the wide mode) under
+// heading (c, s), in cells, as _rotated_tables forms it (int32, then
+// widened as .long() does)
+__device__ __forceinline__ void rotated(const float* beams, int stride,
+                                        int b, float c, float s, float scale,
+                                        long long* dx, long long* dy) {
+    const float lx = beams[(size_t)stride * b];
+    const float ly = beams[(size_t)stride * b + 1];
     *dx = (int)round_half_away((c * lx - s * ly) * scale);
     *dy = (int)round_half_away((s * lx + c * ly) * scale);
 }
 
-// kStreamed: the streamed mode (one instantiation per mode, so the
-// resident mode's code carries none of the streamed mode's branches)
-template <bool kStreamed>
+// fine heading a's angle around the coarse mean heading mh
+__device__ __forceinline__ float fine_angle(const TailArgs& p, float mh,
+                                           int a) {
+    return (mh - p.fine_angle_offset) + p.fine_angle_res * (float)a;
+}
+
+// fine cell k = 9 a + 3 i + j's penalty, as the plain version forms it
+__device__ __forceinline__ float fine_penalty(const TailArgs& p, float mh,
+                                             int k, float inv_avp,
+                                             float inv_dvp) {
+    const int a = k / 9, ij = k - 9 * a;
+    const int i = ij / 3, j = ij - 3 * i;
+    const float d = fine_angle(p, mh, a) - mh;
+    const float apen = penalty(d * d, inv_avp, p.min_ang_pen);
+    const float yi = p.y_off_f[i], xj = p.x_off_f[j];
+    return penalty(yi * yi + xj * xj, inv_dvp, p.min_dist_pen) * apen;
+}
+
+// kMode: 0 resident, 1 streamed, 2 wide (one instantiation per mode, so
+// the resident mode's code carries none of the others' branches)
+template <int kMode>
 __global__ void __launch_bounds__(kMaxThreads)
 score_tail_kernel(TailArgs p) {
     // resident: resp (na, cpc), cmax (cpc,), then the beams' local x, y
-    // (B, 2); streamed: the beams alone
+    // (B, 2); streamed: the beams alone; wide: nothing
     extern __shared__ float dyn[];
     __shared__ Shared s;
     cg::cluster_group cluster = cg::this_cluster();
@@ -348,18 +382,31 @@ score_tail_kernel(TailArgs p) {
     const int cpc = p.cpc;
     const int lo = rank * cpc;
     const int mine = max(0, min(cells - lo, cpc));   // cells of this CTA
-    constexpr bool streamed = kStreamed;
+    constexpr bool streamed = kMode != 0;
+    constexpr bool wide = kMode == 2;
     float* resp = dyn;
     float* cmax = dyn + (size_t)na * cpc;
-    float* beams = streamed ? dyn : cmax + cpc;
+    // the beams' local x, y and their stride: in shared memory, or read
+    // from `local` in the wide mode
+    const float* beams = wide ? p.local : (streamed ? dyn : cmax + cpc);
+    const int bstride = wide ? p.lstride : 2;
+    // the wide mode's fine and angular sums, zeroed before phase 1's
+    // cluster barriers
+    int* ws_f = p.ws;
+    int* ws_a = p.ws + 9 * p.na_f;
+    if (wide) {
+        for (int k = rank * T + tid; k < 10 * p.na_f; k += C * T)
+            p.ws[k] = 0;
+    }
 
     // under refine, the beams copied into shared memory while the coarse
     // phases run (4-byte asynchronous copies: any row stride)
-    if (p.refine) {
+    if (p.refine && !wide) {
+        float* dst = streamed ? dyn : cmax + cpc;
         for (int b = tid; b < p.B; b += T) {
             const float* src = p.local + (size_t)b * p.lstride;
-            __pipeline_memcpy_async(beams + 2 * b, src, 4);
-            __pipeline_memcpy_async(beams + 2 * b + 1, src + 1, 4);
+            __pipeline_memcpy_async(dst + 2 * b, src, 4);
+            __pipeline_memcpy_async(dst + 2 * b + 1, src + 1, 4);
         }
         __pipeline_commit();
     }
@@ -481,28 +528,34 @@ score_tail_kernel(TailArgs p) {
     const int sinkv = p.grid[(long long)G * G];
     const int W = C * (T >> 5);            // warps of the cluster
     const int gw = rank * (T >> 5) + warp;  // this warp's cluster index
+    // the fine headings' cosines and sines, and the fine responses: kept
+    // in shared memory, or formed again in the wide mode
+    auto fcos = [&](int a) {
+        return wide ? cosf(fine_angle(p, mh, a)) : s.fcos[a];
+    };
+    auto fsin = [&](int a) {
+        return wide ? sinf(fine_angle(p, mh, a)) : s.fsin[a];
+    };
+    auto ftot = [&](int k) { return wide ? __ldcg(ws_f + k) : s.ftot[k]; };
+    auto fresp = [&](int k) {
+        return wide ? response(ftot(k), inv_b100, pz,
+                               fine_penalty(p, mh, k, inv_avp, inv_dvp))
+                    : s.fr[k];
+    };
     if (p.refine) {
         // 4. the fine pass: headings around the coarse mean, 3 x 3 cells
-        for (int a = tid; a < naf; a += T) {
-            float h = (mh - p.fine_angle_offset)
-                      + p.fine_angle_res * (float)a;
-            s.fang[a] = h;
-            s.fcos[a] = cosf(h);
-            s.fsin[a] = sinf(h);
-        }
-        // each fine cell's penalty (heading a, cell (i, j)), as the
-        // plain version forms it
-        for (int k = tid; k < naf * 9; k += T) {
-            const int a = k / 9, ij = k - 9 * a;
-            const int i = ij / 3, j = ij - 3 * i;
-            const float h = (mh - p.fine_angle_offset)
-                            + p.fine_angle_res * (float)a;
-            const float d = h - mh;
-            const float apen = penalty(d * d, inv_avp, p.min_ang_pen);
-            const float yi = p.y_off_f[i], xj = p.x_off_f[j];
-            s.fpen[k] = penalty(yi * yi + xj * xj, inv_dvp, p.min_dist_pen)
-                        * apen;
-            s.fsum[k] = 0;
+        if (!wide) {
+            for (int a = tid; a < naf; a += T) {
+                const float h = fine_angle(p, mh, a);
+                s.fang[a] = h;
+                s.fcos[a] = cosf(h);
+                s.fsin[a] = sinf(h);
+            }
+            // each fine cell's penalty (heading a, cell (i, j))
+            for (int k = tid; k < naf * 9; k += T) {
+                s.fpen[k] = fine_penalty(p, mh, k, inv_avp, inv_dvp);
+                s.fsum[k] = 0;
+            }
         }
         if (tid < 3) {
             s.fcx[tid] = (int)round_half_away(
@@ -520,7 +573,8 @@ score_tail_kernel(TailArgs p) {
             int sm[9] = {0, 0, 0, 0, 0, 0, 0, 0, 0};
             if (b < p.B) {
                 long long bx, by;
-                rotated(beams, b, s.fcos[a], s.fsin[a], p.scale, &bx, &by);
+                rotated(beams, bstride, b, fcos(a), fsin(a), p.scale, &bx,
+                        &by);
                 const bool fin = p.finite[b];
 #pragma unroll
                 for (int i = 0; i < 3; ++i) {
@@ -538,38 +592,43 @@ score_tail_kernel(TailArgs p) {
 #pragma unroll
             for (int k = 0; k < 9; ++k) {
                 const int v = warp_sum(sm[k]);
-                if (lane == 0) atomicAdd(&s.fsum[9 * a + k], v);
+                if (lane == 0)
+                    atomicAdd(wide ? ws_f + 9 * a + k : &s.fsum[9 * a + k],
+                              v);
             }
         }
         cluster.sync();
-        for (int k = tid; k < naf * 9; k += T) {
-            int v = 0;
-            for (int r = 0; r < C; ++r)
-                v += cluster.map_shared_rank(&s.fsum[0], r)[k];
-            s.ftot[k] = v;
+        if (!wide) {
+            for (int k = tid; k < naf * 9; k += T) {
+                int v = 0;
+                for (int r = 0; r < C; ++r)
+                    v += cluster.map_shared_rank(&s.fsum[0], r)[k];
+                s.ftot[k] = v;
+            }
+            __syncthreads();
         }
-        __syncthreads();
 
         // the fine responses, their tie average and the angular cell, by
         // the first warp of every CTA (the same bits on each)
         if (warp == 0) {
             float fbest = -INFINITY;
             for (int k = lane; k < naf * 9; k += 32) {
-                s.fr[k] = response(s.ftot[k], inv_b100, pz, s.fpen[k]);
-                fbest = nan_max(fbest, s.fr[k]);
+                if (!wide)
+                    s.fr[k] = response(s.ftot[k], inv_b100, pz, s.fpen[k]);
+                fbest = nan_max(fbest, fresp(k));
             }
             fbest = warp_max(fbest);
             const float fthr = fbest - kTol;
             float n = 0.0f, sx = 0.0f, sy = 0.0f, tc = 0.0f, ts = 0.0f;
             for (int k = lane; k < naf * 9; k += 32) {   // this lane's fr
-                if (s.fr[k] >= fthr) {
+                if (fresp(k) >= fthr) {
                     const int a = k / 9, ij = k - 9 * a;
                     const int i = ij / 3, j = ij - 3 * i;
                     n += 1.0f;
                     sx += avg_x + p.x_off_f[j];
                     sy += avg_y + p.y_off_f[i];
-                    tc += s.fcos[a];
-                    ts += s.fsin[a];
+                    tc += fcos(a);
+                    ts += fsin(a);
                 }
             }
             n = warp_sum_f(n);
@@ -598,14 +657,14 @@ score_tail_kernel(TailArgs p) {
         for (int task = gw; task < naf * nca; task += W) {
             const int a = task / nca;
             const int b0 = (task - a * nca) * kAngChunk + lane;
+            const float ca = fcos(a), sa = fsin(a);
             int v = 0;
 #pragma unroll
             for (int m = 0; m < kAngChunk / 32; ++m) {
                 const int b = b0 + 32 * m;
                 if (b < p.B) {
                     long long bx, by;
-                    rotated(beams, b, s.fcos[a], s.fsin[a], p.scale, &bx,
-                            &by);
+                    rotated(beams, bstride, b, ca, sa, p.scale, &bx, &by);
                     long long gx = bx + cx, gy = by + cy;
                     bool ok = p.finite[b] && gx >= 0 && gx < G && gy >= 0
                               && gy < G;
@@ -614,7 +673,9 @@ score_tail_kernel(TailArgs p) {
             }
             v = warp_sum(v);
             if (lane == 0)
-                atomicAdd(cluster.map_shared_rank(&s.asum[0], 0) + a, v);
+                atomicAdd(wide ? ws_a + a
+                               : cluster.map_shared_rank(&s.asum[0], 0) + a,
+                          v);
         }
     }
     cluster.sync();
@@ -650,9 +711,11 @@ score_tail_kernel(TailArgs p) {
         const float athr = best_f - 0.1f;
         float an = 0.0f, acc = 0.0f;
         for (int a = lane; a < naf; a += 32) {
-            float ra = (float)s.asum[a] * inv_b100;
+            float ra = (float)(wide ? __ldcg(ws_a + a) : s.asum[a])
+                       * inv_b100;
             if (ra >= athr) {
-                float d = s.fang[a] - best_angle;
+                float d = (wide ? fine_angle(p, mh, a) : s.fang[a])
+                          - best_angle;
                 an += ra;
                 acc += (d * d) * ra;
             }
@@ -685,8 +748,9 @@ score_tail_kernel(TailArgs p) {
                 else if (k < 13) v = (float)s.fcx[k - 10];
                 else if (k < 16) v = (float)s.fcy[k - 13];
                 else if (k < kAuxHead) v = (float)s.cell[k - 16];
-                else if (k < kAuxHead + 9 * naf) v = s.ftot[k - kAuxHead];
-                else v = s.asum[k - kAuxHead - 9 * naf];
+                else if (k < kAuxHead + 9 * naf) v = ftot(k - kAuxHead);
+                else v = wide ? __ldcg(ws_a + k - kAuxHead - 9 * naf)
+                              : s.asum[k - kAuxHead - 9 * naf];
             }
             x[k] = v;
         }
@@ -698,10 +762,13 @@ std::once_flag g_attr_once;
 cudaError_t g_attr_err = cudaSuccess;
 int g_max_dynamic = 0;   // the dynamic shared bytes a CTA may take
 
-// the kernel of a mode (0 resident, 1 streamed)
+constexpr int kModes = 3;
+
+// the kernel of a mode (0 resident, 1 streamed, 2 wide)
 const void* kernel_of(int mode) {
-    return mode == 1 ? (const void*)score_tail_kernel<true>
-                     : (const void*)score_tail_kernel<false>;
+    return mode == 2 ? (const void*)score_tail_kernel<2>
+           : mode == 1 ? (const void*)score_tail_kernel<1>
+                       : (const void*)score_tail_kernel<0>;
 }
 
 void set_attributes() {
@@ -711,14 +778,16 @@ void set_attributes() {
         g_attr_err = cudaDeviceGetAttribute(
             &optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
     g_max_dynamic = optin;
-    for (int mode = 0; mode < 2 && g_attr_err == cudaSuccess; ++mode) {
+    for (int mode = 0; mode < kModes && g_attr_err == cudaSuccess;
+         ++mode) {
         cudaFuncAttributes fa;
         g_attr_err = cudaFuncGetAttributes(&fa, kernel_of(mode));
         if (g_attr_err == cudaSuccess)
             g_max_dynamic = std::min(g_max_dynamic,
                                      optin - (int)fa.sharedSizeBytes);
     }
-    for (int mode = 0; mode < 2 && g_attr_err == cudaSuccess; ++mode) {
+    for (int mode = 0; mode < kModes && g_attr_err == cudaSuccess;
+         ++mode) {
         g_attr_err = cudaFuncSetAttribute(
             kernel_of(mode), cudaFuncAttributeMaxDynamicSharedMemorySize,
             g_max_dynamic);
@@ -756,19 +825,19 @@ extern "C" int score_tail(
     float coarse_angle_res, int penalize, float dist_var_penalty,
     float ang_var_penalty, float min_dist_pen, float min_ang_pen, int na_f,
     int refine, int cluster, int threads, int smem, int mode, float* out,
-    float* aux, cudaStream_t stream) {
-    const bool streamed = mode == 1;
+    float* aux, int* ws, cudaStream_t stream) {
+    const bool streamed = mode != 0, wide = mode == 2;
     if (na < 1 || (!streamed && na > kMaxHeadings) || ny < 1 || nx < 2
-            || B < 1 || na_f < 1 || na_f > kMaxFine || G < 1 || cluster < 1
-            || cluster > kMaxCluster || threads < 32
-            || threads > kMaxThreads || threads % 32 != 0
-            || (mode != 0 && mode != 1))
+            || B < 1 || na_f < 1 || (!wide && na_f > kMaxFine) || G < 1
+            || cluster < 1 || cluster > kMaxCluster || threads < 32
+            || threads > kMaxThreads || threads % 32 != 0 || mode < 0
+            || mode >= kModes || (wide && ws == nullptr))
         return (int)cudaErrorInvalidValue;
     const int cells = ny * nx;
     const int cpc = (cells + cluster - 1) / cluster;
     // the dynamic shared bytes of the mode's layout
-    const long long need = (streamed ? 0LL : (long long)(na + 1) * cpc * 4)
-                           + 8LL * B;
+    const long long need = wide ? 0LL
+        : (streamed ? 0LL : (long long)(na + 1) * cpc * 4) + 8LL * B;
     if (need != (long long)smem) return (int)cudaErrorInvalidValue;
     std::call_once(g_attr_once, set_attributes);
     if (g_attr_err != cudaSuccess) return (int)g_attr_err;
@@ -777,13 +846,13 @@ extern "C" int score_tail(
                finite, ang, x_off, y_off, x_off_f, y_off_f, scale,
                fine_angle_offset, fine_angle_res, coarse_angle_res,
                penalize, dist_var_penalty, ang_var_penalty, min_dist_pen,
-               min_ang_pen, na_f, refine, cpc, out, aux};
+               min_ang_pen, na_f, refine, cpc, out, aux, ws};
     cudaLaunchConfig_t cfg;
     cudaLaunchAttribute attr[1];
     launch_config(cluster, threads, smem, stream, &cfg, attr);
-    cudaError_t err = streamed
-        ? cudaLaunchKernelEx(&cfg, score_tail_kernel<true>, p)
-        : cudaLaunchKernelEx(&cfg, score_tail_kernel<false>, p);
+    cudaError_t err = wide ? cudaLaunchKernelEx(&cfg, score_tail_kernel<2>, p)
+        : streamed ? cudaLaunchKernelEx(&cfg, score_tail_kernel<1>, p)
+                   : cudaLaunchKernelEx(&cfg, score_tail_kernel<0>, p);
     if (err != cudaSuccess) return (int)err;
     return (int)cudaGetLastError();
 }
@@ -795,7 +864,7 @@ extern "C" int score_tail(
 // fail.
 extern "C" int score_tail_clusters(int cluster, int threads, int smem,
                                    int mode, int* count) {
-    if (mode != 0 && mode != 1) return (int)cudaErrorInvalidValue;
+    if (mode < 0 || mode >= kModes) return (int)cudaErrorInvalidValue;
     std::call_once(g_attr_once, set_attributes);
     if (g_attr_err != cudaSuccess) return (int)g_attr_err;
     cudaLaunchConfig_t cfg;

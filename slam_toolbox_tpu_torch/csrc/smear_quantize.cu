@@ -36,6 +36,17 @@
 //    word of the raster even at odd G; the ragged cells at tile and grid
 //    edges go out byte by byte.
 //
+//  - Reach. A tap k >= G reads only cells outside the grid (0), so the
+//    launcher clamps hk to G - 1 (the centre tap stays w's middle), which
+//    changes no output. The row values and taps of a block (4 (hk / 4 + 1)
+//    + 32 (TX + 8 (hk / 4 + 1) + 12) floats) live in shared memory up to
+//    the opt-in 227 KB, about hk 823; past it the global instantiation
+//    keeps the same layout in a scratch buffer the wrapper allocates, one
+//    region a block (written and read by that block only, across the same
+//    barriers), so any hk whose scratch the card holds runs on the kernel,
+//    with the same arithmetic in the same order: the outputs are the
+//    same bits.
+//
 // Bound on the H100: on a dense occupancy, operations: per output cell
 // the column pass does 3 f32 operations for each tap k = 0 .. hk (63 at
 // the bench's hk = 20; two of them are maxima), against 1 byte written
@@ -107,14 +118,21 @@ __device__ __forceinline__ void column_taps(float (&m)[4],
     }
 }
 
+// kGlobal: the taps and row values in `scratch`, one region of
+// 4 nch + TY sws floats a block, in place of dynamic shared memory
+template <bool kGlobal>
 __global__ void __launch_bounds__(NT, MIN_BLOCKS) smear_quantize_kernel(
     const uint32_t* __restrict__ words, const float* __restrict__ w,
-    int G, int hk, int8_t* __restrict__ out) {
+    int G, int hk, int8_t* __restrict__ out, float* scratch) {
     extern __shared__ float4 smem4[];
     __shared__ uint32_t s_rows;          // rows of the tile with a value > 0
     const Geometry geo = geometry(hk);
     const int nch = geo.nch, sw = geo.sw, sws = geo.sws;
-    float* s_w = (float*)smem4;          // 4*nch taps w[hk+k], 0 past hk
+    // 4*nch taps w[hk+k], 0 past hk
+    float* s_w = kGlobal
+        ? scratch + ((size_t)blockIdx.y * gridDim.x + blockIdx.x)
+                    * (4 * nch + (size_t)TY * sws)
+        : (float*)smem4;
     float* s_a = s_w + 4 * nch;          // TY x sws row-pass values
     const int nwr = (G + 31) / 32;
     const int rb = blockIdx.y;           // the block's word row
@@ -241,25 +259,71 @@ __global__ void __launch_bounds__(NT, MIN_BLOCKS) smear_quantize_kernel(
         out[(size_t)G * G] = 0;  // the sink cell invalid gathers read
 }
 
-int smem_bytes(int hk) {
+// a block's taps and row values, bytes
+long long smem_bytes(int hk) {
     const Geometry geo = geometry(hk);
-    return (int)(sizeof(float) * (4 * geo.nch + (size_t)TY * geo.sws));
+    return (long long)sizeof(float) * (4 * geo.nch + (long long)TY * geo.sws);
+}
+
+// the half-width the kernel runs: taps past the grid add nothing
+int reach(int G, int hk) { return hk < G - 1 ? hk : (G > 0 ? G - 1 : 0); }
+
+dim3 grid_of(int G) { return dim3((G + TX - 1) / TX, (G + 31) / 32); }
+
+// the dynamic shared bytes a block of the shared instantiation may take
+int max_dynamic() {
+    static int n = -1;
+    if (n < 0) {
+        int dev = 0, optin = 0;
+        cudaFuncAttributes fa;
+        if (cudaGetDevice(&dev) != cudaSuccess
+                || cudaDeviceGetAttribute(
+                       &optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                       dev) != cudaSuccess
+                || cudaFuncGetAttributes(
+                       &fa, (const void*)smear_quantize_kernel<false>)
+                       != cudaSuccess)
+            return 0;
+        n = optin - (int)fa.sharedSizeBytes;
+    }
+    return n;
 }
 
 }  // namespace
 
+// The scratch bytes smear_quantize needs at (G, hk): 0 where a block's
+// taps and row values fit its shared memory, else one region a block.
+extern "C" long long smear_scratch_bytes(int G, int hk) {
+    const long long smem = smem_bytes(reach(G, hk));
+    if (smem <= max_dynamic()) return 0;
+    const dim3 g = grid_of(G);
+    return smem * g.x * g.y;
+}
+
 extern "C" int smear_quantize(
     const void* words, const void* w, int G, int hk, void* out,
-    void* stream) {
-    const int smem = smem_bytes(hk);
+    void* scratch, void* stream) {
+    if (G < 1 || hk < 0) return (int)cudaErrorInvalidValue;
+    // the centre tap stays w[hk]: w + (hk - h) holds it at h
+    const int h = reach(G, hk);
+    const float* wc = (const float*)w + (hk - h);
+    const long long smem = smem_bytes(h);
+    const dim3 grid = grid_of(G);
+    const cudaStream_t st = (cudaStream_t)stream;
+    if (scratch != nullptr) {
+        smear_quantize_kernel<true><<<grid, NT, 0, st>>>(
+            (const uint32_t*)words, wc, G, h, (int8_t*)out,
+            (float*)scratch);
+        return (int)cudaGetLastError();
+    }
+    if (smem > max_dynamic()) return (int)cudaErrorInvalidValue;
     if (smem > 48 * 1024) {
         cudaError_t e = cudaFuncSetAttribute(
-            smear_quantize_kernel,
-            cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+            (const void*)smear_quantize_kernel<false>,
+            cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
         if (e != cudaSuccess) return (int)e;
     }
-    const dim3 grid((G + TX - 1) / TX, (G + 31) / 32);
-    smear_quantize_kernel<<<grid, NT, smem, (cudaStream_t)stream>>>(
-        (const uint32_t*)words, (const float*)w, G, hk, (int8_t*)out);
+    smear_quantize_kernel<false><<<grid, NT, (size_t)smem, st>>>(
+        (const uint32_t*)words, wc, G, h, (int8_t*)out, nullptr);
     return (int)cudaGetLastError();
 }

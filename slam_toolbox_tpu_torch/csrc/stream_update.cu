@@ -28,7 +28,8 @@
 // the pose chain (corrected_at, the ring pose, the result row, ridx and
 // step) while warps 1-31 copy the pack (pack_copy.cuh: each thread's
 // loads all in flight before its stores) and test the eviction slots, a
-// warp's 32 at once:
+// warp's 32 at once, in rounds of the 31 warps' 992 slots until the
+// warp's first false flag or K (so any K runs on the one block):
 // __ballot_sync of the flags, the first false one by __ffs, and after the
 // one barrier the first lane takes the minimum over the warps: the
 // leading run. The back scan of the test is the pushed one, so its pose
@@ -47,7 +48,6 @@ namespace {
 
 constexpr int kThreads = 1024;
 constexpr int kWarps = kThreads / 32;
-constexpr int kMaxSlots = 4096;
 constexpr unsigned kFull = 0xffffffffu;
 
 // streaming._corrected_at, term by term
@@ -168,7 +168,7 @@ extern "C" int stream_update(
     long long* count, float* last_odom, float* last_corrected,
     float* results, long long* ridx, long long* step, int K, int B, int R,
     int run_buffer_size, float max_sq, cudaStream_t stream) {
-    if (K < 1 || K > kMaxSlots || B < 1 || R < 1
+    if (K < 1 || B < 1 || R < 1
             || reinterpret_cast<size_t>(pack) % 16 != 0
             || reinterpret_cast<size_t>(ring_pack) % 16 != 0)
         return (int)cudaErrorInvalidValue;

@@ -11,12 +11,12 @@ best pose and the response-surface covariances (Mapper.cpp:641-694,
 Layout: the raster is the plain row-major (G*G+1,) int8 grid whose last
 cell is a zero sink for invalid gathers. The raster comes from the
 scatter and smear kernels and the coarse lattice is scored by the window
-kernel (kernels/match_cuda.py); the fused score around it (_score_impl)
-is two more kernels (kernels/step_cuda.py): score_head forms the coarse
-headings and tables, score_tail the penalties, tie averages,
-covariances and the fine 3x3 pass with its gathers on the same flat
-grid. The exact two-call path (_match_pass_impl) keeps those steps as
-PyTorch ops.
+kernel (kernels/match_cuda.py); in the fused score (_score_impl) the
+window kernel's head form forms the coarse headings and tables itself
+(step_cuda.score_windows_head), and one more kernel (step_cuda.
+score_tail) the penalties, tie averages, covariances and the fine 3x3
+pass with its gathers on the same flat grid. The exact two-call path
+(_match_pass_impl) keeps those steps as PyTorch ops.
 
 On a card a match runs as one program (match_cuda.Program): the raster
 and the fused score captured once as a CUDA graph per (base points P,
@@ -606,15 +606,12 @@ def _score_impl(
 ):
     """Coarse pass + (optional) fine pass + covariances on a prebuilt
     raster; returns the packed 13-float result, on the device: the
-    coarse headings, tables and lattice origin (step_cuda.score_head),
-    the coarse window sums (match_cuda.score_windows), and the rest
-    (step_cuda.score_tail), three launches on a card."""
-    ny, nx = y_off_c.shape[0], x_off_c.shape[0]
-    ang_c, d_c, cand0 = sc.score_head(
-        center_off, local_pts, x_off_c, y_off_c, scale, coarse_angle_offset,
-        coarse_angle_res, na_coarse, grid_size)
-    raw = mc.score_windows(grid_flat, grid_size, d_c, cand0[0:1],
-                           cand0[1:2], ny, nx, finite)
+    coarse headings and window sums, their tables and lattice origin
+    formed in the window kernel (step_cuda.score_windows_head), and the
+    rest (step_cuda.score_tail), two launches on a card."""
+    raw, ang_c = sc.score_windows_head(
+        grid_flat, grid_size, center_off, local_pts, finite, x_off_c,
+        y_off_c, scale, coarse_angle_offset, coarse_angle_res, na_coarse)
     return sc.score_tail(
         raw, grid_flat, center_off, local_pts, finite, ang_c, x_off_c,
         y_off_c, x_off_f, y_off_f, scale, fine_angle_offset, fine_angle_res,

@@ -11,8 +11,11 @@ the third, scripts/exp_roofline.py:
 
 score_ceiling is on no mapping path: it is score_windows' ceiling, the
 same data path with compile-time offsets in place of the table, timed
-beside it at equal work by chip_smoke.py. The scan step's four kernels,
-which replace no Pallas kernel (ring_points, score_head, score_tail,
+beside it at equal work by chip_smoke.py. score_windows.cu also holds
+the head form of the window sums, which forms the match's headings,
+rotated tables and lattice origin in the kernel (step_cuda.
+score_windows_head, counted under score_windows). The scan step's three
+other kernels, which replace no Pallas kernel (ring_points, score_tail,
 stream_update), have their wrappers and plain versions in
 kernels/step_cuda.py; they are built, bound and counted here with the
 others.
@@ -68,8 +71,7 @@ _CSRC = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "csrc")
 
 KERNELS = ("scatter_occupancy", "smear_quantize", "score_windows",
-           "score_ceiling", "ring_points", "score_head", "score_tail",
-           "stream_update")
+           "score_ceiling", "ring_points", "score_tail", "stream_update")
 # score_ceiling's compile-time (dx, dy) offsets, as in csrc/score_ceiling.cu
 CEIL_OFFSETS = ((612, -35), (-480, 271), (133, 702), (-57, -655),
                 (890, 404), (-821, -230), (305, -877), (-214, 515))
@@ -307,20 +309,30 @@ def _lib(name: str):
         fn.restype = i
         fn.argtypes = {
             "scatter_occupancy": [p, p, p, f, i, i, p, p],
-            "smear_quantize": [p, p, i, i, p, p],
+            "smear_quantize": [p, p, i, i, p, p, p],
             "score_windows": [p, i, p, p, p, i, i, i, i, p, p, p],
             "score_ceiling": [p, i, p, p, i, i, i, i, p, p],
             "ring_points": [p, p, i, p, p, i, i, p, p, p, p, p, p, f,
-                            p, p, p, p, p, p, p, p],
-            "score_head": [p, p, i, i, p, p, f, f, f, i, p, p, p, p],
+                            p, p, p, p, p, p, p, p, p],
             "score_tail": [p, i, i, i, p, i, p, p, i, i, p, p, p, p, p,
                            p, f, f, f, f, i, f, f, f, f, i, i, i, i, i,
-                           i, p, p, p],
+                           i, p, p, p, p],
             "stream_update": [p, p, p, p, p, p, p, p, p, p, p, p, p, p,
                               p, i, i, i, i, f, p],
         }[name]
         if name == "score_tail":
             set_cluster_query(lib)
+        if name == "score_windows":
+            head = lib.score_windows_head
+            head.restype = i
+            head.argtypes = [p, i, p, p, i, p, p, f, f, f, i, i, i, i, p,
+                             p, p, p]
+        if name == "ring_points":
+            lib.ring_points_scratch_bytes.restype = ctypes.c_longlong
+            lib.ring_points_scratch_bytes.argtypes = [i, i]
+        if name == "smear_quantize":
+            lib.smear_scratch_bytes.restype = ctypes.c_longlong
+            lib.smear_scratch_bytes.argtypes = [i, i]
         _libs[name] = lib
     return lib
 
@@ -408,7 +420,10 @@ def smear_quantize(words, w, G: int, hk: int):
     non-increasing outward from the centre (rasterize.check_smear_taps);
     it does not check them, since that would read the device. Matcher
     checks its taps on the host before upload. The plain version, taken
-    for CPU tensors, holds for any taps."""
+    for CPU tensors, holds for any taps. Where a block's taps and row
+    values pass its shared memory (hk above about 823, below G) the
+    kernel keeps them in a scratch buffer allocated here
+    (smear_scratch_bytes)."""
     dev = words.device
     _check(words, "words", torch.int32, (occupancy_words(G), G), dev)
     _check(w, "w", torch.float32, (2 * hk + 1,), dev)
@@ -416,11 +431,32 @@ def smear_quantize(words, w, G: int, hk: int):
         return smear_quantize_plain(words, w, G, hk)
     lib = _lib("smear_quantize")
     out = torch.empty(G * G + 1, dtype=torch.int8, device=dev)
+    nbytes = smear_scratch_bytes(G, hk, lib)
+    scratch = (torch.empty(nbytes // 4, dtype=torch.float32, device=dev)
+               if nbytes else None)
     _raise_if(lib.smear_quantize(
-        words.data_ptr(), w.data_ptr(), G, hk, out.data_ptr(), _stream(),
+        words.data_ptr(), w.data_ptr(), G, hk, out.data_ptr(),
+        None if scratch is None else scratch.data_ptr(), _stream(),
     ), "smear_quantize")
     _count("smear_quantize", G)
     return out
+
+
+# scratch bytes of smear_quantize's kernel by (G, hk), as its library
+# answers (0: the shared-memory instantiation)
+_SMEAR_SCRATCH = {}
+
+
+def smear_scratch_bytes(G: int, hk: int, lib=None) -> int:
+    """The scratch smear_quantize's kernel takes at (G, hk): 0 where a
+    block's taps and row values fit its shared memory, else a region a
+    block (csrc/smear_quantize.cu smear_scratch_bytes); asked once per
+    geometry."""
+    n = _SMEAR_SCRATCH.get((G, hk))
+    if n is None:
+        lib = lib or _lib("smear_quantize")
+        n = _SMEAR_SCRATCH[G, hk] = int(lib.smear_scratch_bytes(G, hk))
+    return n
 
 
 # -- K1: coarse window sums --------------------------------------------------
@@ -452,8 +488,9 @@ def score_windows(grid_flat, G: int, d, cand_x0, cand_y0, ny: int, nx: int,
     int32 tensors of one element on the grid's device, so the matcher's
     device-side candidate origin needs no host round trip. The kernel's
     launcher zero-fills the sums on the stream, so the call is one ctypes
-    crossing and no PyTorch launch; it refuses ny or nx above 65535 and
-    grids whose offsets, the lattice's reach included, pass int32."""
+    crossing and no PyTorch launch. Lattice sides above 65,535, headings
+    above 65,535 and offsets past int32 take the kernel's wide
+    instantiation."""
     dev = grid_flat.device
     na, B = d.shape[0], d.shape[1]
     _check(grid_flat, "grid_flat", torch.int8, (G * G + 1,), dev)
@@ -503,8 +540,9 @@ def score_ceiling(grid_flat, G: int, cand_x0, cand_y0, na: int, B: int,
     """The window-score ceiling; see score_ceiling_plain. The kernel is
     score_windows' data path for the na * B slots with the table taken
     out; its launcher zero-fills the sums on the stream, so the call makes
-    no PyTorch launch. It refuses the grids score_windows refuses and
-    more than about 2**31 slots."""
+    no PyTorch launch. It is on no mapping path and keeps the limits of
+    score_windows' narrow instantiation (lattice sides up to 65,535,
+    int32 offsets) and about 2**31 slots."""
     dev = grid_flat.device
     _check(grid_flat, "grid_flat", torch.int8, (G * G + 1,), dev)
     _check(cand_x0, "cand_x0", torch.int32, (1,), dev)

@@ -5,23 +5,27 @@ The JAX package's drain step is one traced body inside lax.fori_loop
 (slam_toolbox_tpu/mapper/streaming.py _stream_raster_impl and
 _stream_update_impl), and its match one jit (kernels/match.py
 _score_impl): XLA fuses their tensor code into a few fusions around the
-three Pallas calls. None of the four kernels here replaces a Pallas
+three Pallas calls. None of the three kernels here replaces a Pallas
 kernel; each stands for one such group of XLA-fused code:
 
   ring_points    <- the ring's world points, device FindValidPoints and,
                     in step mode, the prior (_stream_raster_impl :165)
-  score_head     <- _score_impl's coarse headings, rotated tables and
-                    lattice origin (kernels/match.py :717-758, :612)
-  score_tail     <- the rest of _score_impl: penalties, tie averages,
-                    covariances and the fine pass (:758-800, :599, :626,
-                    :656)
+  score_tail     <- the rest of _score_impl after the window sums:
+                    penalties, tie averages, covariances and the fine
+                    pass (:758-800, :599, :626, :656)
   stream_update  <- _stream_update_impl's pose update, ring push,
                     eviction and result append (:223)
 
-On a card a match runs score_head -> score_windows (K1) -> score_tail,
-and a drain step ring_points -> scatter_occupancy (K2) ->
-smear_quantize (K3) -> score_head -> score_windows -> score_tail ->
-stream_update: seven launches.
+_score_impl's head (its coarse headings, rotated tables and lattice
+origin, kernels/match.py :717-758, :612) is folded into the window-sum
+kernel (K1, csrc/score_windows.cu): score_windows_head below is its
+wrapper, its plain version score_head_plain followed by
+match_cuda.score_windows_plain, its launches counted under
+score_windows.
+
+On a card a match runs score_windows_head (K1) -> score_tail, and a
+drain step ring_points -> scatter_occupancy (K2) -> smear_quantize (K3)
+-> score_windows_head -> score_tail -> stream_update: six launches.
 
 The wrappers follow kernels/match_cuda.py: given CPU tensors a wrapper
 runs its plain version, given CUDA tensors it launches its kernel
@@ -376,9 +380,28 @@ def ring_points_plain(packs, poses, slot_valid, viewpoint_xy):
     return pts.reshape(C * B, 2), valid.reshape(C * B)
 
 
+# scratch bytes of ring_points' kernel by (scans, beams), as its library
+# answers (0: the flags in shared memory)
+_RING_SCRATCH = {}
+
+
+def ring_scratch_bytes(C: int, B: int, lib=None) -> int:
+    """The scratch ring_points' kernel takes for C scans of B beams: 0
+    where a block's keep_run flags (a byte a beam) fit its shared memory,
+    else C * B (csrc/ring_points.cu ring_points_scratch_bytes); asked
+    once per geometry."""
+    n = _RING_SCRATCH.get((C, B))
+    if n is None:
+        lib = lib or mc._lib("ring_points")
+        n = _RING_SCRATCH[C, B] = int(lib.ring_points_scratch_bytes(C, B))
+    return n
+
+
 def _launch_ring_points(packs, poses, slot_valid, viewpoint, G, step=None):
     """One launch of the ring-points kernel; `step` holds the step mode's
-    tensors (reads, then writes) or is None."""
+    tensors (reads, then writes) or is None. Past its shared memory the
+    kernel keeps each scan's flags in a scratch buffer allocated here
+    (ring_scratch_bytes)."""
     dev = packs.device
     C, B = packs.shape[0], packs.shape[1]
     pts = torch.empty((C * B, 2), dtype=_F32, device=dev)
@@ -389,6 +412,9 @@ def _launch_ring_points(packs, poses, slot_valid, viewpoint, G, step=None):
         if key in s:
             _aligned16(s[key], key)
     lib = mc._lib("ring_points")
+    nbytes = ring_scratch_bytes(C, B, lib)
+    flags = (torch.empty(nbytes, dtype=torch.uint8, device=dev)
+             if nbytes else None)
     mc._raise_if(lib.ring_points(
         packs.data_ptr(), poses.data_ptr(), poses.stride(0),
         _ptr(slot_valid), _ptr(viewpoint), C, B,
@@ -398,7 +424,7 @@ def _launch_ring_points(packs, poses, slot_valid, viewpoint, G, step=None):
         float(s.get("half_span", 0.0)), _ptr(s.get("center_off")),
         _ptr(s.get("prior")), _ptr(s.get("scan_pack")),
         _ptr(s.get("scan_odom")), _ptr(s.get("scan_finite")),
-        pts.data_ptr(), valid.data_ptr(), mc._stream(),
+        pts.data_ptr(), valid.data_ptr(), _ptr(flags), mc._stream(),
     ), "ring_points")
     mc._count("ring_points", G)
     return pts, valid
@@ -481,14 +507,13 @@ def ring_points_step(state, offset_pose, half_span: float, G: int = 0):
                                state["ring_slot_valid"], None, G, step)
 
 
-# -- K6: score head -----------------------------------------------------------
+# -- K1's head form: the match's head folded into the window sums -----------
 def score_head_plain(center_off, local_pts, x_off_c, y_off_c, scale,
-                     coarse_angle_offset, coarse_angle_res, na_coarse: int,
-                     G: int = 0):
+                     coarse_angle_offset, coarse_angle_res, na_coarse: int):
     """The coarse pass's preamble of a match: the headings ang_c (na,)
     f32 around center_off's heading, their rotated beam tables d_c (na,
     B, 2) int32, and the lattice origin cand0 = (cand_x[0], cand_y[0])
-    (2,) int32 that the window kernel takes."""
+    (2,) int32 that the window sums take."""
     center = center_off[:3]
     offset = center_off[3:5]
     dev = center_off.device
@@ -504,33 +529,56 @@ def score_head_plain(center_off, local_pts, x_off_c, y_off_c, scale,
     return ang_c, d_c, torch.stack([cand_x[0], cand_y[0]])
 
 
-def score_head(center_off, local_pts, x_off_c, y_off_c, scale,
-               coarse_angle_offset, coarse_angle_res, na_coarse: int,
-               G: int = 0):
-    """See score_head_plain; `G` is the raster's side (the launch counts'
-    key). `local_pts` may be a column slice of a pack."""
-    dev = center_off.device
-    mc._check(center_off, "center_off", _F32, (5,), dev)
+def score_windows_head_plain(grid_flat, G: int, center_off, local_pts,
+                             finite, x_off_c, y_off_c, scale,
+                             coarse_angle_offset, coarse_angle_res,
+                             na_coarse: int):
+    """A match's coarse window sums raw (na, ny, nx) int32 and headings
+    ang_c (na,) f32: score_head_plain's headings, tables and origin, then
+    match_cuda.score_windows_plain's sums of them."""
+    ang_c, d_c, cand0 = score_head_plain(
+        center_off, local_pts, x_off_c, y_off_c, scale, coarse_angle_offset,
+        coarse_angle_res, na_coarse)
+    raw = mc.score_windows_plain(grid_flat, G, d_c, cand0[0:1], cand0[1:2],
+                                 y_off_c.shape[0], x_off_c.shape[0], finite)
+    return raw, ang_c
+
+
+def score_windows_head(grid_flat, G: int, center_off, local_pts, finite,
+                       x_off_c, y_off_c, scale, coarse_angle_offset,
+                       coarse_angle_res, na_coarse: int):
+    """See score_windows_head_plain: one launch of the window-sum kernel's
+    head form (csrc/score_windows.cu), which rotates each staged beam in
+    the block and never writes the table, counted under score_windows
+    and G. `local_pts` may be a column slice of a pack. The kernel's
+    launcher zero-fills the sums on the stream; any geometry the card
+    holds runs on it (its wide instantiation past 16-bit lattice sides,
+    65,535 headings or int32 offsets)."""
+    dev = grid_flat.device
     B = local_pts.shape[0]
+    ny, nx = y_off_c.shape[0], x_off_c.shape[0]
+    mc._check(grid_flat, "grid_flat", torch.int8, (G * G + 1,), dev)
+    mc._check(center_off, "center_off", _F32, (5,), dev)
     stride = _rows(local_pts, "local_pts", _F32, 2, dev)
-    mc._check(x_off_c, "x_off_c", _F32, tuple(x_off_c.shape), dev)
-    mc._check(y_off_c, "y_off_c", _F32, tuple(y_off_c.shape), dev)
+    mc._check(finite, "finite", torch.bool, (B,), dev)
+    mc._check(x_off_c, "x_off_c", _F32, (nx,), dev)
+    mc._check(y_off_c, "y_off_c", _F32, (ny,), dev)
     if not mc._on_cuda(dev):
-        return score_head_plain(center_off, local_pts, x_off_c, y_off_c,
-                                scale, coarse_angle_offset, coarse_angle_res,
-                                na_coarse, G)
+        return score_windows_head_plain(
+            grid_flat, G, center_off, local_pts, finite, x_off_c, y_off_c,
+            scale, coarse_angle_offset, coarse_angle_res, na_coarse)
+    raw = torch.empty((na_coarse, ny, nx), dtype=torch.int32, device=dev)
     ang = torch.empty(na_coarse, dtype=_F32, device=dev)
-    d = torch.empty((na_coarse, B, 2), dtype=torch.int32, device=dev)
-    cand0 = torch.empty(2, dtype=torch.int32, device=dev)
-    lib = mc._lib("score_head")
-    mc._raise_if(lib.score_head(
-        center_off.data_ptr(), local_pts.data_ptr(), stride, B,
-        x_off_c.data_ptr(), y_off_c.data_ptr(), float(scale),
-        float(coarse_angle_offset), float(coarse_angle_res), na_coarse,
-        ang.data_ptr(), d.data_ptr(), cand0.data_ptr(), mc._stream(),
-    ), "score_head")
-    mc._count("score_head", G)
-    return ang, d, cand0
+    lib = mc._lib("score_windows")
+    mc._raise_if(lib.score_windows_head(
+        grid_flat.data_ptr(), G, center_off.data_ptr(),
+        local_pts.data_ptr(), stride, x_off_c.data_ptr(),
+        y_off_c.data_ptr(), float(scale), float(coarse_angle_offset),
+        float(coarse_angle_res), na_coarse, B, ny, nx, finite.data_ptr(),
+        raw.data_ptr(), ang.data_ptr(), mc._stream(),
+    ), "score_windows")
+    mc._count("score_windows", G)
+    return raw, ang
 
 
 # -- K7: score tail -----------------------------------------------------------
@@ -650,11 +698,11 @@ def fill_aux_fine(aux, fp: dict, mean_f) -> None:
 
 
 # score_tail's kernel: at most 16 CTAs a cluster (the non-portable size),
-# 512 threads a CTA, kMaxFine fine headings, and in the resident mode
-# kMaxHeadings coarse headings; a CTA's shared memory on Hopper is 227 KB
-# (232,448 bytes), of which its static part takes at most
-# TAIL_STATIC_SMEM (chip_smoke checks the build's) and the dynamic part
-# (score_tail_smem) the rest
+# 512 threads a CTA, in the resident and streamed modes kMaxFine fine
+# headings, in the resident mode kMaxHeadings coarse headings; a CTA's
+# shared memory on Hopper is 227 KB (232,448 bytes), of which its static
+# part takes at most TAIL_STATIC_SMEM (chip_smoke checks the build's) and
+# the dynamic part (score_tail_smem) the rest
 TAIL_MAX_CLUSTER = 16
 TAIL_MAX_THREADS = 512
 TAIL_MAX_HEADINGS = 512
@@ -663,10 +711,12 @@ TAIL_SMEM_PER_CTA = 232448
 TAIL_STATIC_SMEM = 16384
 TAIL_ROOM = TAIL_SMEM_PER_CTA - TAIL_STATIC_SMEM
 # the kernel's modes, the last entry of a launch geometry: the coarse
-# responses kept in shared memory, or formed again from the sums in each
-# coarse pass (any lattice, any number of coarse headings)
-TAIL_RESIDENT, TAIL_STREAMED = 0, 1
-TAIL_MODES = ("resident", "streamed")
+# responses kept in shared memory; formed again from the sums in each
+# coarse pass (any lattice, any number of coarse headings); and that with
+# the beams read from global memory and the fine and angular sums in a
+# global workspace (any number of fine headings, any number of beams)
+TAIL_RESIDENT, TAIL_STREAMED, TAIL_WIDE = 0, 1, 2
+TAIL_MODES = ("resident", "streamed", "wide")
 
 
 def score_tail_smem(na: int, ny: int, nx: int, B: int, ctas: int,
@@ -674,8 +724,11 @@ def score_tail_smem(na: int, ny: int, nx: int, B: int, ctas: int,
     """Dynamic shared bytes a CTA of score_tail's kernel takes in a
     cluster of `ctas`: in the resident mode the coarse responses of its
     ceil(ny * nx / ctas) cells, all na headings of each, and the cells'
-    maxima (4 (na + 1) bytes a cell); in both modes the B beams' local x
-    and y (8 bytes a beam)."""
+    maxima (4 (na + 1) bytes a cell); in the resident and streamed modes
+    the B beams' local x and y (8 bytes a beam); in the wide mode
+    none."""
+    if mode == TAIL_WIDE:
+        return 0
     cells = 0 if mode == TAIL_STREAMED else -(-(ny * nx) // ctas)
     return 4 * (na + 1) * cells + 8 * B
 
@@ -689,27 +742,26 @@ def score_tail_launch(na: int, ny: int, nx: int, B: int, na_fine: int):
     26) and the loop (21 x 81 x 81) lattice: the coarse walk and the fine
     gathers spread over the SMs, while a phase's barriers cost about the
     same at 8 and 16 CTAs. The resident mode wherever a CTA's responses
-    and beams fit its shared memory and na is at most kMaxHeadings (every
-    matcher the port builds at its defaults), else the streamed mode.
-    Raises ValueError where neither mode takes it: fine headings above
-    kMaxFine, or beams whose 8 bytes each pass a CTA's room."""
-    if na < 1:
-        raise ValueError(f"score_tail: {na} coarse headings")
-    if not 1 <= na_fine <= TAIL_MAX_FINE:
-        raise ValueError(f"score_tail: {na_fine} fine headings, at most "
-                         f"{TAIL_MAX_FINE}")
+    and beams fit its shared memory, na is at most kMaxHeadings and
+    na_fine at most kMaxFine (every matcher the port builds at its
+    defaults); else the streamed mode where the beams fit and na_fine is
+    at most kMaxFine; else the wide mode, which takes any geometry.
+    Raises ValueError only on arguments no match has: no heading, no
+    beam, a lattice of fewer than 1 x 2 cells."""
+    if na < 1 or na_fine < 1:
+        raise ValueError(f"score_tail: {na} coarse and {na_fine} fine "
+                         "headings")
     if ny < 1 or nx < 2 or B < 1:
         raise ValueError(f"score_tail: lattice {ny} x {nx}, {B} beams")
-    smem = score_tail_smem(na, ny, nx, B, TAIL_MAX_CLUSTER)
-    if na <= TAIL_MAX_HEADINGS and smem <= TAIL_ROOM:
-        return TAIL_MAX_CLUSTER, TAIL_MAX_THREADS, smem, TAIL_RESIDENT
-    smem = score_tail_smem(na, ny, nx, B, TAIL_MAX_CLUSTER, TAIL_STREAMED)
-    if smem > TAIL_ROOM:
-        raise ValueError(
-            f"score_tail: {B} beams need {smem} bytes a CTA (8 a beam), "
-            f"above {TAIL_ROOM} ({TAIL_SMEM_PER_CTA} less "
-            f"TAIL_STATIC_SMEM {TAIL_STATIC_SMEM})")
-    return TAIL_MAX_CLUSTER, TAIL_MAX_THREADS, smem, TAIL_STREAMED
+    if na_fine <= TAIL_MAX_FINE:
+        smem = score_tail_smem(na, ny, nx, B, TAIL_MAX_CLUSTER)
+        if na <= TAIL_MAX_HEADINGS and smem <= TAIL_ROOM:
+            return TAIL_MAX_CLUSTER, TAIL_MAX_THREADS, smem, TAIL_RESIDENT
+        smem = score_tail_smem(na, ny, nx, B, TAIL_MAX_CLUSTER,
+                               TAIL_STREAMED)
+        if smem <= TAIL_ROOM:
+            return TAIL_MAX_CLUSTER, TAIL_MAX_THREADS, smem, TAIL_STREAMED
+    return TAIL_MAX_CLUSTER, TAIL_MAX_THREADS, 0, TAIL_WIDE
 
 
 def score_tail(raw, grid_flat, center_off, local_pts, finite, ang_c,
@@ -717,12 +769,11 @@ def score_tail(raw, grid_flat, center_off, local_pts, finite, ang_c,
                fine_angle_res, coarse_angle_res, penalize, dist_var_penalty,
                ang_var_penalty, min_dist_pen, min_ang_pen, G: int,
                na_fine: int, refine: bool, aux=None):
-    """See score_tail_plain. One thread-block cluster per match, shaped by
-    score_tail_launch, which also raises here on the CPU where a card's
-    kernel could not take the geometry; on a card, before a geometry's
-    first launch, tail_clusters checks that the card can hold the
-    cluster. The kernel takes a 3 x 3 fine lattice (x_off_f, y_off_f of
-    3), as the matchers build it."""
+    """See score_tail_plain. On a card one thread-block cluster per match,
+    shaped by score_tail_launch; before a geometry's first launch,
+    tail_clusters checks that the card can hold the cluster. The kernel
+    takes a 3 x 3 fine lattice (x_off_f, y_off_f of 3), as the matchers
+    build it."""
     dev = raw.device
     na, ny, nx = raw.shape
     B = local_pts.shape[0]
@@ -740,13 +791,13 @@ def score_tail(raw, grid_flat, center_off, local_pts, finite, ang_c,
         mc._check(aux, "aux", _F32, (aux_len(na_fine),), dev)
     if nx < 2:
         raise ValueError("the coarse lattice needs two columns (its step)")
-    geometry = score_tail_launch(na, ny, nx, B, na_fine)
     args = (raw, grid_flat, center_off, local_pts, finite, ang_c, x_off_c,
             y_off_c, x_off_f, y_off_f, scale, fine_angle_offset,
             fine_angle_res, coarse_angle_res, penalize, dist_var_penalty,
             ang_var_penalty, min_dist_pen, min_ang_pen, G, na_fine, refine)
     if not mc._on_cuda(dev):
         return score_tail_plain(*args, aux=aux)
+    geometry = score_tail_launch(na, ny, nx, B, na_fine)
     out = _launch_score_tail(args, aux, geometry)
     mc._count("score_tail", G)
     return out
@@ -784,7 +835,8 @@ def tail_clusters(geometry, device, lib=None) -> int:
 def _launch_score_tail(args, aux, geometry, lib=None):
     """One launch of score_tail's kernel (from `lib`, else the package's
     build) on score_tail's checked arguments at a launch geometry
-    (cluster, threads, dynamic shared bytes, mode); uncounted."""
+    (cluster, threads, dynamic shared bytes, mode); uncounted. The wide
+    mode's workspace (10 na_fine int32) is allocated here."""
     (raw, grid_flat, center_off, local_pts, finite, ang_c, x_off_c, y_off_c,
      x_off_f, y_off_f, scale, fine_angle_offset, fine_angle_res,
      coarse_angle_res, penalize, dist_var_penalty, ang_var_penalty,
@@ -793,6 +845,8 @@ def _launch_score_tail(args, aux, geometry, lib=None):
     lib = lib or mc._lib("score_tail")
     tail_clusters(geometry, raw.device, lib)
     out = torch.empty(13, dtype=_F32, device=raw.device)
+    ws = (torch.empty(10 * na_fine, dtype=torch.int32, device=raw.device)
+          if geometry[3] == TAIL_WIDE else None)
     mc._raise_if(lib.score_tail(
         raw.data_ptr(), na, ny, nx, grid_flat.data_ptr(), G,
         center_off.data_ptr(), local_pts.data_ptr(), local_pts.stride(0),
@@ -802,7 +856,7 @@ def _launch_score_tail(args, aux, geometry, lib=None):
         float(fine_angle_res), float(coarse_angle_res), int(bool(penalize)),
         float(dist_var_penalty), float(ang_var_penalty),
         float(min_dist_pen), float(min_ang_pen), na_fine, int(bool(refine)),
-        *geometry, out.data_ptr(), _ptr(aux), mc._stream(),
+        *geometry, out.data_ptr(), _ptr(aux), _ptr(ws), mc._stream(),
     ), "score_tail")
     return out
 
@@ -854,7 +908,8 @@ def stream_update_plain(packed, center_off, pack, odom, offset_pose, eye9,
 def stream_update(packed, center_off, pack, odom, offset_pose, eye9, state,
                   run_buffer_size: int, max_sq: float, G: int = 0):
     """See stream_update_plain. One block: the pose update, the push, the
-    eviction's leading run over the K slots and the state's scalars.
+    eviction's leading run over the K slots (any K, in rounds of the
+    block's warps) and the state's scalars.
     On a card `pack` and the ring's packs must start on 16-byte
     boundaries."""
     ring = state["ring_pack"]

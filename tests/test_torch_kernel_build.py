@@ -91,7 +91,8 @@ def test_first_use_builds_and_loads_once(build_dir, monkeypatch):
 
     def fake_cdll(path):
         assert os.path.exists(path)
-        return SimpleNamespace(score_windows=SimpleNamespace())
+        return SimpleNamespace(score_windows=SimpleNamespace(),
+                               score_windows_head=SimpleNamespace())
 
     monkeypatch.setattr(mc, "build_kernels", counting_build)
     monkeypatch.setattr(mc.ctypes, "CDLL", fake_cdll)
@@ -100,6 +101,7 @@ def test_first_use_builds_and_loads_once(build_dir, monkeypatch):
     assert builds == [("score_windows",)]
     assert all(lib is libs[0] for lib in libs)
     assert libs[0].score_windows.restype is not None
+    assert libs[0].score_windows_head.restype is not None
 
 
 def test_uncounted_launches_are_per_thread(monkeypatch):

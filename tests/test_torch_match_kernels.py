@@ -183,6 +183,50 @@ def test_smear_plain_matches_pallas_parity(G, hk):
     assert got[-1] == 0
 
 
+@pytest.mark.parametrize("G,hk", [(40, 60), (64, 63)])
+def test_smear_plain_taps_past_the_grid(G, hk):
+    """Taps that reach past the grid (hk >= G - 1), which the JAX package
+    takes through rasterize_parity's XLA route and the port's kernel by
+    clamping hk to G - 1 (csrc/smear_quantize.cu): the plain version
+    equals JAX's, and equals itself run on the G - 1 taps each side of
+    the centre, which is what the kernel runs."""
+    pts, valid, off = _raster_inputs(G, 7 * G + hk)
+    sigma = hk / 2.0
+    pgrid = np.asarray(mp.rasterize_parity(
+        jnp.asarray(pts), jnp.asarray(valid), jnp.asarray(off),
+        np.float32(100.0), np.float32(sigma), G, hk, 32))
+    gh = (G + 1) // 2
+    planes = pgrid[:, mp.PAD_TOP:mp.PAD_TOP + gh,
+                   mp.PAD_LEFT:mp.PAD_LEFT + gh]
+    words = mc.scatter_occupancy(torch.from_numpy(pts),
+                                 torch.from_numpy(valid),
+                                 torch.from_numpy(off), 100.0, G)
+    w = torch.from_numpy(trz.smear_weights(sigma, hk))
+    got = mc.smear_quantize(words, w, G, hk).numpy()
+    np.testing.assert_array_equal(got[:-1].reshape(G, G),
+                                  _unparity(planes, G))
+    h = G - 1
+    clamped = trz.smear_quantize_plain(words, w[hk - h:hk + h + 1], G, h)
+    np.testing.assert_array_equal(got, clamped.numpy())
+    assert got.sum() > 0
+
+
+def test_score_windows_plain_past_the_narrow_limits():
+    """The semantics K1's wide instantiation keeps (csrc/score_windows.cu):
+    a 2 x 70,000 lattice whose grid lies at the far end of its columns, so
+    every in-grid span starts past 65,535 (the narrow form's 16-bit
+    fields), against the JAX package's XLA gather."""
+    G, na, B, ny, nx = 257, 2, 24, 2, 70000
+    _, grid_flat, d, finite = _window_case(5, G, na, B, 26, 0)
+    d[...] = np.clip(d, -100, 100)
+    cx0, cy0 = G + 50 - 2 * (nx - 1), 100
+    got = _plain_sums(grid_flat, G, d, cx0, cy0, ny, nx, finite)
+    np.testing.assert_array_equal(got, _xla_sums(
+        grid_flat, G, (cx0 + 2 * np.arange(nx)).astype(np.int32),
+        (cy0 + 2 * np.arange(ny)).astype(np.int32), d, finite))
+    assert got[:, :, 65536:].any() and not got[:, :, :65535].any()
+
+
 def test_plain_smear_ignores_bits_past_the_grid():
     """At odd G the last word row is partly filled: set bits of rows at or
     beyond G change nothing."""

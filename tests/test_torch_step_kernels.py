@@ -1,12 +1,16 @@
-"""The scan step's four kernels (slam_toolbox_tpu_torch/kernels/step_cuda.py:
-ring_points, score_head, score_tail, stream_update) through their plain
-versions on the CPU, against the JAX package's functions they stand for:
+"""The scan step's kernels (slam_toolbox_tpu_torch/kernels/step_cuda.py:
+ring_points, score_tail, stream_update, and the window sums' head form
+score_windows_head) through their plain versions on the CPU, against the
+JAX package's functions they stand for:
 
 - ring_points in chain mode against JAX's chain raster
   (kernels/loop_verify.py _chain_raster) and in step mode against
   _stream_raster_impl (prior, center_off, the ring raster);
-- score_head -> score_windows -> score_tail against JAX's _score_impl on
-  its XLA gather path and on its Pallas path (interpret mode, as
+- score_windows_head against the coarse pass of JAX's _score_impl (its
+  headings, and the window sums of its tables and lattice on its XLA
+  gather path), with contiguous and strided local points;
+- score_windows_head -> score_tail against JAX's _score_impl on its XLA
+  gather path and on its Pallas path (interpret mode, as
   tests/test_match_pallas.py runs it), penalize and refine on and off,
   at a sequential and a loop geometry, with the edge cases: no finite
   beam, an all-zero raster (the cov_low and 1000 step^2 branches), ties
@@ -16,13 +20,14 @@ versions on the CPU, against the JAX package's functions they stand for:
   first scan), fills it, evicts by count and by distance and wraps the
   result ring;
 - score_tail on lattices past its kernel's resident mode (21 x 200 x 200
-  at 16 beams; 600 coarse headings on a 3 x 3 lattice) against JAX's
-  _score_impl on its XLA path;
+  at 16 beams; 600 coarse headings on a 3 x 3 lattice) and past its
+  streamed mode (65 fine headings; 27,009 beams on a 3 x 3 lattice at 3
+  headings) against JAX's _score_impl on its XLA path;
 - every wrapper given CPU tensors takes its plain version, each new
-  source is in KERNELS and in the build, and no wrapper falls back;
-  score_tail's launch geometry and limits, its cluster check's message,
-  and the 16-byte alignment that ring_points' and stream_update's
-  kernels need.
+  source is in KERNELS and in the build (score_head's source is gone),
+  and no wrapper falls back; score_tail's launch geometry and modes, its
+  cluster check's message, and the 16-byte alignment that ring_points'
+  and stream_update's kernels need.
 
 Inputs are made from numpy with a seed (rasters, beams, poses) or are
 simulated scans of one seed; both packages get the same arrays.
@@ -32,6 +37,7 @@ libraries); the packed results within 1e-5 (mean) and step_cuda's
 COV_RTOL of the covariance's scale (reordered f32 sums)."""
 import functools
 import inspect
+import os
 
 import jax.numpy as jnp
 import numpy as np
@@ -42,9 +48,11 @@ from slam_toolbox_tpu.core.scan import LaserConfig
 from slam_toolbox_tpu.io.dataset import LidarSimulator, SegmentWorld
 from slam_toolbox_tpu.kernels import loop_verify as jlv
 from slam_toolbox_tpu.kernels import match_pallas as mp
+from slam_toolbox_tpu.kernels import rasterize as jrz
 from slam_toolbox_tpu.kernels.match import Matcher as JaxMatcher
 from slam_toolbox_tpu.kernels.match import _rotated_tables as jax_tables
 from slam_toolbox_tpu.kernels.match import _score_impl as jax_score
+from slam_toolbox_tpu.kernels.match import _score_tensor as jax_tensor
 from slam_toolbox_tpu.mapper import streaming as js
 from slam_toolbox_tpu_torch.kernels import match_cuda as mc
 from slam_toolbox_tpu_torch.kernels import step_cuda as sc
@@ -231,7 +239,7 @@ def test_ring_points_step_mode_matches_jax_stream_raster(matchers, sim, row):
     assert torch.equal(cp, pts) and torch.equal(cv, valid)
 
 
-# -- K6 + K1 + K7: the score --------------------------------------------------
+# -- K1 (head form) + K7: the score -------------------------------------------
 def _raster_case(tm, sim, kind, seed):
     """(grid_flat (G*G+1,) int8, center_off (5,), local (B, 2), finite
     (B,)) of one case, as numpy arrays."""
@@ -266,15 +274,20 @@ def _raster_case(tm, sim, kind, seed):
     return grid, co, local, finite
 
 
+def _head(tm, grid, co, local, finite):
+    """score_windows_head on numpy inputs (`local` a numpy array or a
+    tensor): (raw, ang)."""
+    kw = tm._score_args
+    local = local if isinstance(local, torch.Tensor) else _t(local)
+    return sc.score_windows_head(
+        _t(grid), tm.G, _t(co), local, _t(finite), kw["x_off_c"],
+        kw["y_off_c"], kw["scale"], kw["coarse_angle_offset"],
+        kw["coarse_angle_res"], kw["na_coarse"])
+
+
 def _port_score(tm, grid, co, local, finite, penalize, refine, aux=None):
     kw = dict(tm._score_args)
-    ang, d, cand0 = sc.score_head(
-        _t(co), _t(local), kw["x_off_c"], kw["y_off_c"], kw["scale"],
-        kw["coarse_angle_offset"], kw["coarse_angle_res"], kw["na_coarse"],
-        tm.G)
-    ny, nx = kw["y_off_c"].shape[0], kw["x_off_c"].shape[0]
-    raw = mc.score_windows(_t(grid), tm.G, d, cand0[0:1], cand0[1:2], ny,
-                           nx, _t(finite))
+    raw, ang = _head(tm, grid, co, local, finite)
     packed = sc.score_tail(
         raw, _t(grid), _t(co), _t(local), _t(finite), ang, kw["x_off_c"],
         kw["y_off_c"], kw["x_off_f"], kw["y_off_f"], kw["scale"],
@@ -282,7 +295,69 @@ def _port_score(tm, grid, co, local, finite, penalize, refine, aux=None):
         kw["coarse_angle_res"], penalize, kw["dist_var_penalty"],
         kw["ang_var_penalty"], kw["min_dist_pen"], kw["min_ang_pen"], tm.G,
         kw["na_fine"], refine, aux=aux)
-    return ang, d, cand0, raw, packed
+    return ang, raw, packed
+
+
+def _jax_coarse(jm, grid, co, local, finite):
+    """The coarse pass of JAX's _score_impl on its XLA path: its headings
+    ang_c and the window sums of its tables d_c and lattice (cand_x,
+    cand_y), as its unpenalized responses times B * 100 (exact in f64)."""
+    kw = jm._score_args
+    c = jnp.asarray(co)
+    scale = kw["scale"]
+    ang = (c[2] - kw["coarse_angle_offset"] + kw["coarse_angle_res"]
+           * jnp.arange(jm._na_coarse, dtype=jnp.float32))
+    d = jax_tables(ang, jnp.asarray(local), scale)
+    cand_x = jrz.round_half_away(
+        (c[0] + kw["x_off_c"] - c[3]) * scale).astype(jnp.int32)
+    cand_y = jrz.round_half_away(
+        (c[1] + kw["y_off_c"] - c[4]) * scale).astype(jnp.int32)
+    G, na = jm.G, jm._na_coarse
+    resp = jax_tensor(
+        jnp.asarray(grid), G, G * G, cand_x, cand_y, d, jnp.asarray(finite),
+        jnp.zeros(len(cand_x), jnp.float32),
+        jnp.zeros(len(cand_y), jnp.float32), jnp.zeros(na, jnp.float32),
+        jnp.float32(0.0), jnp.bool_(False), jnp.float32(1.0),
+        jnp.float32(1.0), jnp.float32(0.5), jnp.float32(0.9))
+    B = np.asarray(local).shape[0]
+    return np.asarray(ang), np.round(np.asarray(resp, np.float64)
+                                     * (B * 100.0))
+
+
+@pytest.mark.parametrize("tag,kind,strided", [
+    ("seq", "scans", False), ("loop", "random", False),
+    ("seq", "random", True), ("loop", "scans", True)])
+def test_score_windows_head_matches_jax_coarse_pass(matchers, sim, tag,
+                                                    kind, strided):
+    """K1's head form (its plain route: score_head_plain, then
+    score_windows_plain) against JAX's _score_impl coarse pass: the
+    headings within 1e-6 rad, the window sums equal, on the local points
+    as an array and as the strided column slice of a pack (the step's
+    view); the plain head's tables equal JAX's _rotated_tables of the
+    port's headings."""
+    jm, tm = matchers[tag]
+    grid, co, local, finite = _raster_case(tm, sim, kind, seed=5)
+    view = (_t(sim["packs"][9])[:, 0:2] if strided else _t(local))
+    assert view.stride(0) == (8 if strided else 2)
+    assert np.array_equal(view.numpy(), local)
+    raw, ang = _head(tm, grid, co, view, finite)
+    jang, jraw = _jax_coarse(jm, grid, co, local, finite)
+    kw = tm._score_args
+    assert raw.dtype == torch.int32 and ang.dtype == torch.float32
+    assert raw.shape == (tm._na_coarse, kw["y_off_c"].shape[0],
+                         kw["x_off_c"].shape[0])
+    np.testing.assert_allclose(ang.numpy(), jang, rtol=0, atol=1e-6)
+    np.testing.assert_array_equal(raw.numpy(), jraw)
+    assert int(raw.max()) > 0
+    _, d, cand0 = sc.score_head_plain(
+        _t(co), view, kw["x_off_c"], kw["y_off_c"], kw["scale"],
+        kw["coarse_angle_offset"], kw["coarse_angle_res"], kw["na_coarse"])
+    np.testing.assert_array_equal(
+        d.numpy(), np.asarray(jax_tables(jnp.asarray(ang.numpy()),
+                                         jnp.asarray(local),
+                                         np.float32(jm.scale))))
+    cx = np.floor((co[0] + jm._xy_coarse[0] - co[3]) * jm.scale + 0.5)
+    assert cand0.dtype == torch.int32 and abs(int(cand0[0]) - cx) <= 1
 
 
 def _jax_score(jm, grid, co, local, finite, penalize, refine, pallas):
@@ -327,21 +402,16 @@ def pallas_interpret(monkeypatch):
 ])
 def test_score_matches_jax_score_impl(matchers, sim, pallas_interpret, tag,
                                       kind, penalize, refine, pallas):
-    """score_head -> score_windows -> score_tail against JAX's _score_impl;
-    the coarse tables and lattice origin equal JAX's, the packed row
-    within the stated tolerances."""
+    """score_windows_head -> score_tail against JAX's _score_impl; the
+    coarse sums equal JAX's, the packed row within the stated
+    tolerances."""
     jm, tm = matchers[tag]
     grid, co, local, finite = _raster_case(tm, sim, kind, seed=1)
-    ang, d, cand0, raw, packed = _port_score(tm, grid, co, local, finite,
-                                             penalize, refine)
-    np.testing.assert_array_equal(
-        d.numpy(), np.asarray(jax_tables(jnp.asarray(ang.numpy()),
-                                         jnp.asarray(local),
-                                         np.float32(jm.scale))))
-    assert d.dtype == torch.int32 and cand0.dtype == torch.int32
-    cx = np.floor((co[0] + jm._xy_coarse[0] - co[3]) * jm.scale + 0.5)
-    assert abs(int(cand0[0]) - cx) <= 1
+    ang, raw, packed = _port_score(tm, grid, co, local, finite, penalize,
+                                   refine)
     assert raw.dtype == torch.int32 and int(raw.max()) > 0
+    np.testing.assert_array_equal(
+        raw.numpy(), _jax_coarse(jm, grid, co, local, finite)[1])
     ref = _jax_score(jm, grid, co, local, finite, penalize, refine, pallas)
     _assert_packed(packed.numpy(), ref)
 
@@ -461,15 +531,19 @@ def test_stream_update_matches_jax_over_a_run(sim, monkeypatch):
 
 
 # -- the wrappers ---------------------------------------------------------------
-NEW = ("ring_points", "score_head", "score_tail", "stream_update")
+NEW = ("ring_points", "score_tail", "stream_update")
 
 
 def test_new_sources_are_kernels_and_built(tmp_path, monkeypatch):
-    """The four sources are in KERNELS, their launch counts start at 0,
+    """The step's sources are in KERNELS, their launch counts start at 0,
     and build_kernels compiles each (a stub compiler records the
-    sources) with the port's flags."""
+    sources) with the port's flags; score_head's source, folded into
+    score_windows.cu, is gone from KERNELS and from csrc/."""
     assert set(NEW) <= set(mc.KERNELS)
     assert all(name in mc.LAUNCHES for name in NEW)
+    assert "score_head" not in mc.KERNELS and "score_head" not in mc.LAUNCHES
+    assert not os.path.exists(mc._source("score_head"))
+    assert not hasattr(sc, "score_head")
     seen = []
 
     class FakeProc:
@@ -503,8 +577,8 @@ def test_wrappers_on_cpu_take_the_plain_versions(sim, matchers, monkeypatch):
     mc.reset_launch_counts()
     calls = []
     for name in ("ring_points_plain", "ring_points_step_plain",
-                 "score_head_plain", "score_tail_plain",
-                 "stream_update_plain"):
+                 "score_windows_head_plain", "score_head_plain",
+                 "score_tail_plain", "stream_update_plain"):
         real = getattr(sc, name)
 
         def spy(*a, _real=real, _name=name, **kw):
@@ -522,8 +596,9 @@ def test_wrappers_on_cpu_take_the_plain_versions(sim, matchers, monkeypatch):
                    st["center_off"][:2])
     # (the step mode's plain version forms its points with the chain's)
     assert calls == ["ring_points_step_plain", "ring_points_plain",
-                     "score_head_plain", "score_tail_plain",
-                     "stream_update_plain", "ring_points_plain"]
+                     "score_windows_head_plain", "score_head_plain",
+                     "score_tail_plain", "stream_update_plain",
+                     "ring_points_plain"]
     assert not any(mc.LAUNCHES.values())
 
 
@@ -531,10 +606,11 @@ def test_wrappers_hold_no_fallback(sim, monkeypatch):
     """No wrapper catches a failure or asks whether a card is present: on
     a CUDA tensor a wrapper launches or raises (here the build fails),
     and a tensor on any other device raises."""
-    for fn in (sc.ring_points, sc.ring_points_step, sc.score_head,
+    for fn in (sc.ring_points, sc.ring_points_step, sc.score_windows_head,
                sc.score_tail, sc.stream_update, sc._launch_ring_points,
                sc._launch_score_tail, sc.score_tail_launch,
-               sc.tail_clusters, sc._launch_stream_update):
+               sc.tail_clusters, sc._launch_stream_update,
+               sc.ring_scratch_bytes, mc.smear_scratch_bytes):
         src = inspect.getsource(fn)
         assert "try:" not in src and "except" not in src
         assert "is_available" not in src
@@ -552,12 +628,18 @@ def test_wrappers_hold_no_fallback(sim, monkeypatch):
         sc.stream_update(torch.zeros(13), torch.zeros(5),
                          torch.zeros(B_SIM, 8), torch.zeros(3),
                          torch.zeros(3), torch.eye(3).reshape(-1), st, 5, 1.0)
+
+    def head(dev):
+        z = functools.partial(torch.zeros, device=dev)
+        return sc.score_windows_head(
+            z(10, dtype=torch.int8), 3, z(5), z(4, 2), z(4, dtype=torch.bool),
+            z(3), z(3), 1.0, 0.1, 0.1, 3)
+
+    with pytest.raises(RuntimeError, match="score_windows"):
+        head("cpu")
     monkeypatch.undo()
-    meta = torch.zeros(5, device="meta")
     with pytest.raises(ValueError, match="device"):
-        sc.score_head(meta, torch.zeros(4, 2, device="meta"),
-                      torch.zeros(3, device="meta"),
-                      torch.zeros(3, device="meta"), 1.0, 0.1, 0.1, 3)
+        head("meta")
 
 
 # -- score_tail's launch geometry --------------------------------------------
@@ -664,72 +746,88 @@ def _tail_inputs(na, ny, nx, B=16, G=9):
         kw["min_ang_pen"], G)
 
 
-@pytest.mark.parametrize("what,na,ny,nx,B,na_fine,match", [
-    ("headings", sc.TAIL_MAX_HEADINGS + 1, 3, 3, 16, 11, None),
-    ("fine headings", 21, 3, 3, 16, sc.TAIL_MAX_FINE + 1, "fine headings"),
-    ("lattice", 1, 700, 700, 16, 11, None),
-    ("beams", 21, 3, 3, sc.TAIL_ROOM // 8 + 1, 11, "bytes a CTA")])
+@pytest.mark.parametrize("what,na,ny,nx,B,na_fine,mode", [
+    ("headings", sc.TAIL_MAX_HEADINGS + 1, 3, 3, 16, 11, sc.TAIL_STREAMED),
+    ("fine headings", 21, 3, 3, 16, sc.TAIL_MAX_FINE + 1, sc.TAIL_WIDE),
+    ("lattice", 1, 700, 700, 16, 11, sc.TAIL_STREAMED),
+    ("beams", 21, 3, 3, sc.TAIL_ROOM // 8 + 1, 11, sc.TAIL_WIDE)])
 def test_score_tail_raises_where_its_kernel_cannot(what, na, ny, nx, B,
-                                                   na_fine, match):
-    """The wrapper raises, on the CPU too, above kMaxFine fine headings and
-    for beams whose 8 bytes each pass a CTA's room (about 27,000); one
-    fine heading and one beam fewer run. Above kMaxHeadings coarse
-    headings and on a lattice whose responses do not fit 16 CTAs' shared
-    memory the kernel takes its streamed mode, so the wrapper runs; one
-    heading fewer and a lattice that fits take the resident mode."""
-    if match is None:
-        geometry = sc.score_tail_launch(na, ny, nx, B, na_fine)
-        assert geometry[3] == sc.TAIL_STREAMED
-        out = sc.score_tail(*_tail_inputs(na, ny, nx, B), na_fine, True)
-        assert out.shape == (13,) and bool(torch.isfinite(out).all())
-        fits = (na - 1, ny, nx) if what == "headings" else (na, 600, 600)
-        assert sc.score_tail_launch(*fits, B, na_fine)[3] == sc.TAIL_RESIDENT
-        return
-    args = _tail_inputs(na, ny, nx, B)
-    with pytest.raises(ValueError, match=match):
-        sc.score_tail(*args, na_fine, True)
-    with pytest.raises(ValueError, match=match):
-        sc.score_tail_launch(na, ny, nx, B, na_fine)
-    if what == "fine headings":
-        na_fine -= 1
-        out = sc.score_tail(*_tail_inputs(na, ny, nx, B), na_fine, True)
-        assert out.shape == (13,)
-    else:
-        B -= 1
-    assert sc.score_tail_launch(na, ny, nx, B, na_fine)[3] == (
-        sc.TAIL_STREAMED if what == "beams" else sc.TAIL_RESIDENT)
+                                                   na_fine, mode):
+    """No geometry of a match makes the wrapper or the launch geometry
+    raise, on the CPU or for a card: above kMaxHeadings coarse headings
+    and on a lattice whose responses do not fit 16 CTAs' shared memory
+    the kernel takes its streamed mode; above kMaxFine fine headings and
+    for beams whose 8 bytes each pass a CTA's room (about 27,000) its
+    wide mode, with no dynamic shared memory. On the CPU the wrapper
+    computes each (its plain version, never consulting the launch
+    geometry). One heading, fine heading or beam fewer, or a lattice that
+    fits, takes the mode before. Only arguments no match has raise: no
+    heading, no fine heading, no beam."""
+    geometry = sc.score_tail_launch(na, ny, nx, B, na_fine)
+    assert geometry[3] == mode
+    assert geometry[2] == sc.score_tail_smem(na, ny, nx, B, geometry[0],
+                                             mode)
+    assert (geometry[2] == 0) == (mode == sc.TAIL_WIDE)
+    out = sc.score_tail(*_tail_inputs(na, ny, nx, B), na_fine, True)
+    assert out.shape == (13,) and bool(torch.isfinite(out).all())
+    before = {"headings": ((na - 1, ny, nx, B, na_fine), sc.TAIL_RESIDENT),
+              "lattice": ((na, 600, 600, B, na_fine), sc.TAIL_RESIDENT),
+              "fine headings": ((na, ny, nx, B, na_fine - 1),
+                                sc.TAIL_RESIDENT),
+              "beams": ((na, ny, nx, B - 1, na_fine), sc.TAIL_STREAMED)}
+    shape, prev = before[what]
+    assert sc.score_tail_launch(*shape)[3] == prev
+    for bad in ((0, ny, nx, B, na_fine), (na, ny, nx, B, 0),
+                (na, ny, nx, 0, na_fine)):
+        with pytest.raises(ValueError, match="score_tail"):
+            sc.score_tail_launch(*bad)
 
 
 # -- score_tail past its resident mode, against JAX ---------------------------
 def _streamed_kw(what):
-    """Matcher arguments whose coarse pass passes the kernel's resident
-    mode: a 200 x 200 lattice at 21 headings (0.1 m cells, a 39.8 m
-    search, G 409), or 600 headings (a 2.995 rad offset at 0.01 rad) on a
-    3 x 3 lattice (G 15)."""
-    kw = _kw(39.8, 0.1, 0.5) if what == "lattice" else _kw(0.4, 0.1, 0.5)
+    """Matcher arguments whose match passes the kernel's resident mode:
+    a 200 x 200 lattice at 21 headings (0.1 m cells, a 39.8 m search, G
+    409), or 600 headings (a 2.995 rad offset at 0.01 rad) on a 3 x 3
+    lattice (G 15); or its streamed mode: 65 fine headings (a 0.064 rad
+    coarse step over 0.001 rad) on a 3 x 3 lattice at 3 headings, or
+    that lattice at 3 headings and 7 fine headings, given 27,009 beams."""
     if what == "lattice":
+        kw = _kw(39.8, 0.1, 0.5)
         kw.update(coarse_angle_resolution=np.deg2rad(1.0))
-    else:
+        return kw
+    kw = _kw(0.4, 0.1, 0.5)
+    if what == "headings":
         kw.update(coarse_angle_offset=2.995, coarse_angle_resolution=0.01,
                   fine_angle_offset=0.001)
+    elif what == "fine headings":
+        kw.update(coarse_angle_offset=0.064, coarse_angle_resolution=0.064,
+                  fine_angle_offset=0.001)
+    else:
+        kw.update(coarse_angle_offset=0.02, coarse_angle_resolution=0.02)
     return kw
 
 
-@pytest.mark.parametrize("what,lattice,na", [("lattice", 200, 21),
-                                             ("headings", 3, 600)])
-def test_score_tail_streamed_geometry_matches_jax(what, lattice, na):
-    """score_head -> score_windows -> score_tail where the kernel takes its
-    streamed mode, on a random raster and 16 beams (B small keeps both
-    sides' gathers, 21 x 40,000 x 16, within a worker's time and memory),
-    penalized and refined, against JAX's _score_impl on its XLA path,
-    with test_score_matches_jax_score_impl's tolerances."""
+@pytest.mark.parametrize("what,lattice,na,na_fine,B,mode", [
+    ("lattice", 200, 21, 6, 16, sc.TAIL_STREAMED),
+    ("headings", 3, 600, 11, 16, sc.TAIL_STREAMED),
+    ("fine headings", 3, 3, 65, 16, sc.TAIL_WIDE),
+    ("beams", 3, 3, 7, sc.TAIL_ROOM // 8 + 1, sc.TAIL_WIDE)])
+def test_score_tail_streamed_geometry_matches_jax(what, lattice, na, na_fine,
+                                                  B, mode):
+    """score_windows_head -> score_tail where the kernel takes its streamed
+    mode (a 200 x 200 lattice, 600 coarse headings) or its wide mode (65
+    fine headings; 27,009 beams), on a random raster, penalized and
+    refined, against JAX's _score_impl on its XLA path, with
+    test_score_matches_jax_score_impl's tolerances. B is 16 but where the
+    beams are the point (it keeps both sides' gathers, 21 x 40,000 x 16,
+    within a worker's time and memory)."""
     kw = _streamed_kw(what)
     jm, tm = JaxMatcher(**kw), TorchMatcher(**kw, device=CPU)
     n = len(tm._xy_coarse)
-    assert (n, tm._na_coarse) == (lattice, na) == (len(jm._xy_coarse),
-                                                   jm._na_coarse)
+    assert (n, tm._na_coarse, tm._na_fine) == (lattice, na, na_fine) == (
+        len(jm._xy_coarse), jm._na_coarse, jm._na_fine)
     rng = np.random.default_rng(11)
-    G, B = tm.G, 16
+    G = tm.G
     assert G == jm.G and G <= 409
     grid = np.zeros(G * G + 1, np.int8)
     grid[:-1] = rng.integers(0, 101, G * G)
@@ -740,8 +838,8 @@ def test_score_tail_streamed_geometry_matches_jax(what, lattice, na):
     off = center[:2] - np.float32(0.5 * (G - 1) * tm.resolution)
     co = np.concatenate([center, off]).astype(np.float32)
     geometry = sc.score_tail_launch(na, n, n, B, tm._na_fine)
-    assert geometry[3] == sc.TAIL_STREAMED
-    *_, raw, packed = _port_score(tm, grid, co, local, finite, True, True)
+    assert geometry[3] == mode
+    _, raw, packed = _port_score(tm, grid, co, local, finite, True, True)
     assert int(raw.max()) > 0
     ref = _jax_score(jm, grid, co, local, finite, True, True, False)
     _assert_packed(packed.numpy(), ref)

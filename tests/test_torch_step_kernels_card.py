@@ -1,20 +1,26 @@
-"""The scan step's four kernels (slam_toolbox_tpu_torch/kernels/step_cuda.py:
-ring_points, score_head, score_tail, stream_update) against their plain
-versions on a card, marked `cuda` and skipped without one: at the bench
-geometry (G 2051, the drain step's flags) and the loop geometry (G 561,
-the fused verify's coarse chain match), on chip_smoke.py's phase-2 inputs
-and edge cases. Integer and elementwise outputs are bit-equal;
-score_tail's coarse best and tie count bit-equal, its means within
-step_cuda.MEAN_ATOL and covariances within COV_RTOL of their scale (its
-sums run in another order than PyTorch's), its fine and angular parts
-bit-equal at its own means. Then a drain step captured as a CUDA graph
-launches the seven kernels once each. score_tail's streamed mode equals
-its resident mode bit for bit at both geometries and holds to the plain
-version on a 21 x 201 x 201 lattice and at 600 coarse headings on a
-3 x 3 lattice; stream_update holds to its plain
-version on its eviction edge cases up to 4,096 slots. The file imports
-no JAX, so the card's machine runs it with
-`python -m pytest --noconftest tests/test_torch_step_kernels_card.py`."""
+"""The scan step's kernels (slam_toolbox_tpu_torch/kernels/step_cuda.py:
+ring_points, the window sums' head form score_windows_head, score_tail,
+stream_update) against their plain versions on a card, marked `cuda` and
+skipped without one: at the bench geometry (G 2051, the drain step's
+flags) and the loop geometry (G 561, the fused verify's coarse chain
+match), on chip_smoke.py's phase-2 inputs and edge cases. Integer and
+elementwise outputs are bit-equal; score_tail's coarse best and tie
+count bit-equal, its means within step_cuda.MEAN_ATOL and covariances
+within COV_RTOL of their scale (its sums run in another order than
+PyTorch's), its fine and angular parts bit-equal at its own means. The
+head form equals the plain head then the plain sums bit for bit at the
+bench, loop and CLI geometries (G 2051, 561, 2403, 633). Then a drain
+step captured as a CUDA graph launches the six kernels once each.
+score_tail's streamed and wide modes equal its resident mode bit for bit
+at both geometries and hold to the plain version on a 21 x 201 x 201
+lattice, at 600 coarse headings on a 3 x 3 lattice, at 65 and 200 fine
+headings and at 27,009 and 60,000 beams; stream_update holds to its
+plain version on its eviction edge cases up to 20,000 slots; the window
+sums (both forms) past their narrow instantiation (70,000 headings, a
+2 x 70,000 lattice, a G 46,400 raster), ring_points at 49,153 and
+300,000 beams and the smear at hk 900 (and at hk past G) hold to their
+plain versions. The file imports no JAX, so the card's machine runs it
+with `python -m pytest --noconftest tests/test_torch_step_kernels_card.py`."""
 import numpy as np
 import pytest
 import torch
@@ -63,18 +69,18 @@ def test_step_kernels_match_plain_on_card(bench, tag, G):
                         dev)
     out = cs.check_step_kernels(matcher, si, grid, tag, path, timing=False)
     assert all(out[k]["err"] == 0 for k in
-               ("ring_points", "score_head", "stream_update"))
+               ("ring_points", "score_windows_head", "stream_update"))
     assert out["score_tail"]["mean_err"] <= 1e-5
     assert all(out[k]["cases_checked"] > 0 for k in cs.STEP_KERNELS)
 
 
 @pytest.mark.cuda
-def test_replayed_step_launches_the_seven_kernels(bench):
+def test_replayed_step_launches_the_six_kernels(bench):
     """A drain step captured on a pipeline's state: its tally is one launch
-    each of ring_points, scatter_occupancy, smear_quantize, score_head,
-    score_windows, score_tail and stream_update; a profiler trace of its
-    replays shows fewer than 20 device kernels per step; 16 replays equal
-    16 eager steps bit for bit."""
+    each of ring_points, scatter_occupancy, smear_quantize, score_windows
+    (its head form), score_tail and stream_update; a profiler trace of
+    its replays shows fewer than 20 device kernels per step; 16 replays
+    equal 16 eager steps bit for bit."""
     cfg, laser, data, dev = (bench["cfg"], bench["laser"], bench["data"],
                              bench["dev"])
     mapper = Mapper(cfg, device=dev)
@@ -96,6 +102,7 @@ def test_replayed_step_launches_the_seven_kernels(bench):
     eager = cs.clone_state(state)
     graph = pipe._step_graph(state, 16)
     assert {k for k, _ in graph.tally} == set(cs.STEP_PATH)
+    assert len(cs.STEP_PATH) == 6 and "score_head" not in cs.STEP_PATH
     assert all(n == 1 for n in graph.tally.values())
     ts._load_batch(state, packs, odoms)
     per_step, by_name = cs.device_kernels_per_replay(graph.graph, 16)
@@ -234,14 +241,128 @@ def test_score_tail_streamed_at_600_headings(bench):
 
 @pytest.mark.cuda
 def test_stream_update_edge_cases(bench):
-    """K8 against its plain version at K = 12, 25, 100 and 4,096 slots
-    with the eviction's leading run ending inside the first warp, at the
-    warp boundaries 32 and 64, at K and at 0, by count and by distance:
-    every state tensor bit-equal (chip_smoke.check_update_edges)."""
+    """K8 against its plain version at K = 12, 25, 100, 4,096, 4,097 and
+    20,000 slots (past the former 4,096) with the eviction's leading run
+    ending inside the first warp, at the warp boundaries 32 and 64, at K
+    and at 0, by count and by distance: every state tensor bit-equal
+    (chip_smoke.check_update_edges)."""
     dev = bench["dev"]
     scan = bench["scan_at"](3)
     pack = torch.from_numpy(ts.scan_pack(scan)).to(dev)
     packed = torch.zeros(13, device=dev)
     packed[0], packed[3] = 0.7, 0.1
     packed[4] = packed[8] = packed[12] = 1e-3
-    assert cs.check_update_edges(dev, pack, packed) == 28
+    assert cs.UPDATE_SLOTS[-2:] == (4097, 20000)
+    assert cs.check_update_edges(dev, pack, packed) == 46
+
+
+def _inputs(bench, tag):
+    """(matcher, step inputs, raster) of chip_smoke's phase 2 at the bench
+    ("seq", "loop") or the CLI's ("cli seq", "cli loop") geometry."""
+    import os
+
+    dev = bench["dev"]
+    if tag.startswith("cli"):
+        fixture = os.path.join(os.path.dirname(os.path.abspath(cs.__file__)),
+                               "tests", "data", "loop_rooms.clf.gz")
+        matcher, base, query = cs.cli_cases(fixture, dev)[
+            0 if tag == "cli seq" else 1]
+    else:
+        matcher, idx, qi, _ = bench["cases"][tag]
+        base = [bench["scan_at"](i) for i in idx]
+        query = bench["scan_at"](qi)
+    inp = cs.kernel_inputs(matcher, base, query, dev)
+    grid = matcher._raster(inp["pts"], inp["valid"], inp["off"])
+    return matcher, cs.step_inputs(matcher, base, query, dev), grid
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tag,G", [("seq", 2051), ("loop", 561),
+                                   ("cli seq", 2403), ("cli loop", 633)])
+def test_head_form_equals_plain_chain(bench, tag, G):
+    """K1's head form (score_windows_head: the match's headings, tables and
+    origin formed in the window kernel) against the plain head then the
+    plain sums, at the bench, loop and CLI geometries: the sums and the
+    headings bit-equal on the path's local points, their strided pack
+    view, a heading at pi, a lattice off the grid and no finite beam
+    (chip_smoke.check_step_kernels), and on the path's inputs a launch
+    is counted under score_windows and G."""
+    from slam_toolbox_tpu_torch.kernels import step_cuda as sc
+
+    matcher, si, grid = _inputs(bench, tag)
+    assert matcher.G == G
+    seq = tag.endswith("seq")
+    out = cs.check_step_kernels(matcher, si, grid, tag, (seq, seq, seq),
+                                timing=False)
+    assert out["score_windows_head"]["cases_checked"] == 10
+    mc.reset_launch_counts()
+    args = cs.head_args(matcher, grid, si["center_off"], si["local"],
+                        si["finite"])
+    raw, ang = sc.score_windows_head(*args)
+    raw_p, ang_p = sc.score_windows_head_plain(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(raw, raw_p) and torch.equal(ang, ang_p)
+    assert int(raw.max()) > 0
+    assert mc.GRID_LAUNCHES[("score_windows", G)] == 1
+
+
+@pytest.mark.cuda
+def test_window_sums_past_the_narrow_limits(bench):
+    """K1 in both forms past its narrow instantiation: 70,000 headings
+    (past gridDim.y), a 2 x 70,000 lattice (past 16-bit spans) and a
+    G 46,400 raster (offsets past int32, 2.15 GB), each bit-equal to its
+    plain version (chip_smoke.check_window_limits)."""
+    matcher, si, grid = _inputs(bench, "seq")
+    out = cs.check_window_limits(grid, matcher.G,
+                                 float(matcher._score_args["scale"]), si,
+                                 bench["dev"], timing=False)
+    assert sorted(out) == ["headings", "lattice", "raster"]
+    assert all(r["cases_checked"] == 2 for r in out.values())
+
+
+@pytest.mark.cuda
+def test_score_tail_past_its_streamed_mode(bench):
+    """K7's wide mode at 65 and 200 fine headings (past kMaxFine) and at
+    27,009 and 60,000 beams (past a CTA's room at 8 bytes a beam) at the
+    bench geometry, penalized and refined, held to its plain version
+    (chip_smoke.check_tail_limits: exact parts bit-equal, means within
+    MEAN_ATOL, covariances within COV_RTOL, a second launch
+    bit-identical)."""
+    matcher, si, grid = _inputs(bench, "seq")
+    out = cs.check_tail_limits(matcher, grid, si, bench["dev"],
+                               timing=False)
+    assert sorted(out) == ["beams 27009", "beams 60000",
+                           "fine headings 200", "fine headings 65"]
+    assert all(r["mode"] == "wide" for r in out.values())
+
+
+@pytest.mark.cuda
+def test_ring_points_past_48_kb_of_flags(bench):
+    """K5 at 49,153 beams (its flags past 48 KB: the opt-in shared
+    memory) and at 300,000 (past a block's shared memory: the scratch
+    flags), chain and step mode bit-equal to its plain version
+    (chip_smoke.check_ring_limits)."""
+    from slam_toolbox_tpu_torch.kernels import step_cuda as sc
+
+    _, si, _ = _inputs(bench, "seq")
+    out = cs.check_ring_limits(bench["dev"], si["center_off"][:2],
+                               si["offset_pose"], si["half"], 2051,
+                               timing=False)
+    assert out["49153"]["flags"] == "shared (opt-in)"
+    assert out["300000"]["flags"] == "scratch"
+    assert sc.ring_scratch_bytes(3, 49153) == 0
+    assert sc.ring_scratch_bytes(3, 300000) == 3 * 300000
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("G,hk", [(2051, 900), (257, 300)])
+def test_smear_past_its_shared_memory(bench, G, hk):
+    """K2 and K3 on the adversarial occupancy patterns (chip_smoke.
+    check_patterns) at hk 900, where a block's row values pass its shared
+    memory (the scratch instantiation), and at hk 300 on a 257 grid (taps
+    past the grid, clamped to G - 1): bit-equal to the plain versions."""
+    from slam_toolbox_tpu_torch.kernels import rasterize as rz
+
+    w = torch.from_numpy(rz.smear_weights(hk / 2.0, hk)).to(bench["dev"])
+    assert (mc.smear_scratch_bytes(G, hk) > 0) == (hk == 900)
+    assert cs.check_patterns(G, hk, w, bench["dev"])[0] == 7

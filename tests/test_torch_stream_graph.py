@@ -255,8 +255,8 @@ def test_replay_tally_counts_each_replay(launch_counts, monkeypatch):
     mc.count_replay(tally, 3)
     assert mc.LAUNCHES == {"scatter_occupancy": 3, "smear_quantize": 3,
                            "score_windows": 6, "score_ceiling": 0,
-                           "ring_points": 0, "score_head": 0,
-                           "score_tail": 0, "stream_update": 0}
+                           "ring_points": 0, "score_tail": 0,
+                           "stream_update": 0}
     assert mc.GRID_LAUNCHES[("score_windows", 561)] == 3
     with mc.uncounted():
         mc.count_replay(tally, 5)
