@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Phases, in order; any failure exits non-zero and nothing is caught:
-  1. build    — compile the seven CUDA kernel sources from csrc/ with nvcc
+  1. build    — compile the nine CUDA kernel sources from csrc/ with nvcc
                 for sm_90a (one process per source, in parallel), and beside
                 them score_tail.cu with SCORE_TAIL_PHASE_CLOCK as a
                 library that only this script loads; check score_tail's
@@ -176,21 +176,27 @@ Phases, in order; any failure exits non-zero and nothing is caught:
                 prior + buffer, an accepted closure, a windowed solve, and
                 with SPEC_LOOP off the same trajectory bit for bit; K1-K3
                 launches by grid, every grid one that phase 2 checked;
- 12. dist     — under a world-size-1 NCCL group on the card: the PCG tier
-                (lm_solve past the dense ceiling, f32, padded to 16,384
-                nodes: the PCR chain preconditioner) on scripts/
-                bench_dist.py's 12,288-node snake graph against
-                host_sparse_lm (chi2 within 0.2% of the host solution's on
-                the same f32 arrays; positions within PCG_TIER_MAX_DXY), its
-                CG loop as chunks of CG_CHUNK iterations replayed from CUDA
-                graphs, launched eagerly (CGLoop.run_eager) and replayed
-                again: the same CG iterations and poses bit for bit,
-                seconds with and without the capture, at most ceil(CG /
-                CG_CHUNK) + 1 host reads per LM step, and one LM step
-                traced each way (cudaLaunchKernel, cudaGraphLaunch and
-                device kernels per CG iteration; no cudaLaunchKernel
-                inside the graphed CG loop); the Thomas sweeps against PCR at
-                n = 2,100 (rtol 1e-4, atol 1e-5); distributed_lm_solve on
+ 12. dist     — under a world-size-1 NCCL group on the card: lm_solve's
+                three device tiers, each one program (the LM loop and its
+                CG loop CUDA-graph WHILE nodes, K10) held bit for bit to
+                the same functions run from the host's Python loop
+                (LMLoop.run_eager) and launched again: poses, chi2, LM and
+                CG iterations, one host read a solve, no cudaLaunchKernel
+                inside the loop's launch (one LM step traced each way);
+                the PCG tier with PCR on scripts/bench_dist.py's
+                12,288-node snake padded to 16,384 nodes (f32), the
+                Thomas tier (K9's sweeps) on a 3,072-node snake, the
+                dense tier on a 1,500-node snake padded to 2,048, each
+                against host_sparse_lm (chi2 within 0.2% of the host
+                solution's on the same f32 arrays; positions within
+                PCG_TIER_MAX_DXY); K9 and K10 launched there (counts from
+                0); K10's cost a condition test (while_test_ms, CUDA
+                events); K9 against the plain sweeps at n = 2,100 and
+                3,072, the Thomas tier's (f32 within 1e-5, f64 within
+                1e-12 of each output's largest magnitude) and timed at n
+                = 2,100, 3,072, 4,095 and 100,000 in f32 and f64, and the
+                sweeps against PCR at n = 2,100 (rtol 1e-4, atol 1e-5);
+                distributed_lm_solve on
                 that graph in f32 and f64 (within 1 cm of the host solve,
                 no LM step at the CG cap) and with schwarz=False, each
                 graphed (NCCL's all_reduces inside the graphs), eager and
@@ -245,7 +251,18 @@ REPLACES = {
                   "_positional_cov, :656 _angular_cov, :493 _score_tensor)",
     "stream_update": "slam_toolbox_tpu/mapper/streaming.py:223 "
                      "_stream_update_impl (pose, ring push, eviction, row)",
+    "chain_thomas": "slam_toolbox_tpu/solver/chain_precond.py:82 factorize's "
+                    "lax.scan, :162 and :172 apply's forward and backward "
+                    "lax.scans",
+    "device_loop": "slam_toolbox_tpu/solver/se2_solver.py:457 lm_solve's LM "
+                   "lax.while_loop, :414 its CG lax.while_loop",
 }
+# the solver's kernels (phase 12), which replace no Pallas kernel: K9, the
+# block Thomas factorization and sweeps, and K10, the WHILE nodes
+SOLVER_KERNELS = ("chain_thomas", "device_loop")
+# H100 SXM f64 outside the tensor cores (NVIDIA's data sheet), for K9's
+# f64 bound
+F64_OPS_PER_S = 34e12
 # device time per launch from CUDA graph replays, where phase 2 takes it;
 # for the step kernels also the device time of the PyTorch ops each one
 # replaces (its plain version, captured the same way)
@@ -3916,6 +3933,255 @@ def random_spd_chain(n, seed=0):
     return D, U
 
 
+def thomas_case(n, dtype, dev, seed=8):
+    """K9's inputs at n nodes as `dtype` tensors on `dev`: (D, U, r, free)
+    of a random SPD block-tridiagonal chain (random_spd_chain's
+    distribution) with node 0 and every 97th node fixed and their
+    couplings dropped, as the PCG tier builds U."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    a = rng.normal(0, 1, (n, 3, 3))
+    D = a @ a.transpose(0, 2, 1) + 4.0 * np.eye(3)
+    U = rng.normal(0, 0.3, (n - 1, 3, 3))
+    free = np.ones(n)
+    free[::97] = 0.0
+    U = U * (free[:-1] * free[1:])[:, None, None]
+    r = rng.normal(0, 1, (n, 3))
+    return tuple(torch.from_numpy(np.ascontiguousarray(x)).to(dev, dtype)
+                 for x in (D, U, r, free))
+
+
+# the Thomas and dense tiers' snake graphs in phase 12; K9's sizes timed
+# there (the Thomas tier's own, whole tiles of 128 rows; the Thomas tier
+# ends at 4,095 nodes; 100,000 a long chain), and those held to the plain
+# sweeps
+THOMAS_TIER_NODES = 3072
+DENSE_TIER_NODES = 1500
+THOMAS_SIZES = (2100, THOMAS_TIER_NODES, 4095, 100000)
+THOMAS_CHECKED = (2100, THOMAS_TIER_NODES)
+
+
+def thomas_bound(n, dtype):
+    """The bound of K9's factorization then one apply at n nodes: 80n - 45
+    values read or written once (factorize D, U, f in and Sinv, T, W out;
+    apply Sinv, T, W, r, f in and z out), and 287 operations a node (230
+    to factorize, 57 to apply). The real floor is n dependent 3x3 steps,
+    which no bytes or rate bound sees."""
+    import torch
+
+    f64 = dtype == torch.float64
+    return bound((80 * n - 45) * (8 if f64 else 4),
+                 287 * n * (SCALAR_OPS_PER_S / F64_OPS_PER_S if f64 else 1))
+
+
+def check_thomas(dev):
+    """K9 (cp.chain_factorize, cp.chain_apply) at THOMAS_SIZES in f32 and
+    f64: device ms of the factorization and of one apply (graph replays),
+    the wrappers' ms for the pair (CUDA events), the bound; at
+    THOMAS_CHECKED (2,100 and the Thomas tier's THOMAS_TIER_NODES) also
+    the plain pair (cp.factorize, cp.apply) on the card, timed, and K9
+    held to it within 1e-5 (f32) / 1e-12 (f64) of each output's largest
+    magnitude."""
+    import torch
+
+    from slam_toolbox_tpu_torch.solver import chain_precond as cp
+
+    out = {}
+    for dtype in (torch.float32, torch.float64):
+        for n in THOMAS_SIZES:
+            D, U, r, f = thomas_case(n, dtype, dev)
+            fac = cp.chain_factorize(D, U, f)
+            rec = {
+                "factorize_device_ms": graph_ms(
+                    lambda: cp.chain_factorize(D, U, f), 1, 10)[0],
+                "apply_device_ms": graph_ms(
+                    lambda: cp.chain_apply(*fac, r, f), 1, 10)[0],
+                "ms": event_ms(lambda: cp.chain_apply(
+                    *cp.chain_factorize(D, U, f), r, f), 5, 1)}
+            rec["bound_ms"], rec["bound_by"] = thomas_bound(n, dtype)
+            if n in THOMAS_CHECKED:
+                def plain():
+                    ref = cp.factorize(D, U, f)
+                    return ref, cp.apply(*ref, r, f)
+
+                (ref, z_ref), plain_s = timed(plain)
+                z = cp.chain_apply(*fac, r, f)
+                tol = 1e-5 if dtype == torch.float32 else 1e-12
+                errs = [float((a - b).abs().max())
+                        for a, b in zip((*fac, z), (*ref, z_ref))]
+                scale = [float(b.abs().max()) for b in (*ref, z_ref)]
+                rec.update(plain_ms=1e3 * plain_s, max_abs_err=max(errs),
+                           rel_err=max(e / s for e, s in zip(errs, scale)))
+                if any(e > tol * s for e, s in zip(errs, scale)):
+                    raise AssertionError(f"chain_thomas n {n} {dtype}: "
+                                         f"{errs} against {scale}")
+            out[f"n={n} {str(dtype)[6:]}"] = rec
+    return out
+
+
+@contextlib.contextmanager
+def lm_watch(eager: bool):
+    """Inside the block lm_solve runs by the host's Python loop
+    (LMLoop.run_eager) if `eager`, every WhileProgram launch sits in a
+    profiler range of that name, and the host reads are counted: yields
+    {"reads": reads in the block}."""
+    import torch
+
+    from slam_toolbox_tpu_torch.kernels import match_cuda as mc
+    from slam_toolbox_tpu_torch.solver import se2_solver as ts
+
+    log = {"reads": 0}
+    run, read, launch = ts.LMLoop.run, ts._host_read, mc.WhileProgram.launch
+
+    def counted(t):
+        log["reads"] += 1
+        return read(t)
+
+    def ranged(self):
+        with torch.profiler.record_function("WhileProgram.launch"):
+            launch(self)
+
+    ts._host_read, mc.WhileProgram.launch = counted, ranged
+    if eager:
+        ts.LMLoop.run = ts.LMLoop.run_eager
+    try:
+        yield log
+    finally:
+        ts.LMLoop.run, ts._host_read, mc.WhileProgram.launch = (
+            run, read, launch)
+
+
+def tier_runs(tier, args, cfg):
+    """lm_solve on `args` (poses, src, dst, rel, sqrt_info, free on the
+    card) with `cfg`'s settings: as one device loop (its capture
+    included), by the host's loop, and as the device loop again, each
+    held to the first bit for bit (poses, chi2, LM and CG iterations);
+    then one LM step of each route traced. The device loop must read the
+    host once a solve and call no cudaLaunchKernel inside its launch."""
+    import numpy as np
+
+    from slam_toolbox_tpu_torch.solver import se2_solver as ts
+
+    f32 = np.float32
+
+    def solve(max_iterations=cfg.max_iterations):
+        return ts.lm_solve(
+            *args, float(f32(cfg.initial_lm_lambda)),
+            float(f32(cfg.function_tolerance)),
+            float(f32(cfg.gradient_tolerance)),
+            float(f32(cfg.parameter_tolerance)), max_iterations,
+            cg_tol=float(f32(cfg.cg_tolerance)),
+            cg_iters=cfg.cg_max_iterations)
+
+    def run(eager):
+        with lm_watch(eager) as log:
+            (p, chi2, it), s = timed(solve)
+        st = ts.lm_solve.last_stats
+        if st["tier"] != tier or st["host_reads"] != log["reads"]:
+            raise AssertionError(f"{tier} tier: stats {st}, {log}")
+        return {"poses": p.numpy(), "chi2": float(chi2), "lm": it, "s": s,
+                "cg": st["cg_iters"], "chunks": st["cg_chunks"],
+                "reads": log["reads"], "route": st["route"]}
+
+    graphed = run(False)
+    eager = run(True)
+    same_solve(f"{tier} tier device loop vs host loop", eager, graphed)
+    graphed["max_abs_err"] = max(
+        float(np.max(np.abs(eager["poses"] - graphed["poses"]))),
+        abs(eager["chi2"] - graphed["chi2"]))
+    again = run(False)
+    same_solve(f"{tier} tier device loop again", graphed, again)
+    for r in (eager, again):
+        if (r["chi2"], r["lm"], r["chunks"]) != (
+                graphed["chi2"], graphed["lm"], graphed["chunks"]):
+            raise AssertionError(f"{tier} tier: {r['chi2']} {r['lm']} "
+                                 f"{r['chunks']} against the first run's")
+    if (graphed["reads"], again["reads"]) != (1, 1):
+        raise AssertionError(f"{tier} tier: host reads {graphed['reads']}, "
+                             f"{again['reads']} a solve")
+    solve(1)   # the one-step bucket's capture, outside the traces
+    prof = {}
+    for tag, on_host in (("device loop", False), ("host loop", True)):
+        with lm_watch(on_host) as log:
+            _, prof[tag] = launch_profile(lambda: solve(1),
+                                          span="WhileProgram.launch")
+        prof[tag]["host_reads"] = log["reads"]
+        prof[tag]["cg_iterations"] = ts.lm_solve.last_stats["cg_iters"]
+    if prof["device loop"]["kernel_launch_calls_in_WhileProgram.launch"]:
+        raise AssertionError(f"{tier} tier: the device loop launched "
+                             f"kernels from the host: {prof}")
+    return graphed, eager, again, prof
+
+
+def tier_summary(graphed, eager, again, prof) -> dict:
+    return {"lm": graphed["lm"], "cg": graphed["cg"],
+            "cg_chunks": graphed["chunks"], "host_reads": graphed["reads"],
+            "max_abs_err": graphed["max_abs_err"],
+            "host_loop_reads": eager["reads"], "s": graphed["s"],
+            "again_s": again["s"], "host_loop_s": eager["s"],
+            "one_step_traced": prof}
+
+
+def condition_tests(tier) -> int:
+    """The WHILE tests of a solve that tier_summary describes: one before
+    each loop and one after each pass, the LM loop's and each step's CG
+    loop's."""
+    return tier["lm"] + 1 + sum(c + 1 for c in tier["cg_chunks"])
+
+
+def while_test_ms(dev, tests: int, short: int = 100, long: int = 1100):
+    """K10's own cost on the card, which a trace cannot give (the
+    profiler's kernel records inside conditional bodies came out
+    incomplete): a WhileProgram whose body is three one-element kernels
+    (a counter's decrement, its flag, a pass count) launched for `short`
+    and for `long` passes, CUDA events, gives the ms of a pass; the same
+    body captured `long - short` deep in one graph and replayed gives the
+    ms of the body alone. The difference is what a condition test adds
+    (the set_while kernel and the node's relaunch of its body). Beside
+    it, `tests` host reads of the flag on an idle card (`_host_read`,
+    wall clock): the host loop's way of making as many tests."""
+    import torch
+
+    from slam_toolbox_tpu_torch.kernels import match_cuda as mc
+    from slam_toolbox_tpu_torch.solver import se2_solver as ts
+
+    i64 = dict(dtype=torch.int64, device=dev)
+    limit, cnt, flag, passes = (torch.zeros(1, **i64) for _ in range(4))
+
+    def init():
+        cnt.copy_(limit)
+        passes.zero_()
+        flag.copy_(cnt > 0)
+
+    def body():
+        cnt.sub_(1)
+        flag.copy_(cnt > 0)
+        passes.add_(1)
+
+    out = {}
+    with mc.uncounted():
+        prog = mc.WhileProgram([init, ("while", flag, [body])], dev)
+        try:
+            for k in (short, long):
+                limit.fill_(k)
+                out[f"launch_ms_{k}"] = event_ms(prog.launch, 10, 2)
+                if int(passes) != k:
+                    raise AssertionError(f"device_loop: {int(passes)} "
+                                         f"passes for {k}")
+        finally:
+            prog.close()
+        out["body_ms"], _ = graph_ms(body, long - short, 5)
+    out["pass_ms"] = (out[f"launch_ms_{long}"] - out[f"launch_ms_{short}"]
+                      ) / (long - short)
+    out["test_ms"] = out["pass_ms"] - out["body_ms"]
+    torch.cuda.synchronize()
+    _, read_s = timed(lambda: [ts._host_read(flag) for _ in range(tests)])
+    out.update(tests=tests, host_reads_ms=1e3 * read_s)
+    return out
+
+
 def loop_chains(data, radius: float):
     """(chains, query) indices into `data` built as loop_chain builds a
     loop chain, every run kept: the second-lap query whose first-lap scans
@@ -3987,12 +4253,12 @@ def per_iteration(prof, log):
 
 @contextlib.contextmanager
 def cg_watch(eager: bool):
-    """Inside the block every CGLoop run (the PCG tier's and the
-    distributed solve's CG) is logged, and every host read of the CG and
-    LM loops counted: yields {"cg": iterations per LM step, "reads":
-    reads per LM step}, a step's reads being its CG chunks and the LM
-    loop's one. With `eager`, the loops launch their chunks eagerly
-    (CGLoop.run_eager) in place of the graphs."""
+    """Inside the block every CGLoop run (the distributed solve's CG) is
+    logged, and every host read of the CG and LM loops counted: yields
+    {"cg": iterations per LM step, "reads": reads per LM step}, a step's
+    reads being its CG chunks and the LM loop's one. With `eager`, the
+    loops launch their chunks eagerly (CGLoop.run_eager) in place of the
+    graphs."""
     import torch
 
     from slam_toolbox_tpu_torch.solver import se2_solver as ts
@@ -4101,106 +4367,122 @@ def dist_checks(mesh, mapper, scan_at, data, loop_radius, grids):
     _, init, edges = build_snake_graph(DIST_NODES)
     n, e = len(init), len(edges)
 
-    # the host reference: host_sparse_lm in f64 on the same edges, unpadded
-    h_free = np.ones(n)
-    h_free[0] = 0.0
-    (host, host_chi2, host_iters), host_s = timed(lambda: ts.host_sparse_lm(
-        init.copy(), np.array([ed[0] for ed in edges]),
-        np.array([ed[1] for ed in edges]), np.stack([ed[2] for ed in edges]),
-        np.stack([ts._sqrt_info_3x3(ed[3]) for ed in edges]), h_free, cfg))
+    def host_solve(init, edges):
+        """The host reference: host_sparse_lm in f64 on the same edges,
+        unpadded. ((poses, chi2, iterations), seconds)"""
+        h_free = np.ones(len(init))
+        h_free[0] = 0.0
+        return timed(lambda: ts.host_sparse_lm(
+            init.copy(), np.array([ed[0] for ed in edges]),
+            np.array([ed[1] for ed in edges]),
+            np.stack([ed[2] for ed in edges]),
+            np.stack([ts._sqrt_info_3x3(ed[3]) for ed in edges]), h_free,
+            cfg))
 
-    def parity(poses):
-        d = poses[:n] - host
+    def gap(poses, host):
+        d = poses[:len(host)] - host
         dh = np.arctan2(np.sin(d[:, 2]), np.cos(d[:, 2]))
         return (float(np.max(np.hypot(d[:, 0], d[:, 1]))),
                 float(np.max(np.abs(dh))))
 
-    # 1. the PCG tier: lm_solve past the dense ceiling, padded as compute()
-    # pads (16,384 nodes: the PCR chain preconditioner), f32 on the card;
-    # its CG chunks as graph replays (the route), then launched eagerly
+    def hold_to_host(tag, run, host, t_args):
+        """A tier's solve (tier_runs' first run) held to the host solve:
+        finite poses, chi2 below the start's and within
+        PCG_TIER_MAX_CHI2_REL of the host solution's chi2 taken in the
+        tier's own f32 arithmetic on the same padded arrays (the f32
+        problem's rel and weights are rounded), positions within
+        PCG_TIER_MAX_DXY. Returns {chi2_0, host_chi2_f32, dxy, dth}."""
+        poses, src, dst, rel, si, em, _ = t_args
+        host_pad = np.zeros(tuple(poses.shape), np.float32)
+        host_pad[:len(host)] = host
+        host_chi2_f32 = float(ts.chi2_only(
+            torch.from_numpy(host_pad).to(dev), src, dst, rel, si, em))
+        chi2_0 = float(ts.chi2_only(poses, src, dst, rel, si, em))
+        dxy, dth = gap(run["poses"], host)
+        chi2 = run["chi2"]
+        if not (np.all(np.isfinite(run["poses"])) and chi2 < chi2_0):
+            raise AssertionError(f"{tag}: no progress or non-finite poses")
+        if abs(chi2 - host_chi2_f32) > PCG_TIER_MAX_CHI2_REL * host_chi2_f32:
+            raise AssertionError(f"{tag}: chi2 {chi2} not within "
+                                 f"{PCG_TIER_MAX_CHI2_REL:.1%} of "
+                                 f"{host_chi2_f32}")
+        if dxy > PCG_TIER_MAX_DXY:
+            raise AssertionError(f"{tag}: {dxy} m from the host solve")
+        return {"chi2_0": chi2_0, "host_chi2_f32": host_chi2_f32,
+                "dxy": dxy, "dth": dth}
+
+    (host, host_chi2, host_iters), host_s = host_solve(init, edges)
+
+    def parity(poses):
+        return gap(poses, host)
+
+    # 1. lm_solve's device tiers, each one program (LMLoop: the LM loop a
+    # WHILE node, the CG loop one nested in it) against its eager route
+    # (the same functions from the host's Python loop), and each held to
+    # the host solve: the PCG tier with PCR on the snake padded as
+    # compute() pads it (16,384 nodes); the Thomas tier at
+    # THOMAS_TIER_NODES nodes; the dense tier at DENSE_TIER_NODES nodes
+    # padded to 2,048. The counts are set to 0 before the solves and read
+    # after: K9 and K10 must launch
+    mc.reset_launch_counts()
     n_pad, e_pad = ts._pad_pow2(n, 256), ts._pad_pow2(e, 512)
-    args = pack_graph(init, edges, n_pad, e_pad)
-    poses, src, dst, rel, si, em, free = (torch.from_numpy(a).to(dev)
-                                          for a in args)
-    f32 = np.float32
-
-    def tier(max_iterations=cfg.max_iterations):
-        return ts.lm_solve(
-            poses, src, dst, rel, si, free,
-            float(f32(cfg.initial_lm_lambda)),
-            float(f32(cfg.function_tolerance)),
-            float(f32(cfg.gradient_tolerance)),
-            float(f32(cfg.parameter_tolerance)), max_iterations,
-            cg_tol=float(f32(cfg.cg_tolerance)),
-            cg_iters=cfg.cg_max_iterations)
-
-    def tier_run(eager):
-        with cg_watch(eager) as log:
-            (p_out, p_chi2, p_iters), s = timed(tier)
-        return {"poses": p_out.cpu().numpy(), "chi2": float(p_chi2),
-                "lm": p_iters, "s": s, **log}
-
-    graphed = tier_run(False)
-    loop = ts.pcg_step.last_loop
-    capture_ms = {k: 1e3 * p.capture_s for k, p in loop.programs.items()}
-    eager = tier_run(True)
-    same_solve("pcg tier graphed vs eager", eager, graphed)
-    again = tier_run(False)   # the captured programs replayed
-    same_solve("pcg tier replayed again", graphed, again)
-    step_prof = {}
-    for tag, run_eager in (("graphed", False), ("eager", True)):
-        with cg_watch(run_eager) as log:
-            _, prof = launch_profile(lambda: tier(1))
-        step_prof[tag] = per_iteration(prof, log)
-    p_out, p_chi2, p_iters = graphed["poses"], graphed["chi2"], graphed["lm"]
-    host_pad = np.zeros((n_pad, 3), np.float32)
-    host_pad[:n] = host
-    # the host solution's chi2 in the tier's own f32 arithmetic on the same
-    # padded arrays (the f32 problem's rel and weights are rounded)
-    host_chi2_f32 = float(ts.chi2_only(torch.from_numpy(host_pad).to(dev),
-                                       src, dst, rel, si, em))
-    chi2_0 = float(ts.chi2_only(poses, src, dst, rel, si, em))
-    dxy, dth = parity(p_out)
+    args = tuple(torch.from_numpy(a).to(dev)
+                 for a in pack_graph(init, edges, n_pad, e_pad))
+    graphed, eager, again, step_prof = tier_runs(
+        "pcr", args[:5] + args[6:], cfg)
+    near = hold_to_host("pcg tier", graphed, host, args)
     print(f"# pcg tier: {n} nodes, {e} edges padded to ({n_pad}, {e_pad}), "
-          f"f32 on the card: {p_iters} LM iterations, CG iterations per step "
-          f"{graphed['cg']}, chi2 {chi2_0} -> {p_chi2} (the host solve's "
-          f"{host_chi2} in f64, {host_chi2_f32} on the tier's f32 arrays), "
-          f"largest difference to the host solve {dxy} m {dth} rad, "
-          f"{graphed['s']} s as CUDA graph chunks with their capture, "
-          f"{again['s']} s replaying them ({eager['s']} s eager; host "
-          f"sparse {host_s} s, {host_iters} LM iterations)", flush=True)
-    print(f"# pcg tier loops: host reads per LM step {graphed['reads']} "
-          f"(eager {eager['reads']}), chunk of {ts.CG_CHUNK}; capture ms "
-          f"(init, chunk, restart chunk) {json.dumps(capture_ms)}; one LM "
-          f"step traced {json.dumps(step_prof)}", flush=True)
-    check_reads("pcg tier", graphed)
-    if step_prof["graphed"]["kernel_launch_calls_in_CGLoop.run"]:
-        raise AssertionError(f"pcg tier: the CG loop launched kernels "
-                             f"from the host: {step_prof['graphed']}")
-    if not (np.all(np.isfinite(p_out)) and p_chi2 < chi2_0):
-        raise AssertionError("pcg tier: no progress or non-finite poses")
-    if abs(p_chi2 - host_chi2_f32) > PCG_TIER_MAX_CHI2_REL * host_chi2_f32:
-        raise AssertionError(f"pcg tier: chi2 {p_chi2} not within "
-                             f"{PCG_TIER_MAX_CHI2_REL:.1%} of {host_chi2_f32}")
-    if dxy > PCG_TIER_MAX_DXY:
-        raise AssertionError(f"pcg tier: {dxy} m from the host solve")
+          f"f32 on the card: {graphed['lm']} LM iterations, CG iterations "
+          f"per step {graphed['cg']}, chi2 {near['chi2_0']} -> "
+          f"{graphed['chi2']} (the host solve's {host_chi2} in f64, "
+          f"{near['host_chi2_f32']} on the tier's f32 arrays), largest "
+          f"difference to the host solve {near['dxy']} m {near['dth']} rad, "
+          f"{graphed['s']} s as one device loop with its capture, "
+          f"{again['s']} s launching it again ({eager['s']} s by the host's "
+          f"loop; host sparse {host_s} s, {host_iters} LM iterations)",
+          flush=True)
+    tiers = {"pcr": dict(tier_summary(graphed, eager, again, step_prof),
+                         host_solve=near)}
+    for tier, nodes in (("thomas", THOMAS_TIER_NODES),
+                        ("dense", DENSE_TIER_NODES)):
+        _, t_init, t_edges = build_snake_graph(nodes)
+        (t_host, t_host_chi2, t_host_iters), t_host_s = host_solve(t_init,
+                                                                   t_edges)
+        np_ = nodes if tier == "thomas" else ts._pad_pow2(nodes, 256)
+        t_args = tuple(torch.from_numpy(a).to(dev) for a in pack_graph(
+            t_init, t_edges, np_, ts._pad_pow2(len(t_edges), 512)))
+        g, e_, a_, prof = tier_runs(tier, t_args[:5] + t_args[6:], cfg)
+        t_near = hold_to_host(f"{tier} tier", g, t_host, t_args)
+        tiers[tier] = dict(tier_summary(g, e_, a_, prof), host_solve=t_near)
+        print(f"# {tier} tier: {nodes} nodes padded to {np_}: {g['lm']} LM "
+              f"iterations, CG iterations per step {g['cg']}, chi2 "
+              f"{t_near['chi2_0']} -> {g['chi2']} (the host solve's "
+              f"{t_host_chi2} in f64, {t_near['host_chi2_f32']} on the "
+              f"tier's f32 arrays), largest difference to the host solve "
+              f"{t_near['dxy']} m {t_near['dth']} rad, {g['s']} s as one "
+              f"device loop with its capture, {a_['s']} s launching it "
+              f"again ({e_['s']} s by the host's loop; host sparse "
+              f"{t_host_s} s, {t_host_iters} LM iterations)", flush=True)
+    solver_launches = dict(mc.LAUNCHES)
+    print(f"# pcg tier loops: {json.dumps(tiers)}; launches "
+          f"{json.dumps(solver_launches)}", flush=True)
+    for name in SOLVER_KERNELS:
+        if not solver_launches[name]:
+            raise AssertionError(f"solver tiers: {name} never launched")
+    k10 = while_test_ms(dev, condition_tests(tiers["thomas"]))
+    print(f"# device loop: {json.dumps(k10)}", flush=True)
 
-    # the Thomas sweeps once at n = 2,100 against PCR on the same system
-    D, U = random_spd_chain(2100, seed=8)
-    cfree = np.ones(2100)
-    cfree[0] = 0.0
-    r = np.random.default_rng(5).normal(0, 1, (2100, 3))
-    Um = U * (cfree[:-1] * cfree[1:])[:, None, None]
-    Dt, Ut, rt, ft = (torch.from_numpy(a).to(dev, torch.float32)
-                      for a in (D, Um, r, cfree))
-    z_thomas, thomas_s = timed(lambda: cp.apply(*cp.factorize(Dt, Ut, ft),
-                                                rt, ft))
-    z_pcr, pcr_s = timed(lambda: cp.pcr_solve(Dt, Ut, rt, ft, 13))
+    # K9 against the plain sweeps at THOMAS_CHECKED, timed there and at
+    # THOMAS_SIZES, f32 and f64; the sweeps against PCR at n = 2,100
+    thomas = check_thomas(dev)
+    Dt, Ut, rt, ft = thomas_case(2100, torch.float32, dev)
+    z_thomas = cp.chain_apply(*cp.chain_factorize(Dt, Ut, ft), rt, ft)
+    z_pcr = cp.pcr_solve(Dt, Ut, rt, ft, 13)
     z_thomas, z_pcr = z_thomas.cpu().numpy(), z_pcr.cpu().numpy()
-    err = float(np.max(np.abs(z_thomas - z_pcr)))
-    print(f"# pcg thomas: n 2100, factorize + apply {thomas_s} s, PCR "
-          f"{pcr_s} s, largest difference {err}", flush=True)
     np.testing.assert_allclose(z_pcr, z_thomas, rtol=1e-4, atol=1e-5)
+    print(f"# pcg thomas: {json.dumps(thomas)}; against PCR at n 2100 f32 "
+          f"largest difference {float(np.max(np.abs(z_thomas - z_pcr)))}",
+          flush=True)
 
     # 2. the distributed solve on the same graph: f32, f64, and the chain
     # preconditioner (schwarz=False) in f32; its CG chunks as graphs with
@@ -4313,7 +4595,46 @@ def dist_checks(mesh, mapper, scan_at, data, loop_radius, grids):
         rows_checked.append(mid)
     print(f"# dist halo: band {band}, halo {halo}, windows of 160 rows at "
           f"rows {rows_checked} equal to the full counters", flush=True)
-    return by_grid
+    return by_grid, {"launches": solver_launches, "tiers": tiers,
+                     "thomas": thomas, "device_loop": k10}
+
+
+def solver_row(name, solver) -> dict:
+    """The kernels line's row of K9 or K10 from phase 12: launches from
+    its solver tiers' run; K9 timed at the Thomas tier's n =
+    THOMAS_TIER_NODES in f32 (factorization then one apply) with its other
+    sizes beside; K10 as what its condition tests add on the card
+    (while_test_ms) times the tests of the Thomas tier's solve, against as
+    many host reads of a flag (plain_ms, the host loop's way), its bound
+    the flag reads of those tests, its error the largest difference
+    between the tiers' device and host loops; the whole solves' times
+    beside."""
+    launches = solver["launches"][name]
+    row = {"name": name, "route": "cuda",
+           "source": f"slam_toolbox_tpu_torch/csrc/{name}.cu",
+           "replaces": REPLACES[name], "replaces_pallas_kernel": None,
+           "launches": launches, "library_ms": None,
+           "launched_by": "phase 12's lm_solve tiers (dense, Thomas, PCR)"}
+    if name == "chain_thomas":
+        rec = solver["thomas"][f"n={THOMAS_TIER_NODES} float32"]
+        row.update(max_abs_err=rec["max_abs_err"], ms=rec["ms"],
+                   plain_ms=rec["plain_ms"], bound_ms=rec["bound_ms"],
+                   bound_by=rec["bound_by"],
+                   shape=f"n={THOMAS_TIER_NODES} f32, factorize then one "
+                   f"apply", sizes=solver["thomas"])
+        return row
+    tiers, k10 = solver["tiers"], solver["device_loop"]
+    tests = k10["tests"]
+    t_bytes, by = bound(8 * tests, 0)
+    row.update(max_abs_err=max(t["max_abs_err"] for t in tiers.values()),
+               ms=k10["test_ms"] * tests, plain_ms=k10["host_reads_ms"],
+               bound_ms=t_bytes, bound_by=by,
+               shape=f"Thomas tier, {THOMAS_TIER_NODES} nodes, "
+               f"{tiers['thomas']['lm']} LM steps: {tests} condition tests",
+               test_measure=k10, solve_ms=1e3 * tiers["thomas"]["again_s"],
+               host_loop_solve_ms=1e3 * tiers["thomas"]["host_loop_s"],
+               tiers=tiers)
+    return row
 
 
 def occ_row(scan, grid):
@@ -4348,6 +4669,11 @@ def main() -> int:
     build_s = mc.build_kernels(force=True)
     TAIL_PHASE_LIB = load_phase_clock(*clock)
     static = tail_static_smem()
+    nvcc = subprocess.run([mc._nvcc(), "--version"], capture_output=True,
+                          text=True, check=True).stdout.strip().splitlines()
+    print(f"# toolchain: {nvcc[-1]}; device_loop's runtime and driver "
+          f"{json.dumps(mc.device_loop_versions())} (conditional nodes "
+          f"need 12030 or later)", flush=True)
     print(f"# build: {len(mc.KERNELS)} kernels in {build_s:.2f} s, with "
           f"score_tail's phase clock build {time.perf_counter() - t0:.2f} "
           f"s; score_tail's static "
@@ -4546,9 +4872,9 @@ def main() -> int:
     # 12. dist/ and the PCG tier under a world-size-1 NCCL group: the
     # solver tiers on the snake graph, the sharded chain match (K1-K3 at
     # G 561), the sharded raster of phase 10's grids
-    dist_launches = dist_path(mapper, scan_at, data,
-                              cfg.loop_search_maximum_distance,
-                              map_launches["grids"])
+    dist_launches, solver = dist_path(mapper, scan_at, data,
+                                      cfg.loop_search_maximum_distance,
+                                      map_launches["grids"])
 
     # 13. kernels line, card line, result line
     def summary(r):
@@ -4559,6 +4885,9 @@ def main() -> int:
 
     rows = []
     for name in mc.KERNELS:
+        if name in SOLVER_KERNELS:
+            rows.append(solver_row(name, solver))
+            continue
         if name == "score_ceiling":
             rec, loop = ceiling, None
         elif name == "score_windows":

@@ -17,8 +17,10 @@ rotated tables and lattice origin in the kernel (step_cuda.
 score_windows_head, counted under score_windows). The scan step's three
 other kernels, which replace no Pallas kernel (ring_points, score_tail,
 stream_update), have their wrappers and plain versions in
-kernels/step_cuda.py; they are built, bound and counted here with the
-others.
+kernels/step_cuda.py; the solver's two (chain_thomas, the block Thomas
+factorization and sweeps, in solver/chain_precond.py; device_loop, the
+CUDA-graph WHILE nodes of WhileProgram below); all are built, bound and
+counted here.
 
 Each source in ../csrc/ is compiled on first use by its own nvcc process
 (all started together) into a shared library with a plain C interface in
@@ -42,8 +44,10 @@ a side stream, the capture under the process's capture_lock, the tally)
 serves the drain's step graph (mapper/streaming.py); Program, a
 function of static input buffers captured once and replayed per call
 (the matcher's match and exact passes and rasters, the fused loop verify
-and the near-chain matches); and StatefulProgram, a function that updates
-its state in place (the CG chunks of solver/se2_solver.py's CGLoop).
+and the near-chain matches); StatefulProgram, a function that updates
+its state in place (the distributed solve's CG chunks, solver/
+se2_solver.py CGLoop); and WhileProgram, captured functions joined by
+WHILE nodes into one graph (lm_solve's LM and CG loops).
 
 The libraries are built and loaded once per process under a lock, so
 threads that reach a kernel first at the same time (a session warming on
@@ -71,7 +75,8 @@ _CSRC = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "csrc")
 
 KERNELS = ("scatter_occupancy", "smear_quantize", "score_windows",
-           "score_ceiling", "ring_points", "score_tail", "stream_update")
+           "score_ceiling", "ring_points", "score_tail", "stream_update",
+           "chain_thomas", "device_loop")
 # score_ceiling's compile-time (dx, dy) offsets, as in csrc/score_ceiling.cu
 CEIL_OFFSETS = ((612, -35), (-480, 271), (133, 702), (-57, -655),
                 (890, 404), (-821, -230), (305, -877), (-214, 515))
@@ -134,7 +139,8 @@ def count_replay(tally, replays: int = 1) -> None:
 capture_lock = threading.RLock()
 
 
-def capture_graph(fn, device, warm=None, steps: int = 1):
+def capture_graph(fn, device, warm=None, steps: int = 1,
+                  keep_graph: bool = False):
     """`steps` calls of `fn` captured as one CUDA graph on `device`:
     returns (graph, the launches one replay makes (tallied), the last
     call's return value, which lives in the graph's private pool). The
@@ -147,12 +153,14 @@ def capture_graph(fn, device, warm=None, steps: int = 1):
     capture_lock. Unlike torch.cuda.graph it neither synchronizes the
     device nor empties the device and pinned-host caches first: a
     session thread may be copying through pinned memory meanwhile, and
-    emptying that cache under it fails. A capture that fails raises."""
+    emptying that cache under it fails. A capture that fails raises.
+    With `keep_graph` the graph is kept uninstantiated for
+    raw_cuda_graph() (WhileProgram)."""
     with capture_lock:
         cur = torch.cuda.current_stream(device)
         side = torch.cuda.Stream(device)
         side.wait_stream(cur)
-        graph = torch.cuda.CUDAGraph()
+        graph = torch.cuda.CUDAGraph(keep_graph=keep_graph)
         out = None
         with torch.cuda.stream(side):
             if warm is not None:
@@ -241,6 +249,108 @@ class StatefulProgram:
         count_replay(self.tally)
 
 
+class WhileProgram:
+    """Loops on the device as one CUDA graph that csrc/device_loop.cu (K10)
+    builds: the counterpart of lax.while_loop. `plan` is a list of items
+    run in order, each either a function of no argument, captured as a
+    CUDA graph (capture_graph, warmed once eagerly on the buffers it
+    reads, which it must be free to write) and run as a child-graph node,
+    or ("while", flag, plan): a WHILE node that runs `plan` while the
+    int64 `flag` (a one-element CUDA tensor that the plan writes) is
+    nonzero, tested before the first run. launch() runs the whole on the
+    current stream: one cudaGraphLaunch, counted under device_loop, and
+    nothing read back. tally[fn] is the kernel launches one run of fn
+    records (count_replay). The captured graphs' private pools hold the
+    bodies' memory, so the program keeps them until close(). A capture or
+    a build that fails raises and keeps nothing; there is no other route."""
+
+    def __init__(self, plan, device):
+        self.lib = _lib("device_loop")
+        self.graphs, self.tally = [], {}
+        self.exec = None
+        self.graph = ctypes.c_void_p()
+        t0 = time.perf_counter()
+        self._raise(self.lib.dl_graph_create(ctypes.byref(self.graph)),
+                    "dl_graph_create")
+        ok = False
+        try:
+            self._append(self.graph, plan, device, False)
+            ex = ctypes.c_void_p()
+            self._raise(self.lib.dl_instantiate(self.graph, ctypes.byref(ex)),
+                        "instantiating the loop's graph")
+            self.exec = ex
+            ok = True
+        finally:
+            if not ok:
+                self.close()
+        self.capture_s = time.perf_counter() - t0
+        self.launches = 0
+
+    def _raise(self, err: int, what: str) -> None:
+        if err != 0:
+            raise RuntimeError(
+                f"device_loop: {what} failed: cudaError {err} "
+                f"({self.lib.dl_error_string(err).decode()})")
+
+    def _append(self, graph, plan, device, in_body: bool) -> None:
+        lib = self.lib
+        for item in plan:
+            if callable(item):
+                g, self.tally[item], _ = capture_graph(
+                    item, device, warm=item, keep_graph=True)
+                self.graphs.append(g)
+                raw = g.raw_cuda_graph()
+                if not isinstance(raw, int):
+                    raise TypeError(f"raw_cuda_graph() gave {type(raw)}")
+                if in_body:
+                    msg = ctypes.create_string_buffer(256)
+                    err = lib.dl_check_body(raw, msg, 256)
+                    if err:
+                        raise RuntimeError(
+                            f"device_loop: {item} cannot sit in a WHILE "
+                            f"body: it holds {msg.value.decode()} "
+                            f"(cudaError {err})")
+                self._raise(lib.dl_append_child(graph, raw),
+                            "adding a captured graph")
+            else:
+                kind, flag, body_plan = item
+                if kind != "while" or flag.dtype != torch.int64:
+                    raise ValueError(f"not a WHILE item: {item}")
+                body = ctypes.c_void_p()
+                self._raise(lib.dl_append_while(
+                    graph, flag.data_ptr(), ctypes.byref(body)),
+                    "adding a WHILE node")
+                self._append(body, body_plan, device, True)
+                self._raise(lib.dl_end_while(body), "closing a WHILE body")
+
+    def launch(self) -> None:
+        self._raise(self.lib.dl_launch(self.exec, _stream()), "dl_launch")
+        self.launches += 1
+        _count("device_loop", 0)
+
+    def close(self) -> None:
+        """Destroys the graph and its instance, then lets the captured
+        graphs and their pools go."""
+        if getattr(self, "graph", None):
+            self.lib.dl_destroy(self.graph, self.exec)
+            self.graph = self.exec = None
+        self.graphs = []
+
+    def __del__(self):
+        self.close()
+
+
+def device_loop_versions() -> dict:
+    """The CUDA runtime device_loop.cu was built with and the driver's
+    (cudaRuntimeGetVersion, cudaDriverGetVersion)."""
+    lib = _lib("device_loop")
+    rt, drv = ctypes.c_int(), ctypes.c_int()
+    err = lib.dl_versions(ctypes.byref(rt), ctypes.byref(drv))
+    if err:
+        raise RuntimeError(f"dl_versions failed: cudaError {err}")
+    return {"runtime": rt.value, "driver": drv.value}
+
+
 def _source(name: str) -> str:
     return os.path.join(_CSRC, f"{name}.cu")
 
@@ -305,28 +415,45 @@ def _lib(name: str):
         build_kernels((name,))
         lib = ctypes.CDLL(_lib_path(name))
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        fn = getattr(lib, name)
-        fn.restype = i
-        fn.argtypes = {
-            "scatter_occupancy": [p, p, p, f, i, i, p, p],
-            "smear_quantize": [p, p, i, i, p, p, p],
-            "score_windows": [p, i, p, p, p, i, i, i, i, p, p, p],
-            "score_ceiling": [p, i, p, p, i, i, i, i, p, p],
-            "ring_points": [p, p, i, p, p, i, i, p, p, p, p, p, p, f,
-                            p, p, p, p, p, p, p, p, p],
-            "score_tail": [p, i, i, i, p, i, p, p, i, i, p, p, p, p, p,
-                           p, f, f, f, f, i, f, f, f, f, i, i, i, i, i,
-                           i, p, p, p, p],
-            "stream_update": [p, p, p, p, p, p, p, p, p, p, p, p, p, p,
-                              p, i, i, i, i, f, p],
+        ip, pp = ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_void_p)
+        exports = {
+            "scatter_occupancy": {"scatter_occupancy": [p, p, p, f, i, i, p,
+                                                        p]},
+            "smear_quantize": {"smear_quantize": [p, p, i, i, p, p, p]},
+            "score_windows": {
+                "score_windows": [p, i, p, p, p, i, i, i, i, p, p, p],
+                "score_windows_head": [p, i, p, p, i, p, p, f, f, f, i, i,
+                                       i, i, p, p, p, p]},
+            "score_ceiling": {"score_ceiling": [p, i, p, p, i, i, i, i, p,
+                                                p]},
+            "ring_points": {"ring_points": [p, p, i, p, p, i, i, p, p, p, p,
+                                            p, p, f, p, p, p, p, p, p, p, p,
+                                            p]},
+            "score_tail": {"score_tail": [p, i, i, i, p, i, p, p, i, i, p, p,
+                                          p, p, p, p, f, f, f, f, i, f, f, f,
+                                          f, i, i, i, i, i, i, p, p, p, p]},
+            "stream_update": {"stream_update": [p, p, p, p, p, p, p, p, p, p,
+                                                p, p, p, p, p, i, i, i, i, f,
+                                                p]},
+            "chain_thomas": {"chain_factorize": [p, p, p, i, i, p, p, p, p],
+                             "chain_apply": [p, p, p, p, p, i, i, p, p]},
+            "device_loop": {
+                "dl_versions": [ip, ip],
+                "dl_check_body": [p, ctypes.c_char_p, i],
+                "dl_graph_create": [pp], "dl_append_child": [p, p],
+                "dl_append_while": [p, p, pp], "dl_end_while": [p],
+                "dl_instantiate": [p, pp], "dl_launch": [p, p],
+                "dl_destroy": [p, p]},
         }[name]
+        for export, argtypes in exports.items():
+            fn = getattr(lib, export)
+            fn.restype = i
+            fn.argtypes = argtypes
+        if name == "device_loop":
+            lib.dl_error_string.restype = ctypes.c_char_p
+            lib.dl_error_string.argtypes = [i]
         if name == "score_tail":
             set_cluster_query(lib)
-        if name == "score_windows":
-            head = lib.score_windows_head
-            head.restype = i
-            head.argtypes = [p, i, p, p, i, p, p, f, f, f, i, i, i, i, p,
-                             p, p, p]
         if name == "ring_points":
             lib.ring_points_scratch_bytes.restype = ctypes.c_longlong
             lib.ring_points_scratch_bytes.argtypes = [i, i]

@@ -10,10 +10,11 @@ couplings + the damped diagonal) is an excellent preconditioner: it
 solves the chain exactly, leaving CG to handle only the loop edges.
 
 Two solvers of the block-tridiagonal system:
-  - factorize / apply: a block Thomas (LDL^T) factorization and two
-    sweeps. They are sequential over the n 3x3 blocks, written as plain
-    Python loops of small tensor ops, so on a card they cost O(n) kernel
-    launches each. lm_solve uses them only below 4,096 (padded) nodes,
+  - chain_factorize / chain_apply: a block Thomas (LDL^T) factorization
+    and its two sweeps, sequential over the n 3x3 blocks. On a card each
+    call is one launch of K9 (csrc/chain_thomas.cu); their plain versions,
+    factorize / apply (Python loops of small tensor ops), run for CPU
+    tensors. lm_solve's PCG step uses them below 4,096 (padded) nodes,
     which PoseGraphSolver.compute never reaches: it pads past the dense
     ceiling to at least 4,096.
   - pcr_solve: parallel cyclic reduction, O(log n) steps of batched 3x3
@@ -23,6 +24,8 @@ Two solvers of the block-tridiagonal system:
 from __future__ import annotations
 
 import torch
+
+from slam_toolbox_tpu_torch.kernels import match_cuda as mc
 
 
 def _inv3(m):
@@ -150,3 +153,58 @@ def apply(Sinv, T, W, r, free):
     for i in range(n - 2, -1, -1):
         z.append(w[i] - W[i] @ z[-1])
     return torch.stack(z[::-1]) * free[:, None]
+
+
+def _check_chain(name, t, shape, like):
+    mc._check(t, name, like.dtype, shape, like.device)
+
+
+def _dbl(t) -> int:
+    if t.dtype not in (torch.float32, torch.float64):
+        raise TypeError(f"chain_thomas: dtype {t.dtype}, expected float32 "
+                        f"or float64")
+    return int(t.dtype == torch.float64)
+
+
+def chain_factorize(D, U, free):
+    """factorize (Sinv, T, W) of D (n,3,3), U (n-1,3,3) and free (n,), f32
+    or f64, any n >= 1: one launch of K9 (csrc/chain_thomas.cu) for CUDA
+    tensors, the plain version for CPU ones."""
+    n = D.shape[0]
+    dbl = _dbl(D)
+    _check_chain("D", D, (n, 3, 3), D)
+    _check_chain("U", U, (n - 1, 3, 3), D)
+    _check_chain("free", free, (n,), D)
+    if not mc._on_cuda(D.device):
+        return factorize(D, U, free)
+    lib = mc._lib("chain_thomas")
+    Sinv = torch.empty_like(D)
+    T = torch.empty_like(U)
+    W = torch.empty_like(U)
+    mc._raise_if(lib.chain_factorize(
+        D.data_ptr(), U.data_ptr(), free.data_ptr(), n, dbl, Sinv.data_ptr(),
+        T.data_ptr(), W.data_ptr(), mc._stream()), "chain_factorize")
+    mc._count("chain_thomas", n)
+    return Sinv, T, W
+
+
+def chain_apply(Sinv, T, W, r, free):
+    """apply (z = M^-1 r, masked by free) with chain_factorize's factors,
+    r (n,3): one launch of K9 for CUDA tensors, the plain version for CPU
+    ones."""
+    n = Sinv.shape[0]
+    dbl = _dbl(Sinv)
+    _check_chain("Sinv", Sinv, (n, 3, 3), Sinv)
+    _check_chain("T", T, (n - 1, 3, 3), Sinv)
+    _check_chain("W", W, (n - 1, 3, 3), Sinv)
+    _check_chain("r", r, (n, 3), Sinv)
+    _check_chain("free", free, (n,), Sinv)
+    if not mc._on_cuda(Sinv.device):
+        return apply(Sinv, T, W, r, free)
+    lib = mc._lib("chain_thomas")
+    z = torch.empty_like(r)
+    mc._raise_if(lib.chain_apply(
+        Sinv.data_ptr(), T.data_ptr(), W.data_ptr(), r.data_ptr(),
+        free.data_ptr(), n, dbl, z.data_ptr(), mc._stream()), "chain_apply")
+    mc._count("chain_thomas", n)
+    return z

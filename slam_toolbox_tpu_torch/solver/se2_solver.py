@@ -20,13 +20,15 @@ native/graph_ops.cpp; the default, since host_sparse_min_nodes = 0); the
 LM loop (lm_solve) in f32 on the solver's device, with a dense Cholesky
 step up to DENSE_MAX_NODES and past it a PCG step preconditioned by the
 odometry chain (solver/chain_precond.py: parallel cyclic reduction from
-4,096 padded nodes, the block Thomas sweeps below); and, when a process
+4,096 padded nodes, the block Thomas sweeps below), on a card its LM and
+CG loops CUDA-graph WHILE nodes with one host read a solve; and, when a process
 group of more than one rank is up and the graph has dist_edge_threshold
 edges, the edge-sharded distributed solve (dist/solver_dist.py), which
 every rank runs in lockstep on the same graph.
 """
 from __future__ import annotations
 
+import functools
 import math
 import threading
 from typing import Dict, List, Optional, Tuple
@@ -35,6 +37,7 @@ import numpy as np
 import torch
 
 from slam_toolbox_tpu_torch.device import resolve_device, world_size
+from slam_toolbox_tpu_torch.kernels import match_cuda as mc
 from slam_toolbox_tpu_torch.solver import chain_precond as cp
 
 _F32 = torch.float32
@@ -143,12 +146,12 @@ def _damped(diag, lam):
     return diag + damp + 1e-8 * eye
 
 
-# CG iterations per chunk program: the host reads one flag per chunk. It
-# divides 64 and 32, the restart periods of pcg_step and the distributed
-# solve, so a restart falls at a fixed iteration of a chunk
+# CG iterations per chunk, the CG loop's body. It divides 64 and 32, the
+# restart periods of lm_solve's PCG step and the distributed solve, so
+# while the loop runs a restart falls at the last iteration of a chunk
 CG_CHUNK = 8
-# CGLoop per route, cg_iters and its inputs' shapes, dtypes and devices:
-# the PCG tier pads its shapes to powers of two, so one serves a bucket
+# CGLoop of solve_pcg and of the distributed solve per route, cg_iters and
+# its inputs' shapes, dtypes and devices (lm_solve's is its LMLoop's)
 _CG_LOOPS: Dict[tuple, "CGLoop"] = {}
 
 
@@ -158,35 +161,49 @@ def _host_read(t):
     return t.tolist()
 
 
+def _pick(cond, a, b):
+    """a() where `cond`, else b(): `cond` a Python bool (only that branch
+    runs) or a bool tensor (both run, selected elementwise)."""
+    if cond is True:
+        return a()
+    if cond is False:
+        return b()
+    return torch.where(cond, a(), b())
+
+
 class CGLoop:
     """Preconditioned CG on static buffers in chunks of CG_CHUNK masked
     iterations, the counterpart of the JAX package's lax.while_loop.
 
     `inputs` are the loop's per-solve tensors: the right-hand side `b`,
-    the stop threshold `stop` on r·r, and what `ops(buffers)` reads;
-    `ops` returns (mv, prec) built on the static copies, which run()
-    fills. An init program sets x = 0, r = b - mv(x), p = prec(r),
-    rz = r·p, i = 0; each chunk program runs CG_CHUNK iterations, each
+    the stop threshold `stop` on r·r, and what `ops(buffers)` reads; `ops`
+    returns (mv, prec) built on the buffers: copies of `inputs`' shapes
+    that run() fills (LMLoop's head fills them with _load). The init sets x = 0, r = b - mv(x), p = prec(r), rz = r·p,
+    i = 0 and `status`; each chunk runs CG_CHUNK iterations, each
     computing `active = (i < cg_iters) & (r·r > stop)` (and rz > 0 under
     `stall`) on the device and keeping the old state where it is False,
-    and ends by writing (i, active) to `status`, which the host reads
-    once per chunk. Inactivity is absorbing, so while the loop runs
-    iteration j of chunk c is iteration c·CG_CHUNK + j: the
-    true-residual restart every `period` iterations (r = b - mv(x),
-    p = z) falls at the last iteration of every (period / CG_CHUNK)-th
-    chunk, a program of its own, and costs only there. Under `stall` the restart is the
-    distributed solve's stagnation probe: i jumps to cg_iters when a
-    period bought less than a 2x reduction of r·r.
+    and writes (i, active) to `status`. Inactivity is absorbing, so while
+    the loop runs iteration j of chunk c is iteration c·CG_CHUNK + j, and
+    the true-residual restart every `period` iterations (r = b - mv(x),
+    p = z) falls at the last iteration of a chunk. Under `stall` the
+    restart is the distributed solve's stagnation probe: i jumps to
+    cg_iters when a period bought less than a 2x reduction of r·r.
 
-    On a card the programs are CUDA graphs (match_cuda.StatefulProgram),
-    captured at their first run(); on the CPU they run eagerly on the
-    same buffers. run_eager() runs the same functions eagerly on a card:
-    the reference the graphs are held to, and the route of
-    preconditioners that launch O(n) kernels (the block Thomas sweeps),
-    whose graph is not worth having."""
+    Two routes. With `device_loop` (se2_solver's loops) a chunk chooses
+    its restart on the device, (i % period) == period - 1, so one body
+    serves every chunk: on a card run() is one match_cuda.WhileProgram
+    (K10: the init, then a WHILE node on status[1] around the chunk) and
+    one host read of (i, chunks) at its end; on the CPU the same two
+    functions run from a Python loop that reads status[1] before each
+    chunk. Without it (the distributed solve, whose NCCL calls may not sit
+    in a conditional body) run() replays the init and a program per
+    restart position (match_cuda.StatefulProgram, CUDA graphs on a card),
+    reading status once per chunk. run_eager() runs that second route's
+    functions eagerly on any device: the reference both are held to bit
+    for bit."""
 
     def __init__(self, inputs: dict, ops, cg_iters: int, period=None,
-                 stall: bool = False):
+                 stall: bool = False, device_loop: bool = False):
         if period is not None and period % CG_CHUNK:
             raise ValueError(f"chunk {CG_CHUNK} does not divide period "
                              f"{period}")
@@ -197,15 +214,22 @@ class CGLoop:
         self.state = dict(
             i=torch.zeros((), **i64), x=torch.zeros_like(b),
             r=torch.zeros_like(b), p=torch.zeros_like(b), rz=b.new_zeros(()),
-            status=torch.zeros(2, **i64))
+            status=torch.zeros(2, **i64), chunks=torch.zeros((), **i64))
         if stall:
             self.state["rr_ckpt"] = b.new_zeros(())
         self.cg_iters, self.period, self.stall = cg_iters, period, stall
+        self.device_loop = device_loop
         self.fns = (self._init, lambda st: self._chunk(st, False),
                     lambda st: self._chunk(st, True))
-        self.programs = {}   # index into fns -> StatefulProgram, on a card
+        # the device loop's two functions, one object each (WhileProgram
+        # keys its tallies by them)
+        self.init_fn = functools.partial(self._init, self.state)
+        self.body_fn = functools.partial(self._chunk, self.state, None)
+        # 0, 1, 2: indices into fns -> StatefulProgram; "while":
+        # WhileProgram; on a card
+        self.programs = {}
         self.lock = threading.Lock()
-        self.chunks = 0      # chunks the last run ran (= host reads)
+        self.chunks = 0      # chunks the last run ran
 
     def _init(self, st):
         b = self.inp["b"]
@@ -217,14 +241,21 @@ class CGLoop:
         st["p"].copy_(p)
         st["rz"].copy_(torch.sum(r * p))
         st["i"].zero_()
+        st["chunks"].zero_()
         if self.stall:
             st["rr_ckpt"].copy_(torch.sum(r * r))
+        st["status"].copy_(torch.stack([
+            st["i"], self._active(st["i"], st["r"], st["rz"]).to(
+                torch.int64)]))
 
     def _active(self, i, r, rz):
         act = (i < self.cg_iters) & (torch.sum(r * r) > self.inp["stop"])
         return act & (rz > 0) if self.stall else act
 
-    def _chunk(self, st, restart_last: bool):
+    def _chunk(self, st, restart_last):
+        """One chunk; its last iteration restarts if `restart_last` is
+        True, never if False, and where (i % period) == period - 1 if
+        None (chosen on the device)."""
         mv, prec, b = self.mv, self.prec, self.inp["b"]
         i, x, r, p, rz = (st[name] for name in ("i", "x", "r", "p", "rz"))
         ckpt = st.get("rr_ckpt")
@@ -233,16 +264,23 @@ class CGLoop:
             hp = mv(p)
             alpha = rz / torch.clamp_min(torch.sum(p * hp), 1e-30)
             x_n = x + alpha * p
-            restart = restart_last and j == CG_CHUNK - 1
-            r_n = b - mv(x_n) if restart else r - alpha * hp
+            restart = False
+            if j == CG_CHUNK - 1 and self.period is not None:
+                restart = ((i % self.period) == self.period - 1
+                           if restart_last is None else restart_last)
+            r_n = _pick(restart, lambda: b - mv(x_n), lambda: r - alpha * hp)
             i_n = i + 1
-            if restart and self.stall:
+            if self.stall and restart is not False:
                 rr = torch.sum(r_n * r_n)
-                i_n = torch.where(rr > 0.25 * ckpt, self.cg_iters, i_n)
-                ckpt = torch.where(act, rr, ckpt)
+                jump, probe = rr > 0.25 * ckpt, act
+                if restart is not True:
+                    jump, probe = jump & restart, act & restart
+                i_n = torch.where(jump, self.cg_iters, i_n)
+                ckpt = torch.where(probe, rr, ckpt)
             z = prec(r_n)
             rz_n = torch.sum(r_n * z)
-            p_n = z if restart else z + rz_n / torch.clamp_min(rz, 1e-30) * p
+            p_n = _pick(restart, lambda: z,
+                        lambda: z + rz_n / torch.clamp_min(rz, 1e-30) * p)
             i, x, r, p, rz = (torch.where(act, new, old) for new, old in (
                 (i_n, i), (x_n, x), (r_n, r), (p_n, p), (rz_n, rz)))
         go = self._active(i, r, rz)
@@ -250,20 +288,22 @@ class CGLoop:
             st[name].copy_(v)
         if ckpt is not None:
             st["rr_ckpt"].copy_(ckpt)
+        st["chunks"].add_(1)
         st["status"].copy_(torch.stack([i, go.to(torch.int64)]))
 
     def _program(self, idx: int):
-        from slam_toolbox_tpu_torch.kernels import match_cuda as mc
-
         prog = self.programs.get(idx)
         if prog is None:
             prog = self.programs[idx] = mc.StatefulProgram(self.fns[idx],
                                                            self.state)
         return prog
 
-    def _drive(self, inputs, step):
+    def _load(self, inputs):
         for name, v in inputs.items():
             self.inp[name].copy_(v)
+
+    def _drive(self, inputs, step):
+        self._load(inputs)
         step(0)
         c = 0
         while True:
@@ -276,13 +316,42 @@ class CGLoop:
                 self.chunks = c
                 return self.state["x"].clone(), i
 
+    def plan(self) -> list:
+        """The device loop as a WhileProgram plan."""
+        return [self.init_fn,
+                ("while", self.state["status"][1:], [self.body_fn])]
+
+    def _run_device_loop(self, inputs):
+        self._load(inputs)
+        st = self.state
+        prog = None
+        if mc._on_cuda(st["x"].device):
+            prog = self.programs.get("while")
+            if prog is None:
+                prog = self.programs["while"] = mc.WhileProgram(
+                    self.plan(), st["x"].device)
+            prog.launch()
+        else:
+            self.init_fn()
+            while _host_read(st["status"][1]):
+                self.body_fn()
+        i, self.chunks = _host_read(torch.stack([st["i"], st["chunks"]]))
+        if prog is not None:
+            mc.count_replay(prog.tally[self.init_fn])
+            mc.count_replay(prog.tally[self.body_fn], self.chunks)
+        return st["x"].clone(), i
+
     def run(self, inputs):
-        """(x, CG iterations) on `inputs` by the programs; x is a copy."""
+        """(x, CG iterations) on `inputs` by the loop's route; x is a
+        copy."""
         with self.lock:
+            if self.device_loop:
+                return self._run_device_loop(inputs)
             return self._drive(inputs, lambda idx: self._program(idx).run())
 
     def run_eager(self, inputs):
-        """run()'s loop with its functions launched eagerly."""
+        """The chunked route's functions launched eagerly: the
+        reference."""
         with self.lock:
             return self._drive(inputs, lambda idx: self.fns[idx](self.state))
 
@@ -292,8 +361,6 @@ def cg_loop(route: tuple, inputs: dict, ops, cg_iters: int,
     """The CGLoop of `route` (which must fix what `ops` closes over
     besides its buffers) for inputs of these shapes, dtypes and devices,
     made at first use and kept for the process."""
-    from slam_toolbox_tpu_torch.kernels import match_cuda as mc
-
     key = (route, cg_iters, tuple(sorted(
         (name, tuple(v.shape), v.dtype, str(v.device))
         for name, v in inputs.items())))
@@ -314,7 +381,7 @@ def _mv_of(t):
 def solve_pcg(diag, hab, grad, src, dst, free, lm_lambda, cg_iters: int,
               cg_tol):
     """Block-Jacobi preconditioned CG on (H + λ·diagH) x = b, as a CGLoop
-    (one host read per CG_CHUNK iterations), left in
+    on the device loop (one host read a solve on a card), left in
     solve_pcg.last_loop."""
     eye = torch.eye(3, dtype=diag.dtype, device=diag.device)
     diag_d = _damped(diag, lm_lambda)
@@ -331,31 +398,17 @@ def solve_pcg(diag, hab, grad, src, dst, free, lm_lambda, cg_iters: int,
 
         return _mv_of(t), prec
 
-    loop = solve_pcg.last_loop = cg_loop(("jacobi",), inputs, ops, cg_iters)
+    loop = solve_pcg.last_loop = cg_loop(("jacobi",), inputs, ops, cg_iters,
+                                         device_loop=True)
     return loop.run(inputs)[0]
 
 
-def pcg_step(diag, hab, grad, src, dst, free, lam, cg_iters: int, cg_tol):
-    """lm_solve's step past the dense ceiling: CG on the damped normal
-    equations preconditioned by the odometry chain, which it solves
-    exactly, so CG iterates only on the loop-closure coupling. From
-    4,096 nodes parallel cyclic reduction, whose CG chunks run as CUDA
-    graphs on a card; below them the block Thomas factorization (reused
-    across CG iterations), whose O(n)-launch sweeps run the same chunks
-    eagerly (no session reaches it: compute() pads the tier to at least
-    4,096 nodes). The true residual is recomputed every 64 iterations
-    against f32 recurrence drift. A CGLoop: one host read per CG_CHUNK
-    iterations; the count is left in pcg_step.last_cg_iters and the loop
-    in pcg_step.last_loop."""
-    n = diag.shape[0]
-    diag_d = _damped(diag, lam)
-    b = grad * free[:, None]
-    U = cp.build_chain_offdiag(hab, src, dst, n, free)
-    inputs = dict(diag_d=diag_d, hab=hab, src=src, dst=dst, free=free, b=b,
-                  stop=cg_tol * torch.clamp_min(torch.sum(b * b), 1e-30))
+def _pcg_ops(n: int):
+    """(route, ops) of the PCG step's CG at n nodes: the odometry chain's
+    preconditioner by parallel cyclic reduction from 4,096 nodes, else by
+    the block Thomas sweeps (K9)."""
     if n >= 4096:
         steps = int(math.ceil(math.log2(n))) + 1
-        inputs["U"] = U
 
         def ops(t):
             def prec(r):
@@ -363,25 +416,44 @@ def pcg_step(diag, hab, grad, src, dst, free, lam, cg_iters: int, cg_tol):
 
             return _mv_of(t), prec
 
-        loop = cg_loop(("pcr", steps), inputs, ops, cg_iters, period=64)
-        x, i = loop.run(inputs)
+        return ("pcr", steps), ops
+
+    def ops(t):
+        def prec(r):
+            return cp.chain_apply(t["Sinv"], t["T"], t["W"], r, t["free"])
+
+        return _mv_of(t), prec
+
+    return ("thomas",), ops
+
+
+def _pcg_inputs(diag, hab, grad, src, dst, free, lam, cg_tol) -> dict:
+    """The inputs of lm_solve's step past the dense ceiling, CG on the
+    damped normal equations preconditioned by the odometry chain, which
+    it solves exactly, so CG iterates only on the loop-closure coupling
+    (_pcg_ops; LMLoop's CGLoop recomputes the true residual every 64
+    iterations against f32 recurrence drift): the damped blocks, b, the
+    stop on r·r and the chain preconditioner's U (PCR) or its
+    factorization (Thomas, by K9, reused across the CG iterations)."""
+    n = diag.shape[0]
+    diag_d = _damped(diag, lam)
+    b = grad * free[:, None]
+    U = cp.build_chain_offdiag(hab, src, dst, n, free)
+    inputs = dict(diag_d=diag_d, hab=hab, src=src, dst=dst, free=free, b=b,
+                  stop=cg_tol * torch.clamp_min(torch.sum(b * b), 1e-30))
+    if n >= 4096:
+        inputs["U"] = U
     else:
-        inputs.update(zip(("Sinv", "T", "W"), cp.factorize(diag_d, U, free)))
-
-        def ops(t):
-            def prec(r):
-                return cp.apply(t["Sinv"], t["T"], t["W"], r, t["free"])
-
-            return _mv_of(t), prec
-
-        loop = cg_loop(("thomas",), inputs, ops, cg_iters, period=64)
-        x, i = loop.run_eager(inputs)
-    pcg_step.last_cg_iters, pcg_step.last_loop = i, loop
-    return x
+        inputs.update(zip(("Sinv", "T", "W"),
+                          cp.chain_factorize(diag_d, U, free)))
+    return inputs
 
 
 def dense_step(diag, hab, grad, src, dst, free, lam):
-    """Exact damped-normal-equations solve via dense Cholesky."""
+    """Exact damped-normal-equations solve via dense Cholesky. Where the
+    factorization fails (H not positive definite, or not finite) the step
+    is NaN, as the JAX package's jnp.linalg.cholesky makes it, and the LM
+    loop rejects it; nothing is read back, so the step can be captured."""
     n = diag.shape[0]
     diag_d = _damped(diag, lam)
     ii = torch.arange(3, device=diag.device)
@@ -404,9 +476,264 @@ def dense_step(diag, hab, grad, src, dst, free, lam):
     # gauge: project fixed rows/cols out, unit diagonal keeps H SPD
     H = H * free3[:, None] * free3[None, :] + torch.diag(1.0 - free3)
     b = (grad * free[:, None]).reshape(-1, 1)
-    L = torch.linalg.cholesky(H)
-    x = torch.cholesky_solve(b, L)[:, 0]
+    # cholesky_ex leaves its error in `info` on the device (no sync); the
+    # two triangular solves are cuBLAS trsm (MAGMA's cholesky_solve
+    # allocates under capture)
+    L, info = torch.linalg.cholesky_ex(H, check_errors=False)
+    y = torch.linalg.solve_triangular(L, b, upper=False)
+    x = torch.linalg.solve_triangular(L.mT, y, upper=True)[:, 0]
+    x = torch.where(info == 0, x, torch.nan)
     return (x * free3).reshape(n, 3)
+
+
+# lm_solve's loop of the last bucket (tier, nodes, edges, dtype, device,
+# max_iterations, cg_iters) of each tier. A loop's program keeps its
+# buffers in the captured graphs' pools (the dense tier's H and its
+# factor, (3n)^2 each: 151 MB each at 2,048 nodes in f32), so a tier keeps
+# one loop and a new bucket closes the one it replaces
+_LM_LOOPS: Dict[str, "LMLoop"] = {}
+
+
+def _tier(n: int) -> str:
+    """lm_solve's step at n (padded) nodes: dense Cholesky up to
+    DENSE_MAX_NODES, then PCG with the chain preconditioner by the Thomas
+    sweeps, from 4,096 nodes by PCR."""
+    if n <= DENSE_MAX_NODES:
+        return "dense"
+    return "pcr" if n >= 4096 else "thomas"
+
+
+class LMLoop:
+    """lm_solve's Levenberg-Marquardt loop for one bucket on static
+    buffers, the counterpart of the JAX package's lax.while_loop: init
+    (the poses, chi2, lambda), then while (it < max_iterations) & ~done
+    the head (normal blocks, damping, and the dense step, or the CG's
+    inputs with K9's factorization and the CG init), the CG loop (PCG
+    tiers: CGLoop's device-restart chunk while its status says so) and
+    the tail (the step, chi2, accept, lambda, done). The acceptance and
+    termination rules are the JAX package's.
+
+    On a card run() is one WhileProgram (K10; the CG loop a WHILE node
+    nested in the LM loop's) and one host read at the end of the poses,
+    chi2, iterations and CG counts together; on the CPU, and in
+    run_eager() on any device, the same functions run from a Python loop
+    that reads each loop's flag before each pass. last_stats names the
+    tier, the route, the host reads and the CG iterations and chunks of
+    each LM step."""
+
+    def __init__(self, tier: str, n: int, e: int, dtype, device,
+                 max_iterations: int, cg_iters: int):
+        self.key = (tier, n, e, dtype, str(device), max_iterations, cg_iters)
+        f = dict(dtype=dtype, device=device)
+        i64 = dict(dtype=torch.int64, device=device)
+
+        def z(*shape):
+            return torch.zeros(shape, **f)
+
+        self.inp = dict(poses=z(n, 3), src=torch.zeros(e, **i64),
+                        dst=torch.zeros(e, **i64), rel=z(e, 3),
+                        sqrt_info=z(e, 3, 3), free=z(n), lam0=z(), ftol=z(),
+                        gtol=z(), ptol=z(), cg_tol=z())
+        logs = max(max_iterations, 1)
+        self.st = dict(
+            poses=z(n, 3), chi2=z(), lam=z(), gnorm=z(), step=z(n, 3),
+            it=torch.zeros((), **i64),
+            done=torch.zeros((), dtype=torch.bool, device=device),
+            go=torch.zeros(1, **i64), cg_log=torch.zeros(logs, **i64),
+            chunk_log=torch.zeros(logs, **i64))
+        self.tier, self.max_iterations = tier, max_iterations
+        self.cg = None
+        if tier != "dense":
+            _, ops = _pcg_ops(n)
+            bufs = dict(diag_d=z(n, 3, 3), hab=z(e, 3, 3),
+                        src=self.inp["src"], dst=self.inp["dst"],
+                        free=self.inp["free"], b=z(n, 3), stop=z())
+            if tier == "pcr":
+                bufs["U"] = z(n - 1, 3, 3)
+            else:
+                bufs.update(Sinv=z(n, 3, 3), T=z(n - 1, 3, 3),
+                            W=z(n - 1, 3, 3))
+            self.cg = CGLoop(bufs, ops, cg_iters, period=64,
+                             device_loop=True)
+        self.program = None
+        self.lock = threading.Lock()
+        self.last_stats: dict = {}
+        self._reads = 0
+
+    def _chi2(self, poses):
+        t = self.inp
+        return torch.sum(edge_residual(poses, t["src"], t["dst"], t["rel"],
+                                       t["sqrt_info"]) ** 2)
+
+    def _go(self):
+        s = self.st
+        s["go"].copy_(((s["it"] < self.max_iterations) & ~s["done"]).to(
+            torch.int64))
+
+    def _init(self):
+        t, s = self.inp, self.st
+        s["poses"].copy_(t["poses"])
+        s["chi2"].copy_(self._chi2(s["poses"]))
+        s["lam"].copy_(t["lam0"])
+        for name in ("it", "done", "cg_log", "chunk_log"):
+            s[name].zero_()
+        self._go()
+
+    def _head(self):
+        t, s = self.inp, self.st
+        src, dst, free = t["src"], t["dst"], t["free"]
+        diag, hab, grad, _ = build_normal_blocks(s["poses"], src, dst,
+                                                 t["rel"], t["sqrt_info"])
+        s["gnorm"].copy_(torch.max(torch.abs(grad * free[:, None])))
+        if self.cg is None:
+            s["step"].copy_(dense_step(diag, hab, grad, src, dst, free,
+                                       s["lam"]))
+            return
+        cg = self.cg
+        cg._load(_pcg_inputs(diag, hab, grad, src, dst, free, s["lam"],
+                             t["cg_tol"]))
+        cg.init_fn()
+
+    def _tail(self):
+        t, s = self.inp, self.st
+        poses, chi2, lam = s["poses"], s["chi2"], s["lam"]
+        step = s["step"] if self.cg is None else self.cg.state["x"]
+        new_poses = poses + step
+        new_poses[:, 2] = torch.atan2(
+            torch.sin(new_poses[:, 2]), torch.cos(new_poses[:, 2]))
+        new_chi2 = self._chi2(new_poses)
+        accept = new_chi2 <= chi2
+        rel_dec = (chi2 - new_chi2) / torch.clamp_min(chi2, 1e-30)
+        step_norm = torch.max(torch.abs(step))
+        lam_n = torch.where(accept, torch.clamp_min(lam * 0.3, 1e-9),
+                            torch.clamp_max(lam * 10.0, 1e6))
+        done = (
+            (s["gnorm"] < t["gtol"])
+            | (accept & (rel_dec < t["ftol"]))
+            | (accept & (step_norm < t["ptol"] * 1e-2))
+            | ((~accept) & (lam_n >= 1e6))
+        )
+        if self.cg is not None:
+            at = s["it"].view(1)
+            s["cg_log"].index_copy_(0, at, self.cg.state["i"].view(1))
+            s["chunk_log"].index_copy_(0, at,
+                                       self.cg.state["chunks"].view(1))
+        poses.copy_(torch.where(accept, new_poses, poses))
+        chi2.copy_(torch.where(accept, new_chi2, chi2))
+        lam.copy_(lam_n)
+        s["done"].copy_(s["done"] | done)
+        s["it"].add_(1)
+        self._go()
+
+    def _read(self, t):
+        self._reads += 1
+        return _host_read(t)
+
+    def plan(self) -> list:
+        """The LM loop as a WhileProgram plan."""
+        body = [self._head]
+        if self.cg is not None:
+            cs = self.cg.state
+            body.append(("while", cs["status"][1:], [self.cg.body_fn]))
+        body.append(self._tail)
+        return [self._init, ("while", self.st["go"], body)]
+
+    def _python_loop(self):
+        self._init()
+        while self._read(self.st["go"])[0]:
+            self._head()
+            if self.cg is not None:
+                while self._read(self.cg.state["status"][1]):
+                    self.cg.body_fn()
+            self._tail()
+
+    def _run(self, inputs, graphed: bool):
+        self._reads = 0
+        for name, v in inputs.items():
+            if isinstance(v, torch.Tensor):
+                self.inp[name].copy_(v)
+            else:
+                self.inp[name].fill_(v)
+        prog = None
+        if graphed:
+            prog = self.program
+            if prog is None:
+                prog = self.program = mc.WhileProgram(
+                    self.plan(), self.st["poses"].device)
+            prog.launch()
+        else:
+            self._python_loop()
+        s = self.st
+        n = s["poses"].shape[0]
+        vals = self._read(torch.cat([
+            v.reshape(-1).to(torch.float64) for v in (
+                s["poses"], s["chi2"], s["it"], s["cg_log"],
+                s["chunk_log"])]))
+        dtype = s["poses"].dtype
+        poses = torch.tensor(vals[:3 * n], dtype=dtype).reshape(n, 3)
+        chi2 = torch.tensor(vals[3 * n], dtype=dtype)
+        it = int(vals[3 * n + 1])
+        logs = len(s["cg_log"])
+        pcg = self.cg is not None
+        cg = [int(c) for c in vals[3 * n + 2:3 * n + 2 + it]] if pcg else []
+        chunks = ([int(c) for c in vals[3 * n + 2 + logs:][:it]]
+                  if pcg else [])
+        if prog is not None:
+            mc.count_replay(prog.tally[self._init])
+            mc.count_replay(prog.tally[self._head], it)
+            mc.count_replay(prog.tally[self._tail], it)
+            if pcg:
+                mc.count_replay(prog.tally[self.cg.body_fn], sum(chunks))
+        self.last_stats = {
+            "tier": self.tier,
+            "route": "device loop" if graphed else "host loop",
+            "host_reads": self._reads, "cg_iters": cg, "cg_chunks": chunks}
+        return poses, chi2, it
+
+    def run(self, inputs: dict):
+        """(poses, chi2, iterations) on the host from `inputs` (lm_solve's
+        arrays and scalars) by the loop's route."""
+        with self.lock:
+            return self._run(inputs,
+                             mc._on_cuda(self.st["poses"].device))
+
+    def run_eager(self, inputs: dict):
+        """run() by the Python loop on any device: the reference the
+        device loop is held to bit for bit."""
+        with self.lock:
+            return self._run(inputs, False)
+
+    def close(self) -> None:
+        """Lets the programs (this loop's and its CG loop's) and their
+        pools go; a later run() captures again."""
+        with self.lock:
+            progs = [self.program] + (list(self.cg.programs.values())
+                                      if self.cg is not None else [])
+            for prog in progs:
+                if prog is not None:
+                    prog.close()
+            self.program = None
+            if self.cg is not None:
+                self.cg.programs = {}
+
+
+def lm_loop(tier: str, n: int, e: int, dtype, device, max_iterations: int,
+            cg_iters: int) -> LMLoop:
+    """The LMLoop of this bucket, made at first use and kept until a
+    bucket of another shape comes to the same tier, which closes it."""
+    key = (tier, n, e, dtype, str(device), max_iterations, cg_iters)
+    with mc.capture_lock:
+        old = loop = _LM_LOOPS.get(tier)
+        if loop is None or loop.key != key:
+            loop = _LM_LOOPS[tier] = LMLoop(tier, n, e, dtype, device,
+                                            max_iterations, cg_iters)
+        else:
+            old = None
+    # outside capture_lock: a run of the old loop may hold its lock and
+    # wait for capture_lock
+    if old is not None:
+        old.close()
+    return loop
 
 
 def lm_solve(
@@ -417,50 +744,23 @@ def lm_solve(
 ):
     """Levenberg-Marquardt in the dtype and on the device of `poses`:
     dense-Cholesky steps up to DENSE_MAX_NODES nodes, chain-preconditioned
-    PCG steps (pcg_step, at most cg_iters iterations to cg_tol) past it.
-    Same acceptance and termination rules as the JAX package's lm_solve,
-    whose LM loop runs on the device: here it runs on the host, with one
-    read of its termination test per LM step (beside the CG loop's one
-    per CG_CHUNK iterations)."""
-    def chi2_of(p):
-        return torch.sum(edge_residual(p, src, dst, rel, sqrt_info) ** 2)
-
-    def solve_step(diag, hab, grad, lam):
-        if poses.shape[0] <= DENSE_MAX_NODES:
-            return dense_step(diag, hab, grad, src, dst, free, lam)
-        return pcg_step(diag, hab, grad, src, dst, free, lam, cg_iters,
-                        cg_tol)
-
-    chi2 = chi2_of(poses)
-    lam = torch.tensor(initial_lambda, dtype=poses.dtype,
-                       device=poses.device)
-    it = 0
-    while it < max_iterations:
-        diag, hab, grad, _ = build_normal_blocks(
-            poses, src, dst, rel, sqrt_info)
-        gnorm = torch.max(torch.abs(grad * free[:, None]))
-        step = solve_step(diag, hab, grad, lam)
-        new_poses = poses + step
-        new_poses[:, 2] = torch.atan2(
-            torch.sin(new_poses[:, 2]), torch.cos(new_poses[:, 2]))
-        new_chi2 = chi2_of(new_poses)
-        accept = new_chi2 <= chi2
-        rel_dec = (chi2 - new_chi2) / torch.clamp_min(chi2, 1e-30)
-        step_norm = torch.max(torch.abs(step))
-        poses = torch.where(accept, new_poses, poses)
-        chi2 = torch.where(accept, new_chi2, chi2)
-        lam = torch.where(accept, torch.clamp_min(lam * 0.3, 1e-9),
-                          torch.clamp_max(lam * 10.0, 1e6))
-        done = (
-            (gnorm < gradient_tolerance)
-            | (accept & (rel_dec < function_tolerance))
-            | (accept & (step_norm < parameter_tolerance * 1e-2))
-            | ((~accept) & (lam >= 1e6))
-        )
-        it += 1
-        if _host_read(done):
-            break
-    return poses, chi2, it
+    PCG steps (at most cg_iters iterations to cg_tol) past it, the chain
+    solved by the Thomas sweeps (K9) below 4,096 nodes and by PCR from
+    there (_tier). Same acceptance and termination rules as the JAX
+    package's lm_solve, and like it one program a bucket: on a card the LM
+    loop and its CG loop run as CUDA-graph WHILE nodes (LMLoop, K10) with
+    one host read a call; on the CPU from a Python loop. Returns (poses,
+    chi2, iterations), on the host; lm_solve.last_stats names the tier,
+    the route, the host reads and the CG iterations of each LM step."""
+    n, e = poses.shape[0], src.shape[0]
+    loop = lm_loop(_tier(n), n, e, poses.dtype, poses.device,
+                   max_iterations, cg_iters)
+    out = loop.run(dict(
+        poses=poses, src=src, dst=dst, rel=rel, sqrt_info=sqrt_info,
+        free=free, lam0=initial_lambda, ftol=function_tolerance,
+        gtol=gradient_tolerance, ptol=parameter_tolerance, cg_tol=cg_tol))
+    lm_solve.last_stats = loop.last_stats
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -782,13 +1082,12 @@ class PoseGraphSolver:
         t0 = _time.perf_counter()
         cfg = self.config
         dev = self.device
-        # past the dense ceiling the PCG tier runs on padded arrays, as the
-        # JAX package pads them: nodes to a power of two from 256 (so at
-        # least 4,096 here, and the chain preconditioner is the PCR),
-        # edges from 512; padding nodes are not free and padding edges
-        # have zero weight
-        pad = n > DENSE_MAX_NODES
-        n_pad, e_pad = (_pad_pow2(n, 256), _pad_pow2(e, 512)) if pad else (n, e)
+        # padded as the JAX package pads (generous powers of two: nodes
+        # from 256, edges from 512), so one LMLoop serves a bucket of graph
+        # sizes; past the dense ceiling that is at least 4,096 nodes (the
+        # PCR chain preconditioner). Padding nodes are not free and padding
+        # edges have zero weight
+        n_pad, e_pad = _pad_pow2(n, 256), _pad_pow2(e, 512)
         poses = np.zeros((n_pad, 3), np.float32)
         poses[:n] = np.stack(self._poses)
         src = np.full(e_pad, n_pad - 1, np.int64)
@@ -822,7 +1121,9 @@ class PoseGraphSolver:
         self.last_stats = {
             "n": n, "e": e, "lm_iters": iters, "chi2": float(chi2),
             "device_ms": round(1e3 * (_time.perf_counter() - t0), 2),
-            "tier": "pcg" if pad else "dense",
+            "tier": "dense" if n_pad <= DENSE_MAX_NODES else "pcg",
+            "loop": lm_solve.last_stats,
+            "host_reads": lm_solve.last_stats["host_reads"],
         }
         self.corrections = [
             (node_id, result[i].copy()) for i, node_id in enumerate(self._ids)

@@ -1,5 +1,6 @@
 """The port's chain preconditioner (solver/chain_precond.py) and PCG tier
-(se2_solver.py: solve_pcg, pcg_step, lm_solve past DENSE_MAX_NODES)
+(se2_solver.py: solve_pcg, lm_solve's PCG step, lm_solve past
+DENSE_MAX_NODES)
 against the JAX package's on the same inputs.
 
 Tolerances: the block-tridiagonal solves take test_chain_precond.py's
@@ -27,6 +28,7 @@ from slam_toolbox_tpu_torch.solver import chain_precond as cp
 from slam_toolbox_tpu_torch.solver import se2_solver as ts
 from test_chain_precond import random_spd_chain
 from test_torch_multihost import REPO  # noqa: F401  (scripts/ on sys.path)
+from torch_cg_reference import lm_pcg_step
 
 
 def t(a):
@@ -91,6 +93,66 @@ def test_apply_respects_fixed_nodes():
     np.testing.assert_allclose(z[0], 0.0, atol=1e-12)
     _close_to_jax(z, jcp.apply(*jcp.factorize(j(D), j(U), j(free)), j(r),
                                j(free)))
+
+
+@pytest.mark.parametrize("n", [1, 2, 37, 300])
+def test_chain_thomas_plain_matches_jax(n):
+    """K9's wrappers on CPU tensors (the plain factorize and apply)
+    against JAX's chain_precond on the same f32 inputs with fixed nodes
+    (node 0 and every 7th, their couplings dropped): Sinv, T, W and z
+    within 1e-5 of each one's largest magnitude."""
+    from chip_smoke import thomas_case
+
+    D, U, r, free = thomas_case(n, torch.float64, "cpu", seed=n)
+    fixed = np.arange(n) % 7 == 0
+    f = np.where(fixed, 0.0, 1.0).astype(np.float32)
+    Um = (U.numpy() * (f[:-1] * f[1:])[:, None, None]).astype(np.float32)
+    D32, r32 = D.numpy().astype(np.float32), r.numpy().astype(np.float32)
+    got = cp.chain_factorize(t(D32), t(Um), t(f))
+    z = cp.chain_apply(*got, t(r32), t(f))
+    ref = jcp.factorize(j(D32), j(Um), j(f))
+    z_ref = jcp.apply(*ref, j(r32), j(f))
+    for a, b in zip((*got, z), (*ref, z_ref)):
+        b = np.asarray(b)
+        assert a.shape == b.shape and a.dtype == torch.float32
+        if b.size:
+            assert np.abs(a.numpy() - b).max() <= 1e-5 * np.abs(b).max()
+    assert not z.numpy()[fixed].any()
+
+
+def test_chain_thomas_wrappers_hold_no_fallback(monkeypatch):
+    """K9's wrappers and the loops around them take no route by asking
+    for a card: CPU tensors go to the plain versions (no library loads),
+    a tensor on another device raises, and no wrapper or loop runner
+    catches a failure."""
+    import inspect
+
+    from slam_toolbox_tpu_torch.kernels import match_cuda as mc
+
+    for fn in (cp.chain_factorize, cp.chain_apply, ts.LMLoop.run,
+               ts.LMLoop._run, ts.CGLoop.run, ts.CGLoop._run_device_loop,
+               mc.WhileProgram.__init__, mc.WhileProgram.launch):
+        src = inspect.getsource(fn)
+        assert "except" not in src and "is_available" not in src
+
+    def no_lib(name):
+        raise AssertionError(f"{name}: a library was loaded for CPU tensors")
+
+    monkeypatch.setattr(mc, "_lib", no_lib)
+    D, U, r, free = (t.float() for t in _chain_case())
+    got = cp.chain_apply(*cp.chain_factorize(D, U, free), r, free)
+    ref = cp.apply(*cp.factorize(D, U, free), r, free)
+    assert torch.equal(got, ref)
+    with pytest.raises(ValueError):
+        cp.chain_factorize(D.to("meta"), U.to("meta"), free.to("meta"))
+    with pytest.raises(TypeError):
+        cp.chain_factorize(D.half(), U.half(), free.half())
+
+
+def _chain_case(n=9):
+    from chip_smoke import thomas_case
+
+    return thomas_case(n, torch.float64, "cpu")
 
 
 def _ring(n, seed=0):
@@ -183,12 +245,14 @@ def test_solve_pcg_matches_jax():
 
 
 def test_thomas_step_matches_dense_solve():
-    """pcg_step below 4,096 nodes (block Thomas preconditioner), f64, to
-    a tight tolerance: the damped normal equations' exact solution."""
+    """lm_solve's PCG step below 4,096 nodes (the Thomas tier's CGLoop,
+    block Thomas preconditioner), f64, to a tight tolerance: the damped
+    normal equations' exact solution."""
     _, (poses, src, dst, rel, si, free) = _normal()
     diag, hab, grad, _ = ts.build_normal_blocks(poses, src, dst, rel, si)
     lam = 1e-3
-    x = ts.pcg_step(diag, hab, grad, src, dst, free, lam, 200, 1e-24)
+    x, iters, _ = lm_pcg_step(diag, hab, grad, src, dst, free, lam, 200,
+                              1e-24)
     n = len(poses)
     diag_d = ts._damped(diag, lam).numpy()
     H = np.zeros((3 * n, 3 * n))
@@ -202,7 +266,7 @@ def test_thomas_step_matches_dense_solve():
     ref = np.linalg.solve(H, (grad.numpy() * free.numpy()[:, None])
                           .reshape(-1)).reshape(n, 3)
     np.testing.assert_allclose(x.numpy(), ref, rtol=0, atol=1e-8)
-    assert ts.pcg_step.last_cg_iters < 60
+    assert iters < 60
 
 
 def test_lm_solve_pcr_tier_matches_jax():

@@ -1,12 +1,13 @@
 """The reference's last device loops in the port, on the CPU: the CG loops
-of solve_pcg, pcg_step and the distributed solve as chunked programs
+of solve_pcg, lm_solve's PCG step (its LMLoop's CGLoop) and the
+distributed solve as chunked programs
 (solver.se2_solver.CGLoop: CG_CHUNK masked iterations per program, one
 host read per chunk) and the exact two-call match as programs
 (kernels.match: the raster and each pass on static buffers).
 
 Bit for bit: each CGLoop against the per-iteration loop the port ran
 before (tests/torch_cg_reference.py) on the same operators, for the
-block-Jacobi solve, pcg_step with PCR at 4,096 nodes and with Thomas, a
+block-Jacobi solve, the PCG step with PCR at 4,096 nodes and with Thomas, a
 stop at every position of a chunk, budgets that are not a multiple of
 the chunk, a zero-iteration stop and runs across restarts; the
 distributed step's chunks at 1 and 2 gloo ranks, a stalled stop among
@@ -36,7 +37,7 @@ from slam_toolbox_tpu_torch.solver import se2_solver as ts
 from test_torch_chain_precond import _normal, _padded, j, t
 from test_torch_match import _matchers, _pack, _pair, scans  # noqa: F401
 from test_torch_multihost import run_ranks, snake_inputs
-from torch_cg_reference import reference_cg
+from torch_cg_reference import lm_pcg_step, reference_cg
 
 K = ts.CG_CHUNK
 
@@ -45,7 +46,7 @@ torch.set_num_threads(1)
 
 def _ops(diag, hab, grad, src, dst, free, lam, route):
     """(mv, prec, b, stop factor) of the port's CG on these blocks, built
-    as solve_pcg and pcg_step build them."""
+    as solve_pcg and lm_solve's PCG step build them."""
     n = diag.shape[0]
     diag_d = ts._damped(diag, lam)
     b = grad * free[:, None]
@@ -80,8 +81,9 @@ def _chunked(route, blocks, lam, cg_iters, cg_tol):
         x = ts.solve_pcg(diag, hab, grad, src, dst, free, lam, cg_iters,
                          cg_tol)
         return x, ts.solve_pcg.last_loop.state["i"].item()
-    x = ts.pcg_step(diag, hab, grad, src, dst, free, lam, cg_iters, cg_tol)
-    return x, ts.pcg_step.last_cg_iters
+    x, i, _ = lm_pcg_step(diag, hab, grad, src, dst, free, lam, cg_iters,
+                          cg_tol)
+    return x, i
 
 
 def _check(route, blocks, lam, cg_iters, cg_tol):
@@ -172,31 +174,31 @@ def test_zero_iteration_stop(small, route):
 
 
 def test_host_reads_per_lm_step(snake4k, monkeypatch):
-    """lm_solve's PCG tier reads the device once per CG chunk and once per
-    LM step for its termination test: at most ceil(iters / K) + 1 reads
-    per LM step."""
+    """lm_solve's PCG tier on the CPU runs the device loop's functions
+    from a Python loop: it reads the LM loop's flag before each LM step
+    and once after the last, the CG loop's flag before each chunk and
+    once after the last, and the results once, 2 + sum(ceil(iters / K) +
+    2) reads in all (on a card one read: the card tests)."""
     args, _ = snake4k
     poses, src, dst, rel, si, em, free = args
-    reads, cg_log = [0], []
-    read, step = ts._host_read, ts.pcg_step
+    reads = [0]
+    read = ts._host_read
 
     def counted(x):
         reads[0] += 1
         return read(x)
 
-    def logged(*a, **kw):
-        out = step(*a, **kw)
-        cg_log.append(ts.pcg_step.last_cg_iters)
-        return out
-
     monkeypatch.setattr(ts, "_host_read", counted)
-    monkeypatch.setattr(ts, "pcg_step", logged)
     _, _, it = ts.lm_solve(
         t(poses), t(src).long(), t(dst).long(), t(rel), t(si), t(free),
         1e-4, 1e-3, 1e-10, 1e-10, 3, cg_tol=1e-6, cg_iters=45)
+    stats = ts.lm_solve.last_stats
+    cg_log, chunks = stats["cg_iters"], stats["cg_chunks"]
     assert len(cg_log) == it == 3 and all(c > 0 for c in cg_log)
-    assert reads[0] == sum(math.ceil(c / K) + 1 for c in cg_log), (
-        reads, cg_log)
+    assert chunks == [math.ceil(c / K) for c in cg_log]
+    assert stats["tier"] == "pcr" and stats["route"] == "host loop"
+    assert reads[0] == stats["host_reads"] == 2 + sum(
+        c + 2 for c in chunks), (reads, cg_log)
 
 
 def test_odd_budgets_match_jax(small, snake4k):
@@ -238,6 +240,157 @@ def test_odd_budgets_match_jax(small, snake4k):
     assert abs(float(chi2) - float(chi2_ref)) <= 0.01 * float(chi2_ref)
 
 
+@pytest.mark.parametrize("period", [16, 64])
+def test_device_restart_equals_reference(small, period):
+    """The device loop's chunk, which picks its restart on the device
+    ((i % period) == period - 1, one body for every chunk), run from the
+    CPU's Python loop across restarts: x and the iterations bit-equal to
+    the reference loop and to the chunked route's static restarts
+    (run_eager)."""
+    mv, prec, b, bb = _ops(*small, 1e-3, "jacobi")
+    stop = 1e-26 * bb
+    ref, n_ref, _, _ = reference_cg(mv, prec, b, stop, 150, period)
+    assert n_ref > 64   # past a restart at either period
+
+    def ops(t):
+        return mv, prec
+
+    inputs = dict(b=b, stop=stop)
+    loop = ts.CGLoop(inputs, ops, 150, period=period, device_loop=True)
+    x, n = loop.run(inputs)
+    assert n == n_ref and torch.equal(x, ref)
+    assert loop.chunks == math.ceil(n / K)
+    x_e, n_e = loop.run_eager(inputs)
+    assert n_e == n and torch.equal(x_e, x)
+
+
+def test_lm_loop_keeps_one_bucket_per_tier(monkeypatch):
+    """lm_loop keeps each tier's last bucket: the same bucket gives the
+    same LMLoop; a bucket of another shape in the same tier replaces it
+    and closes the old one, its program and its CG loop's programs
+    closed and dropped; the other tiers keep theirs."""
+    class Program:
+        def __init__(self):
+            self.closed = False
+
+        def close(self):
+            self.closed = True
+
+    monkeypatch.setattr(ts, "_LM_LOOPS", {})
+    bucket = ("thomas", 300, 512, torch.float64, "cpu", 4, 40)
+    old = ts.lm_loop(*bucket)
+    dense = ts.lm_loop("dense", 256, 512, torch.float32, "cpu", 4, 40)
+    assert ts.lm_loop(*bucket) is old
+    progs = [Program(), Program()]
+    old.program, old.cg.programs["while"] = progs
+    new = ts.lm_loop(*bucket[:5], 1, 40)
+    assert new is not old and all(p.closed for p in progs)
+    assert old.program is None and old.cg.programs == {}
+    assert ts._LM_LOOPS == {"thomas": new, "dense": dense}
+
+
+def _lm_args(args):
+    poses, src, dst, rel, si, em, free = args
+    return (t(poses), t(src).long(), t(dst).long(), t(rel), t(si), t(free))
+
+
+def _scalars():
+    cfg = SolverConfig()
+    return cfg, [np.float32(v) for v in (
+        cfg.initial_lm_lambda, cfg.function_tolerance, cfg.gradient_tolerance,
+        cfg.parameter_tolerance, cfg.cg_tolerance)]
+
+
+def _both_lm(args, n_nodes, max_iterations, cg_iters):
+    """js.lm_solve and the port's on the same arrays."""
+    _, scal = _scalars()
+    ref = js.lm_solve(*map(j, args), *map(jnp.float32, scal),
+                      n_nodes=n_nodes, max_iterations=max_iterations,
+                      cg_iters=cg_iters)
+    got = ts.lm_solve(*_lm_args(args), *map(float, scal[:4]),
+                      max_iterations, cg_tol=float(scal[4]),
+                      cg_iters=cg_iters)
+    return ref, got
+
+
+def _fault_graph(scale_edge):
+    """The solver test's 40-node graph padded as compute() pads it (256
+    nodes, 512 edges), f32, edge 5's sqrt_info changed by
+    `scale_edge`."""
+    from test_torch_solver import _graph
+
+    _, poses, edges = _graph(0, n=40)
+    args = list(_padded(poses, [(a - 100, b - 100, r, c)
+                                for a, b, r, c in edges], 256, 512))
+    args[4] = args[4].copy()
+    scale_edge(args[4][5])
+    return args
+
+
+def test_dense_nan_weight_rejects_every_step():
+    """A NaN in one edge's sqrt_info: the dense factorization fails on
+    every LM step, which gives a NaN step as JAX's Cholesky does (the
+    port raised from torch.linalg.cholesky before); every step is
+    rejected in both until lambda reaches its cap: the same iterations,
+    chi2 NaN, the input's poses."""
+    def nan(si):
+        si[0, 0] = np.nan
+
+    args = _fault_graph(nan)
+    cfg, _ = _scalars()
+    (ref, chi2_ref, it_ref), (got, chi2, it) = _both_lm(
+        args, 256, cfg.max_iterations, cfg.cg_max_iterations)
+    assert int(it_ref) == it == 11
+    assert np.isnan(float(chi2_ref)) and np.isnan(float(chi2))
+    np.testing.assert_array_equal(got.numpy(), args[0])
+    np.testing.assert_array_equal(np.asarray(ref), args[0])
+    assert ts.lm_solve.last_stats["tier"] == "dense"
+
+
+def test_dense_huge_weight_returns(capsys):
+    """One edge's sqrt_info scaled by 1e19 (its normal blocks overflow
+    f32): the port returns without raising, with finite poses; its
+    iterations and chi2 are printed beside JAX's (with -s)."""
+    def huge(si):
+        si *= np.float32(1e19)
+
+    args = _fault_graph(huge)
+    cfg, _ = _scalars()
+    (ref, chi2_ref, it_ref), (got, chi2, it) = _both_lm(
+        args, 256, cfg.max_iterations, cfg.cg_max_iterations)
+    with capsys.disabled():
+        print(f"\n# 1e19 weight: port {it} LM steps, chi2 {float(chi2)}; "
+              f"JAX {int(it_ref)} LM steps, chi2 {float(chi2_ref)}")
+    assert torch.isfinite(got).all() and it >= 1
+    assert np.isfinite(np.asarray(ref)).all()
+
+
+def test_lm_solve_thomas_tier_matches_jax(monkeypatch):
+    """lm_solve's Thomas tier (the chain preconditioner by the block
+    Thomas sweeps, K9's plain version here) against JAX's: DENSE_MAX_NODES
+    patched to 256 in both packages, so the 300-node snake (a node count
+    no other test traces: JAX reads the constant at trace time) takes the
+    PCG step below 4,096 nodes in both; 4 LM steps of at most 40 CG
+    iterations, test_lm_solve_pcr_tier_matches_jax's bounds (1e-3 m,
+    1e-3 rad, chi2 within 1%) and the same LM iterations."""
+    from bench_dist import build_snake_graph
+
+    monkeypatch.setattr(ts, "DENSE_MAX_NODES", 256)
+    monkeypatch.setattr(js, "DENSE_MAX_NODES", 256)
+    _, init, edges = build_snake_graph(300, aisle_len=60)
+    args = _padded(init, edges, 300, 512)
+    (ref, chi2_ref, it_ref), (got, chi2, it) = _both_lm(args, 300, 4, 40)
+    stats = ts.lm_solve.last_stats
+    assert stats["tier"] == "thomas" and len(stats["cg_iters"]) == it
+    ref, got = np.asarray(ref), got.numpy()
+    assert int(it) == int(it_ref) == 4
+    np.testing.assert_allclose(got[:, :2], ref[:, :2], rtol=0, atol=1e-3)
+    dh = got[:, 2] - ref[:, 2]
+    assert np.abs(np.arctan2(np.sin(dh), np.cos(dh))).max() < 1e-3
+    assert abs(float(chi2) - float(chi2_ref)) <= 0.01 * float(chi2_ref)
+    assert np.abs(got - init).max() > 0.1   # the solve moved the graph
+
+
 # the distributed step's CGLoop against the reference loop on its own
 # operators, in each rank; cases (dtype, schwarz, cg_rtol, cg_iters): the
 # defaults, a stalled stop (rtol 0: only the stagnation probe ends it), the
@@ -246,7 +399,7 @@ DIST_CASES = (("float32", True, None, 200), ("float32", True, 0.0, 200),
               ("float64", False, None, 200), ("float32", True, 1e-9, 45))
 DIST_WORKER = """
 sys.path.insert(0, os.path.join(sys.path[0], "tests"))
-from torch_cg_reference import reference_cg
+from torch_cg_reference import lm_pcg_step, reference_cg
 from slam_toolbox_tpu_torch.dist import multihost
 from slam_toolbox_tpu_torch.dist import solver_dist as sd
 mesh = multihost.global_mesh()

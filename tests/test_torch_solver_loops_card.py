@@ -1,12 +1,16 @@
-"""The CG loops' chunk programs and the exact match's programs on a card,
-marked `cuda` and skipped without one: CUDA graph replays of the
-block-Jacobi, PCR and Schwarz CG chunks (the Schwarz chunk with NCCL's
-all_reduces inside, a world-size-1 group) bit-equal to the same chunks
-launched eagerly (CGLoop.run_eager); the exact match's raster and pass
-replays bit-equal to its fresh-tensor route with the same K1-K3 launches
-by grid; a function that cannot be captured raises and leaves no
-program. The file imports no JAX, so the card's machine, which has none,
-runs it from the repository's root with
+"""The solver's device loops and the exact match's programs on a card,
+marked `cuda` and skipped without one: K9 (csrc/chain_thomas.cu) against
+its plain version at n = 1, 2, 2,100, 3,072 (whole tiles: chip_smoke's
+Thomas tier), 4,095 and 100,000 in f32 and f64;
+the block-Jacobi, Thomas and PCR CG loops as WHILE programs (K10) and
+lm_solve's dense, Thomas and PCR tiers as one program each, bit-equal to
+their eager routes with one host read a solve; the distributed CG's
+chunks (NCCL's all_reduces inside, a world-size-1 group) bit-equal to
+the same chunks launched eagerly (CGLoop.run_eager); the exact match's
+raster and pass replays bit-equal to its fresh-tensor route with the
+same K1-K3 launches by grid; a function that cannot be captured raises
+and leaves no program. The file imports no JAX, so the card's machine,
+which has none, runs it from the repository's root with
 `python -m pytest --noconftest tests/test_torch_solver_loops_card.py`."""
 import dataclasses
 import socket
@@ -26,6 +30,7 @@ from slam_toolbox_tpu_torch.solver import chain_precond as cp
 from slam_toolbox_tpu_torch.solver import se2_solver as ts
 from test_torch_program_graph_card import _counted, cuda_device  # noqa: F401
 from test_torch_stream_graph_card import _workload
+from torch_cg_reference import lm_pcg_step
 
 
 def _snake(n_nodes, n_pad, e_pad):
@@ -36,9 +41,9 @@ def _snake(n_nodes, n_pad, e_pad):
     return pack_graph(init, edges, n_pad, e_pad)
 
 
-def _blocks(dev):
+def _blocks(dev, n_pad=4096):
     poses, src, dst, rel, si, _, free = (
-        torch.from_numpy(a).to(dev) for a in _snake(2100, 4096, 4096))
+        torch.from_numpy(a).to(dev) for a in _snake(2100, n_pad, 4096))
     diag, hab, grad, _ = ts.build_normal_blocks(poses, src, dst, rel, si)
     return diag, hab, grad, src, dst, free
 
@@ -48,27 +53,132 @@ def _solve(route, blocks, cg_iters=120):
         x = ts.solve_pcg(*blocks, 1e-4, cg_iters, 1e-12)
         loop = ts.solve_pcg.last_loop
         return x, loop.state["i"].item(), loop
-    x = ts.pcg_step(*blocks, 1e-4, cg_iters, 1e-12)
-    return x, ts.pcg_step.last_cg_iters, ts.pcg_step.last_loop
+    return lm_pcg_step(*blocks, 1e-4, cg_iters, 1e-12)
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("route", ["jacobi", "pcr"])
+@pytest.mark.parametrize("n, dtype", [
+    (n, dt) for n in (1, 2, 2100, 3072, 4095, 100000)
+    for dt in (torch.float32, torch.float64)])
+def test_chain_thomas_matches_plain(cuda_device, n, dtype):
+    """K9's factorization and sweeps against factorize and apply on the
+    same inputs (a random SPD chain with fixed nodes), within 1e-5 (f32)
+    and 1e-12 (f64) of each output's largest magnitude; one launch a
+    call."""
+    from chip_smoke import thomas_case
+
+    D, U, r, free = thomas_case(n, dtype, cuda_device)
+    mc.reset_launch_counts()
+    got = cp.chain_factorize(D, U, free)
+    z = cp.chain_apply(*got, r, free)
+    torch.cuda.synchronize()
+    assert mc.LAUNCHES["chain_thomas"] == 2
+    cpu = [t.cpu() for t in (D, U, r, free)]
+    ref = cp.factorize(*cpu[:2], cpu[3])
+    z_ref = cp.apply(*ref, cpu[2], cpu[3])
+    tol = 1e-5 if dtype == torch.float32 else 1e-12
+    for a, b in zip((*got, z), (*ref, z_ref)):
+        if b.numel():
+            err = (a.cpu() - b).abs().max()
+            assert err <= tol * b.abs().max(), (n, dtype, float(err))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("route", ["jacobi", "thomas", "pcr"])
 def test_cg_replays_equal_eager(cuda_device, monkeypatch, route):
-    """120 iterations (two restarts' worth for PCR) as chunk replays, then
-    eagerly on the same buffers: the same iterations and x bit for bit;
-    one replay per chunk and one host read per chunk."""
-    blocks = _blocks(cuda_device)
+    """120 iterations (a restart's worth) as one WHILE program (the init,
+    then the chunk in a WHILE node), then the chunked route eagerly on
+    the same buffers: the same iterations and x bit for bit; one launch
+    of the program and one host read a solve."""
+    blocks = _blocks(cuda_device, 2100 if route == "thomas" else 4096)
+    reads = [0]
+    read = ts._host_read
+
+    def counted(t):
+        reads[0] += 1
+        return read(t)
+
+    monkeypatch.setattr(ts, "_host_read", counted)
     x, i, loop = _solve(route, blocks)
-    assert all(p.graph is not None for p in loop.programs.values())
-    assert sorted(loop.programs) == ([0, 1] if route == "jacobi"
-                                     else [0, 1, 2])
-    chunks = loop.chunks
-    assert sum(p.replays for p in loop.programs.values()) == chunks + 1
+    assert sorted(loop.programs) == ["while"] and reads[0] == 1
+    prog = loop.programs["while"]
+    assert prog.launches == 1 and 0 < i <= 120
+    assert loop.chunks == -(-i // ts.CG_CHUNK)
     monkeypatch.setattr(ts.CGLoop, "run", ts.CGLoop.run_eager)
     x_e, i_e, _ = _solve(route, blocks)
-    assert i == i_e and loop.chunks == chunks
+    assert i == i_e
     assert torch.equal(x, x_e)
+
+
+def _tier_inputs(tier, dev):
+    """lm_solve's arguments on the snake graph: 200 nodes padded as
+    compute() pads (256, 512: the dense tier), 2,100 unpadded (Thomas),
+    2,100 padded to 4,096 (PCR)."""
+    n, n_pad, e_pad = {"dense": (200, 256, 512), "thomas": (2100, 2100, 4096),
+                       "pcr": (2100, 4096, 4096)}[tier]
+    poses, src, dst, rel, si, _, free = (
+        torch.from_numpy(a).to(dev) for a in _snake(n, n_pad, e_pad))
+    return (poses, src, dst, rel, si, free, 1e-4, 1e-3, 1e-10, 1e-10, 6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tier", ["dense", "thomas", "pcr"])
+def test_lm_solve_device_loop_equals_eager(cuda_device, monkeypatch, tier):
+    """lm_solve as one program (the LM loop a WHILE node, the CG loop one
+    nested in it) against the same functions from the host's Python loop
+    (LMLoop.run_eager): poses, chi2, LM iterations and CG counts bit for
+    bit, the same kernel launches, exactly one host read."""
+    args = _tier_inputs(tier, cuda_device)
+    reads = [0]
+    read = ts._host_read
+
+    def counted(t):
+        reads[0] += 1
+        return read(t)
+
+    monkeypatch.setattr(ts, "_host_read", counted)
+    torch.cuda.synchronize()
+    mc.reset_launch_counts()
+    poses, chi2, it = ts.lm_solve(*args, cg_iters=60)
+    torch.cuda.synchronize()
+    graphed, launches = dict(ts.lm_solve.last_stats), dict(mc.LAUNCHES)
+    assert reads[0] == 1 == graphed["host_reads"]
+    assert graphed["tier"] == tier and graphed["route"] == "device loop"
+    assert launches["device_loop"] == 1 and it > 0
+    monkeypatch.setattr(ts.LMLoop, "run", ts.LMLoop.run_eager)
+    mc.reset_launch_counts()
+    poses_e, chi2_e, it_e = ts.lm_solve(*args, cg_iters=60)
+    torch.cuda.synchronize()
+    eager = ts.lm_solve.last_stats
+    assert eager["route"] == "host loop" and eager["host_reads"] > 1
+    assert it == it_e and graphed["cg_iters"] == eager["cg_iters"]
+    assert graphed["cg_chunks"] == eager["cg_chunks"]
+    assert torch.equal(poses, poses_e) and torch.equal(chi2, chi2_e)
+    assert dict(mc.LAUNCHES, device_loop=1) == launches
+    if tier != "dense":
+        assert launches["chain_thomas"] == (0 if tier == "pcr" else 2 * it + (
+            ts.CG_CHUNK * sum(graphed["cg_chunks"])))
+    assert torch.isfinite(poses).all() and float(chi2) < float(
+        ts.chi2_only(args[0], *args[1:5]))
+
+
+@pytest.mark.cuda
+def test_failed_body_capture_raises(cuda_device, monkeypatch):
+    """An LM loop whose body reads the device from the host (here K9's
+    sweeps) cannot be captured: lm_solve raises, keeps no program and
+    runs nothing eagerly instead."""
+    apply = cp.chain_apply
+
+    def syncing(Sinv, T, W, r, free):
+        float(r[0, 0])
+        return apply(Sinv, T, W, r, free)
+
+    monkeypatch.setattr(cp, "chain_apply", syncing)
+    monkeypatch.setattr(ts, "_LM_LOOPS", {})
+    with pytest.raises(RuntimeError):
+        ts.lm_solve(*_tier_inputs("thomas", cuda_device), cg_iters=16)
+    (loop,) = ts._LM_LOOPS.values()
+    assert loop.program is None
 
 
 @pytest.fixture
@@ -179,11 +289,11 @@ def test_failed_captures_raise(cuda_device, expansion_mapper, monkeypatch):
 
     blocks = _blocks(cuda_device)
     monkeypatch.setattr(cp, "pcr_solve", syncing)
-    monkeypatch.setattr(ts, "_CG_LOOPS", {})
+    monkeypatch.setattr(ts, "_LM_LOOPS", {})
     with pytest.raises(RuntimeError):
-        ts.pcg_step(*blocks, 1e-4, 16, 1e-12)
-    (loop,) = ts._CG_LOOPS.values()
-    assert not loop.programs
+        lm_pcg_step(*blocks, 1e-4, 16, 1e-12)
+    (loop,) = ts._LM_LOOPS.values()
+    assert not loop.cg.programs
 
     mapper, scans = expansion_mapper
     m = mapper.sequential_matcher

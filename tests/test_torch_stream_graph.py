@@ -256,7 +256,8 @@ def test_replay_tally_counts_each_replay(launch_counts, monkeypatch):
     assert mc.LAUNCHES == {"scatter_occupancy": 3, "smear_quantize": 3,
                            "score_windows": 6, "score_ceiling": 0,
                            "ring_points": 0, "score_tail": 0,
-                           "stream_update": 0}
+                           "stream_update": 0, "chain_thomas": 0,
+                           "device_loop": 0}
     assert mc.GRID_LAUNCHES[("score_windows", 561)] == 3
     with mc.uncounted():
         mc.count_replay(tally, 5)

@@ -1,10 +1,26 @@
 """The port's CG loops as they ran before the chunked CGLoop: one host
-read per iteration. solve_pcg (no restart), pcg_step (a true-residual
-restart every 64 iterations) and the distributed solve's step (every 32,
-with the stagnation probe and the rz > 0 stop) in one function; the
-tests hold solver.se2_solver.CGLoop to it bit for bit. No JAX here: the
-distributed tests' rank processes import it."""
+read per iteration. solve_pcg (no restart), lm_solve's PCG step (a
+true-residual restart every 64 iterations) and the distributed solve's
+step (every 32, with the stagnation probe and the rz > 0 stop) in one
+function; the tests hold solver.se2_solver.CGLoop to it bit for bit.
+No JAX here: the distributed tests' rank processes and the card tests
+import it."""
 import torch
+
+
+def lm_pcg_step(diag, hab, grad, src, dst, free, lam, cg_iters, cg_tol):
+    """lm_solve's PCG step on these normal blocks: the CGLoop that the
+    LMLoop of the Thomas tier (of the PCR tier from 4,096 nodes) builds,
+    run on the inputs its head gives it. (x, CG iterations, the
+    CGLoop)."""
+    from slam_toolbox_tpu_torch.solver import se2_solver as ts
+
+    n, e = diag.shape[0], src.shape[0]
+    loop = ts.lm_loop("pcr" if n >= 4096 else "thomas", n, e, diag.dtype,
+                      diag.device, 1, cg_iters)
+    x, i = loop.cg.run(ts._pcg_inputs(diag, hab, grad, src, dst, free, lam,
+                                      cg_tol))
+    return x, i, loop.cg
 
 
 def reference_cg(mv, prec, b, stop, cg_iters, period=None, stall=False):
