@@ -26,8 +26,9 @@ pipeline, or the wrappers' ms.
 Run it from the root of each tree in one chip call, in turns (parent,
 change, change, parent), with the parent unpacked by `git archive` into
 a git-ignored directory and this file copied there; the first round of
-each process carries the warm-up. Uses chip_smoke.py's workloads and
-helpers, which both trees have."""
+each process carries the warm-up. Uses workloads_torch.py's workload and
+runs and chip_smoke.py's kernel helpers: for a parent tree older than
+workloads_torch.py, copy this file and workloads_torch.py into it."""
 import json
 import os
 import sys
@@ -45,8 +46,9 @@ def wrapper_ms(cs, dev, n: int = 200) -> dict:
     from slam_toolbox_tpu_torch.kernels import match_cuda as mc
     from slam_toolbox_tpu_torch.kernels import step_cuda as sc
     from slam_toolbox_tpu_torch.mapper import Mapper
+    from workloads_torch import bench_workload
 
-    cfg, laser, data = cs.bench_workload(n_laps=2)
+    cfg, laser, data = bench_workload(n_laps=2)
     mapper = Mapper(cfg, device=dev)
     mapper.initialize(laser.range_threshold)
     m = mapper.sequential_matcher
@@ -129,6 +131,7 @@ def main() -> int:
 
     import chip_smoke as cs
     from slam_toolbox_tpu_torch.api import SlamSession
+    from workloads_torch import bench_workload, run_mapping, stage_times
     from slam_toolbox_tpu_torch.kernels import match_cuda as mc
 
     if not torch.cuda.is_available():
@@ -138,8 +141,8 @@ def main() -> int:
     reps = int(sys.argv[2]) if len(sys.argv) > 2 else 3
     dev = torch.device("cuda")
     mc.build_kernels(force=True)
-    cfg16, laser16, data16 = cs.bench_workload(n_laps=16)
-    cfg2, laser2, data2 = cs.bench_workload(n_laps=2)
+    cfg16, laser16, data16 = bench_workload(n_laps=16)
+    cfg2, laser2, data2 = bench_workload(n_laps=2)
 
     def streaming(eager):
         sess = SlamSession(cfg16, laser16, device=dev, streaming=True,
@@ -147,7 +150,7 @@ def main() -> int:
         if eager:   # the Python loop in place of the step graph
             pipe = sess._ensure_pipe()
             pipe._run_batch = pipe._run_eager
-        return cs.run_mapping(sess, data16, f"ab {tag}")
+        return run_mapping(sess, data16, f"ab {tag}")
 
     def classic(eager):
         return cs.classic_run(cfg2, laser2, data2, dev, f"ab {tag}",
@@ -159,7 +162,7 @@ def main() -> int:
                                   ("classic", classic, False),
                                   ("classic eager", classic, True)):
             r = run(eager)
-            st = cs.stage_times(r["sess"])
+            st = stage_times(r["sess"])
             print("AB " + json.dumps({
                 "tree": tag, "rep": rep, "route": route, "rate": r["rate"],
                 "ate": r["ate"], "closures": r["closures"],

@@ -3,7 +3,7 @@
 
     python3 profile_torch.py [--out profile_torch.json]
 
-The classic path: chip_smoke.py's 2-lap bench workload (bench.py's
+The classic path: workloads_torch.py's 2-lap bench workload (bench.py's
 configuration, seed 42) through SlamSession(device="cuda"). The streaming
 path (the main path): bench.py's full 16-lap workload through
 SlamSession(streaming=True, drain_every=256), whose drains replay the
@@ -123,7 +123,7 @@ def _plain_run(sess, data):
     import numpy as np
     import torch
 
-    from chip_smoke import run_session
+    from workloads_torch import run_session
 
     sess.stats.enabled = True
     torch.cuda.synchronize()
@@ -194,7 +194,7 @@ def main() -> int:
         print("profile_torch: no CUDA device available", file=sys.stderr)
         return 2
 
-    from chip_smoke import bench_workload, card_line, run_session
+    from workloads_torch import bench_workload, card_line, run_session
     from slam_toolbox_tpu_torch.api import SlamSession
     from slam_toolbox_tpu_torch.kernels import match_cuda as mc
 
@@ -294,7 +294,7 @@ def _cprofile_drain(sess, data, top: int = 30):
     seconds and the top functions by cumulative and by own time."""
     import torch
 
-    from chip_smoke import run_session
+    from workloads_torch import run_session
 
     prof = cProfile.Profile()
     box = {}

@@ -26,6 +26,7 @@ from __future__ import annotations
 
 import contextlib
 import enum
+import gc
 import logging
 import threading
 from typing import Optional, Tuple
@@ -676,6 +677,23 @@ class SlamSession:
                 target=work, name="slam-warm", daemon=True)
             self._warm_thread.start()
         return self._warm_thread
+
+    def close(self) -> None:
+        """Flushes, then returns what the session holds on its device now:
+        the streaming pipeline (its pack pool, step graph and batch
+        buffers), the matchers with their programs and the programs' graph
+        pools, and the graph. The session's objects refer to one another
+        (the lifecycle's hooks, the step graph's function, the graph's
+        scans and edges), so a session that is only dropped keeps its
+        device memory until the garbage collector's next full pass. The
+        session is empty afterwards, as after cleanup(). The solver's loop
+        programs (se2_solver.lm_loop) belong to the process, which shares
+        them among its sessions, and stay."""
+        if self._warm_thread is not None:
+            self._warm_thread.join()
+        self.flush()
+        self.reset()
+        gc.collect()
 
     def reset(self) -> None:
         self._pipe = None

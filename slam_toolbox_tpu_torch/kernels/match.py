@@ -39,6 +39,7 @@ circular mean.
 """
 from __future__ import annotations
 
+import collections
 from dataclasses import dataclass
 
 import numpy as np
@@ -164,6 +165,9 @@ class Matcher:
         # sequential matcher) the fused loop verify's and near-chain
         # matches' programs of kernels/loop_verify.py
         self._programs = {}
+        # program kind (the key's first item) -> captures made, new keys
+        # and the same key on moved pool storage alike
+        self.captures = collections.Counter()
 
     def _tensor(self, a, dtype=None):
         return torch.as_tensor(a, dtype=dtype).to(self.device)
@@ -251,6 +255,7 @@ class Matcher:
         with mc.capture_lock:
             prog = self._programs.get(key)
             if prog is None or prog.storage != storage:
+                self.captures[key[0]] += 1
                 fn, inputs = build()
                 prog = self._programs[key] = mc.Program(fn, inputs,
                                                         storage=storage)

@@ -370,6 +370,10 @@ class PackPool:
                                device=device)
         self._owners: Dict[int, object] = {}   # slot -> weakref(scan)
         self._freed = 0
+        # how often the buffer moved: doublings and compactions (each one
+        # makes the pooled programs capture again)
+        self.growths = 0
+        self.compactions = 0
 
     def release(self, scan) -> None:
         """Mark a removed scan's slot reusable (the row is reclaimed at the
@@ -399,6 +403,7 @@ class PackPool:
         self._owners = new_owners
         self.n = 1 + len(live)
         self._freed = 0
+        self.compactions += 1
 
     def append_batch(self, packs, scans) -> None:
         """packs: (n, B, 8) device tensor of the scans' packs, in order."""
@@ -414,6 +419,7 @@ class PackPool:
                               device=self.device)
             buf[:self.n] = self.buf[:self.n]
             self.buf = buf
+            self.growths += 1
         self.buf[self.n:self.n + n] = packs[:n]
         for i, s in enumerate(scans):
             try:

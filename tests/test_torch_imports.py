@@ -1,6 +1,8 @@
 """Package rules of the port: it loads no JAX and nothing of the JAX
-package, its entry points default to the card and raise without one, and
-chip_smoke.py fails without a card."""
+package (nor do chip_smoke.py, profile_torch.py, workloads_torch.py and
+configs_torch.py), its entry points default to the card and raise without
+one (configs_torch.py's commands too), and chip_smoke.py fails without a
+card."""
 import json
 import os
 import subprocess
@@ -37,6 +39,8 @@ import slam_toolbox_tpu_torch.dist.submap
 import slam_toolbox_tpu_torch.solver.chain_precond
 import chip_smoke
 import profile_torch
+import workloads_torch
+import configs_torch
 print(json.dumps(sorted(
     m for m in sys.modules
     if m.split(".")[0] in ("jax", "jaxlib", "slam_toolbox_tpu")
@@ -83,6 +87,11 @@ def test_default_device_entry_points_raise_without_cuda():
         Matcher(0.5, 0.05, 0.1, 10.0, 0.3, 0.03, 0.003, 0.5, 1.0, 0.5, 0.9)
     assert SlamSession(MapperConfig(), LaserConfig(),
                        device="cpu").device.type == "cpu"
+    import configs_torch
+
+    for command in ("config2", "config3", "config4"):
+        with pytest.raises(RuntimeError):
+            configs_torch.main([command])
 
 
 def test_unported_modes_raise():

@@ -2,7 +2,8 @@
 _StepGraph) on a card, marked `cuda` and skipped without one: a batch
 replayed from the graph equals the eager loop bit for bit and counts the
 same launches, a step that cannot be captured raises, and warm_async's
-thread captures beside a session's first scans. The file
+thread captures beside a session's first scans, and a closed session
+returns its device memory. The file
 imports no JAX, so the card's machine, which has none, runs it with
 `python -m pytest --noconftest tests/test_torch_stream_graph_card.py`."""
 import numpy as np
@@ -142,3 +143,36 @@ def test_warm_async_captures_beside_the_first_scans(cuda_device, caplog):
     assert warm._pipe._graph is not None
     assert warm._pipe._graph.valid_for(warm._pipe.state)
     np.testing.assert_array_equal(warm.trajectory, cold.trajectory)
+
+
+def _graph_pool_bytes():
+    """Device memory in the segments of CUDA graphs' private pools."""
+    return sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
+               if tuple(seg.get("segment_pool_id", (0, 0))) != (0, 0))
+
+
+@pytest.mark.cuda
+def test_closed_session_returns_its_device_memory(cuda_device):
+    """SlamSession.close() returns what the session held on the card: two
+    sessions, each mapped and closed in turn, leave the allocated memory
+    and the graphs' pools where the first left them (the solver's loop
+    programs, which the process keeps for its sessions), and each held
+    more before close()."""
+    cfg, laser, data = _workload()
+    left = []
+    for _ in range(2):
+        sess = SlamSession(cfg, laser, device=cuda_device, streaming=True,
+                           drain_every=8)
+        for i, (scan, _) in enumerate(data):
+            sess.process_scan(scan.ranges, scan.odom_pose, time=i * 0.1)
+        sess.flush()
+        assert sess._pipe._graph is not None
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated(cuda_device)
+        sess.close()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        left.append((torch.cuda.memory_allocated(cuda_device),
+                     _graph_pool_bytes()))
+        assert left[-1][0] < held
+    assert left[1] == left[0]
