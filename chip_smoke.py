@@ -183,6 +183,21 @@ Phases, in order; any failure exits non-zero and nothing is caught:
                 odometry's), a closure, K1-K3 launches by grid at grids
                 phase 2 checked, a pass's peak device memory over its
                 start (`# config2:`); each pass's session closed;
+ 11c. config5 — BASELINE config 5 at a cut (configs_torch.config5,
+                scripts/bench_merge500k.py's run): 8 sessions of 2,500
+                nodes at 61 beams (20,000 nodes, 32,768 padded) built,
+                saved, loaded, each auto-aligned against the one before
+                (7 of 7), merged at 0.1 m on the card's route and
+                natively (bit-equal), the joint graph solved by
+                distributed_lm_solve on a mesh of one (3 LM steps, 50 CG
+                iterations, Schwarz blocks of 512) twice, replayed
+                bit-equal, within 1 cm of host_sparse_lm of the same LM
+                steps; K1 (head form), K2, K3, K5, K7 and K8 held to their
+                plain versions at the align geometry (G 441, hk 1, 61
+                beams) on the match auto_align makes of session 1 against
+                session 0, K2 and K3 also on the adversarial patterns, and
+                timed; the alignment's K1-K3 launches at G 441 (`#
+                config5:`);
  12. dist     — under a world-size-1 NCCL group on the card: lm_solve's
                 three device tiers, each one program (the LM loop and its
                 CG loop CUDA-graph WHILE nodes, K10) held bit for bit to
@@ -219,7 +234,8 @@ Phases, in order; any failure exits non-zero and nothing is caught:
 
 It exits non-zero with no result when no CUDA device is present. It imports
 nothing of JAX and nothing of the JAX package. The workloads and the
-session runs come from workloads_torch.py, config 2 from configs_torch.py.
+session runs come from workloads_torch.py, configs 2 and 5 from
+configs_torch.py.
 """
 from __future__ import annotations
 
@@ -236,8 +252,9 @@ import time
 from workloads_torch import (
     LAP, LOOP_ROWS, PATH_KERNELS, SPEC_COUNTS, STREAM_KERNELS, bench_workload,
     build_prior_snapshot, card_line, graph_pool_bytes, grid_check,
-    launches_by_grid, lifelong_bars, lifelong_cfg, lifelong_run, loc_circuit,
-    loc_cfg, localization_run, run_mapping, run_session, stage_times,
+    grid_summary, launches_by_grid, lifelong_bars, lifelong_cfg,
+    lifelong_run, loc_circuit, loc_cfg, localization_run, merge_laser,
+    occupancy_route, run_mapping, run_session, same_grid, stage_times,
     timed_host, warehouse, warehouse_workload,
 )
 
@@ -2692,45 +2709,6 @@ def timed(fn):
     return out, time.perf_counter() - t0
 
 
-@contextlib.contextmanager
-def occupancy_route(native: bool):
-    """Send every render inside the block through one route: the native
-    host Bresenham (native=True) or trace_beams on the card (a CUDA
-    session's own choice)."""
-    import functools
-
-    from slam_toolbox_tpu_torch.kernels import occupancy as occ
-
-    names = ("create_from_scans", "add_scans_incremental")
-    old = {n: getattr(occ, n) for n in names}
-    for n in names:
-        setattr(occ, n, functools.partial(old[n], native=native))
-    try:
-        yield
-    finally:
-        for n in names:
-            setattr(occ, n, old[n])
-
-
-def grid_summary(grid) -> dict:
-    import numpy as np
-
-    from slam_toolbox_tpu_torch.kernels import occupancy as occ
-
-    c = np.bincount(grid.cells.ravel(), minlength=256)
-    return dict(shape=list(grid.cells.shape), free=int(c[occ.FREE]),
-                occupied=int(c[occ.OCCUPIED]), unknown=int(c[occ.UNKNOWN]))
-
-
-def same_grid(tag: str, a, b) -> None:
-    """Bit-equal counters, cells and offset, or fail."""
-    import numpy as np
-
-    for key in ("pass_cnt", "hit_cnt", "cells", "offset"):
-        if not np.array_equal(getattr(a, key), getattr(b, key)):
-            raise AssertionError(f"{tag}: the grids' {key} differ")
-
-
 def continued(data, n_laps: int, seed: int, margin: float = 0.5):
     """n_laps more laps of the bench world after data's last scan: a new
     simulation from LAP[0], its odometry carried on from data's last
@@ -3204,6 +3182,84 @@ def config2_path(dev, checked_grids):
           f"{json.dumps(timed_pass['resources']['pool'])}"
           f"; phase {time.perf_counter() - t_phase} s", flush=True)
     return timed_pass["launches_by_grid"]
+
+
+# -- phase 11c: config 5 at a cut ---------------------------------------------
+# configs_torch.config5 (scripts/bench_merge500k.py's 8 sessions), each
+# session cut from 62,500 nodes to this many (20,000 nodes, 32,768 padded)
+CONFIG5_NODES_PER = 2500
+
+
+def align_kernels(dev, paths):
+    """K1-K3 and the step kernels at config 5's align geometry (a 2 m
+    search at 0.05 m, 61 beams: G 441, hk 1), on the inputs auto_align
+    gives its match of session 1 against session 0 (MapMerger.align_problem
+    on the sessions' snapshots), each held to its plain version as phase 2
+    holds it (K7 in the match's mode: unpenalized, refined) and timed; K2
+    and K3 also on the adversarial patterns. Returns ({kernel: record},
+    patterns checked, G)."""
+    from slam_toolbox_tpu_torch.api.merge import MapMerger
+
+    merger = MapMerger(device=dev)
+    for path in paths[:2]:
+        merger.add_submap(path)
+    matcher, probe, near = merger.align_problem(0, 1, search_size=2.0,
+                                                resolution=0.05)
+    tag = f"config5 align G={matcher.G}"
+    print(f"# {tag}: {len(near)} base scans of {len(probe.ranges)} beams",
+          flush=True)
+    out, grid = check_kernels(matcher, kernel_inputs(matcher, near, probe,
+                                                     dev), tag)
+    si = step_inputs(matcher, near, probe, dev)
+    out.update(check_step_kernels(matcher, si, grid, tag,
+                                  (False, True, False)))
+    n_patterns = check_patterns(matcher.G, matcher.half_kernel, matcher._w,
+                                dev)[0]
+    return out, n_patterns, matcher.G
+
+
+def config5_path(dev, checked_grids, workdir):
+    """Phase 11c: BASELINE config 5 at a cut (configs_torch.config5: 8
+    sessions of CONFIG5_NODES_PER nodes at 61 beams built and saved,
+    loaded, each aligned against the one before, merged at 0.1 m on both
+    routes, bit-equal, the joint graph solved by distributed_lm_solve on
+    a mesh of one, its programs replayed bit-equal, and by host_sparse_lm);
+    bars: 7 of 7 aligned, every pose finite, chi2 below its start, within
+    1 cm of the host solve of the same LM steps; then K1-K3 and the step
+    kernels held to their plain versions at the align geometry
+    (align_kernels), the grid the alignment's launches ran at. Prints `#
+    config5:`; returns the alignment's launches by grid and the kernels'
+    records."""
+    from configs_torch import config5, merge_paths
+
+    t_phase = time.perf_counter()
+    sessions = 8
+    rec = config5(dev, sessions, CONFIG5_NODES_PER, bars=False,
+                  cache=workdir)
+    checks, n_patterns, G = align_kernels(
+        dev, merge_paths(sessions, CONFIG5_NODES_PER, merge_laser(), workdir))
+    grid_check(tuple(checked_grids) + (G,))("config5", rec["launches_by_grid"])
+    st = rec["stages"]
+    print(f"# config5: {rec['nodes']} nodes ({sessions} sessions of "
+          f"{CONFIG5_NODES_PER}), {rec['edges']} edges ({rec['cross_edges']} "
+          f"across sessions); {rec['aligned']} of {sessions - 1} aligned, "
+          f"responses {rec['responses']}; grid {json.dumps(rec['grid'])} "
+          f"bit-equal on both routes; chi2 {rec['chi2_initial']} -> "
+          f"{rec['chi2']}, CG iterations {rec['cg_iters']}, "
+          f"{rec['host_dxy']} m {rec['host_dth']} rad from host_sparse_lm "
+          f"of the same LM steps ({rec['default_host_dxy']} m from its "
+          f"solve of up to 50 LM steps); launches by grid "
+          f"{json.dumps(rec['launches_by_grid'])}; K1-K3, K5, K7, K8 "
+          f"bit-equal at G {G}; seconds {json.dumps(st['seconds'])}; peak "
+          f"allocated {json.dumps(st['peak_allocated_bytes'])}; phase "
+          f"{time.perf_counter() - t_phase} s", flush=True)
+    if rec["aligned"] != sessions - 1:
+        raise AssertionError(f"config5: {rec['aligned']} of {sessions - 1} "
+                             f"sessions aligned")
+    if not rec["host_dxy"] < 0.01:
+        raise AssertionError(f"config5: {rec['host_dxy']} m from "
+                             f"host_sparse_lm")
+    return rec["launches_by_grid"], checks, n_patterns, G
 
 
 # -- phase 12: dist/ and the PCG tier -----------------------------------------
@@ -4252,6 +4308,13 @@ def main() -> int:
     c2 = config2_path(dev, (mapper.sequential_matcher.G,
                             mapper.loop_matcher.G))
 
+    # 11c. config 5 at a cut: 8 sessions of 2,500 nodes merged and solved;
+    # K1-K3 and the step kernels at its align geometry (G 441)
+    with tempfile.TemporaryDirectory() as workdir:
+        c5, c5_checks, c5_patterns, c5_G = config5_path(
+            dev, (mapper.sequential_matcher.G, mapper.loop_matcher.G),
+            workdir)
+
     # 12. dist/ and the PCG tier under a world-size-1 NCCL group: the
     # solver tiers on the snake graph, the sharded chain match (K1-K3 at
     # G 561), the sharded raster of phase 10's grids
@@ -4302,6 +4365,9 @@ def main() -> int:
             row["mean_err"] = max(rec["mean_err"], loop["mean_err"])
             row["cov_rel_err"] = max(rec["cov_rel_err"], loop["cov_rel_err"])
         if name in STREAM_KERNELS:
+            row["config5_align"] = dict(summary(c5_checks[name]), G=c5_G)
+            row["max_abs_err"] = max(row["max_abs_err"],
+                                     c5_checks[name]["err"])
             row["main_path_route"] = "step graph replays"
             row["eager_main_path_launches"] = eager_run["launches"][name]
             row["spec_off_launches"] = off_run["launches"][name]
@@ -4332,6 +4398,16 @@ def main() -> int:
             row["lifelong_launches_by_grid"] = modes["lifelong"][name]
             row["loc_launches_by_grid"] = modes["loc"][name]
             row["config2_launches_by_grid"] = c2[name]
+            row["config5_align_launches_by_grid"] = c5[name]
+            head = name == "score_windows"
+            r = c5_checks["score_windows_head" if head else name]
+            row["max_abs_err"] = max(row["max_abs_err"], r["err"])
+            row["config5_align"] = dict(summary(r), G=c5_G)
+            if name in STEP_KERNELS or head:
+                row["config5_align"]["replaced_device_ms"] = r[
+                    "replaced_device_ms"]
+            if head:
+                row["config5_align"]["table_form"] = summary(c5_checks[name])
             row["loc_spec"] = modes["loc_spec"]
             row["main_path_spec"] = main_run["spec"]
             row["spec_off_launches"] = off_run["launches"][name]
@@ -4357,7 +4433,8 @@ def main() -> int:
                     row["loop"][key] = loop[key]
             if name in ("scatter_occupancy", "smear_quantize"):
                 row["patterns_checked"] = (n_patterns
-                                           + map_launches["patterns"])
+                                           + map_launches["patterns"]
+                                           + c5_patterns)
             if name == "smear_quantize":
                 row["dense_device_ms"] = dense_ms
                 row["empty_tile_rows"] = rec["empty_tile_rows"]

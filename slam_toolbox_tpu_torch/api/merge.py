@@ -77,6 +77,32 @@ class MapMerger:
         believed to sit in the reference frame (defaults to its own pose
         composed with the current correction). Returns the match response
         on success (correction updated), None if below min_response."""
+        matcher, probe, near = self.align_problem(
+            ref_idx, target_idx, initial_guess, search_size, resolution,
+            smear_deviation)
+        if not near:
+            return None
+        res = matcher.match_scan(probe, near, penalize=False)
+        if res.response < min_response:
+            return None
+        probe.set_sensor_pose(res.sensor_pose)
+        # correction maps the submap's own frame onto the aligned frame:
+        # compose(correction, original_pose) == matched_pose
+        self.corrections[target_idx] = np.asarray(geometry.compose(
+            probe.corrected_pose,
+            geometry.inverse(self.submaps[target_idx][0].corrected_pose),
+        ))
+        return float(res.response)
+
+    def align_problem(
+        self, ref_idx: int, target_idx: int,
+        initial_guess: Optional[Sequence[float]] = None,
+        search_size: float = 8.0, resolution: float = 0.05,
+        smear_deviation: float = 0.03,
+    ):
+        """What auto_align matches: (the wide-window matcher on the
+        merger's device, the target's first scan placed at the guess, the
+        reference submap's scans near it)."""
         from slam_toolbox_tpu_torch.kernels.match import Matcher
 
         ref_scans = self.submaps[ref_idx]
@@ -109,19 +135,7 @@ class MapMerger:
             if np.hypot(*(s.sensor_pose[:2] - center))
             < 0.5 * search_size + rt
         ]
-        if not near:
-            return None
-        res = matcher.match_scan(probe, near, penalize=False)
-        if res.response < min_response:
-            return None
-        probe.set_sensor_pose(res.sensor_pose)
-        # correction maps the submap's own frame onto the aligned frame:
-        # compose(correction, original_pose) == matched_pose
-        self.corrections[target_idx] = np.asarray(geometry.compose(
-            probe.corrected_pose,
-            geometry.inverse(tgt.corrected_pose),
-        ))
-        return float(res.response)
+        return matcher, probe, near
 
     def merge(
         self, resolution: float = 0.05,

@@ -61,33 +61,28 @@ class SegmentWorld:
             if L < 1e-12:
                 continue
             ang = np.array([np.arctan2(d[1], d[0])])
-            r = self.cast(a, ang, max_range=np.inf)
+            r = self.cast(a[None], ang[None], max_range=np.inf)[0]
             if np.isfinite(r[0]) and r[0] < L - 1e-9:
                 return True
         return False
 
-    def cast(self, origin: np.ndarray, angles: np.ndarray,
+    def cast(self, origins: np.ndarray, angles: np.ndarray,
              max_range: float) -> np.ndarray:
-        """Min positive intersection distance per ray; inf -> NaN."""
-        ox, oy = origin[0], origin[1]
+        """Min positive intersection distance per ray, (P, A) for rays
+        from P origins (P, 2) at their angles (P, A); inf -> NaN."""
+        ox, oy = origins[:, 0, None, None], origins[:, 1, None, None]
         x0, y0 = self.segments[:, 0], self.segments[:, 1]
         x1, y1 = self.segments[:, 2], self.segments[:, 3]
         ex, ey = x1 - x0, y1 - y0  # (S,)
-        dx, dy = np.cos(angles), np.sin(angles)  # (A,)
-        # solve origin + t*d = seg0 + u*e
-        denom = dx[:, None] * (-ey)[None, :] + dy[:, None] * ex[None, :]
+        dx, dy = np.cos(angles)[..., None], np.sin(angles)[..., None]
+        # solve origin + t*d = seg0 + u*e, (P, A, S)
+        denom = dx * (-ey) + dy * ex
         with np.errstate(divide="ignore", invalid="ignore"):
-            t = (
-                (x0[None, :] - ox) * (-ey)[None, :]
-                + (y0[None, :] - oy) * ex[None, :]
-            ) / denom
-            u = (
-                dx[:, None] * (y0[None, :] - oy)
-                - dy[:, None] * (x0[None, :] - ox)
-            ) / denom
+            t = ((x0 - ox) * (-ey) + (y0 - oy) * ex) / denom
+            u = (dx * (y0 - oy) - dy * (x0 - ox)) / denom
         good = (t > 1e-9) & (u >= 0.0) & (u <= 1.0) & np.isfinite(t)
         t = np.where(good, t, np.inf)
-        r = t.min(axis=1)
+        r = t.min(axis=2)
         r[r > max_range] = np.nan
         return r
 
@@ -116,7 +111,8 @@ class LidarSimulator:
             geometry.sensor_at(true_pose, np.array(self.laser.offset_pose))
         )
         angles = self.laser.beam_angles + sensor[2]
-        r = self.world.cast(sensor[:2], angles, self.laser.max_range)
+        r = self.world.cast(sensor[None, :2], angles[None],
+                            self.laser.max_range)[0]
         if self.range_noise:
             r = r + self.rng.normal(0, self.range_noise, len(r))
         return r

@@ -40,9 +40,10 @@ def save_snapshot(mapper, path: str) -> None:
 
     sensors = sorted({s.laser.name for s in scans})
     sensor_of = {name: i for i, name in enumerate(sensors)}
-    lasers = {}
-    for s in scans:
-        lasers[s.laser.name] = dataclasses.asdict(s.laser)
+    # each name's laser as its last scan has it
+    lasers = {s.laser.name: s.laser for s in scans}
+    lasers = {name: dataclasses.asdict(laser) for name, laser in
+              lasers.items()}
 
     # persist the local-frame barycenter cache (pose-independent): a
     # deserialized 100k-node prior otherwise recomputes it per scan on

@@ -26,6 +26,7 @@ from typing import List
 import numpy as np
 import torch
 
+from slam_toolbox_tpu_torch.core.scan import LocalizedScan, _beam_trig
 from slam_toolbox_tpu_torch.device import resolve_device, upload
 
 UNKNOWN, OCCUPIED, FREE = 0, 100, 255
@@ -185,17 +186,69 @@ class OccupancyGrid:
         return distance if distance < max_range else max_range
 
 
+# scans whose geometry is formed in one NumPy computation
+POINTS_BLOCK = 4096
+
+
+def _laser_blocks(scans):
+    """`scans` POINTS_BLOCK at a time, a block whose scans' lasers differ
+    split into blocks of one scan: each block is of one laser."""
+    for b0 in range(0, len(scans), POINTS_BLOCK):
+        group = scans[b0:b0 + POINTS_BLOCK]
+        l0 = group[0].laser
+        if all(s.laser is l0 or s.laser == l0 for s in group):
+            yield group
+        else:
+            yield from ([s] for s in group)
+
+
+def _local(group):
+    """(ranges (n, B), local points (n, B, 2), filtered masks (n, B)) of
+    scans of one laser: each scan's local_points and filtered_mask,
+    formed for all of them at once where every scan is a LocalizedScan
+    (element for element the same arithmetic), else the scans' own."""
+    r = np.stack([s.ranges for s in group])
+    if any(type(s) is not LocalizedScan for s in group):
+        return (r, np.stack([s.local_points for s in group]),
+                np.stack([s.filtered_mask for s in group]))
+    laser = group[0].laser
+    ca, sa = _beam_trig(laser)
+    keep = (np.isfinite(r) & (r >= laser.min_range)
+            & (r <= laser.range_threshold))
+    return r, np.stack([r * ca, r * sa], axis=-1), keep
+
+
+def _world_points(group, lp):
+    """(sensor poses (n, 3), world beam endpoints (n, B, 2)) of scans of
+    one laser with local points `lp`, each scan's
+    points_world(filtered=False) computed for all of them at once (the
+    same arithmetic element for element)."""
+    sp = np.stack([s.sensor_pose for s in group])
+    c = np.cos(sp[:, 2])[:, None]
+    sn = np.sin(sp[:, 2])[:, None]
+    pts = np.stack([sp[:, 0:1] + c * lp[..., 0] - sn * lp[..., 1],
+                    sp[:, 1:2] + sn * lp[..., 0] + c * lp[..., 1]], axis=-1)
+    return sp, pts
+
+
 def compute_dimensions(scans, resolution: float):
     """Union of scan bounding boxes -> (width, height, offset)
-    (ComputeDimensions, Karto.h:6088-6112)."""
+    (ComputeDimensions, Karto.h:6088-6112). The scans are taken a block
+    of one laser at a time (_laser_blocks); the minimum and maximum are
+    exact, so the union equals the scans' bounding_box folded one by
+    one."""
     mins = np.full(2, np.inf)
     maxs = np.full(2, -np.inf)
-    for s in scans:
-        if s is None:
-            continue
-        bb = s.bounding_box
-        mins = np.minimum(mins, bb[0])
-        maxs = np.maximum(maxs, bb[1])
+    for group in _laser_blocks([s for s in scans if s is not None]):
+        _, lp, keep = _local(group)
+        sp, pts = _world_points(group, lp)
+        keep = keep[..., None]
+        mins = np.minimum(mins, np.minimum(
+            sp[:, :2].min(axis=0),
+            np.where(keep, pts, np.inf).min(axis=(0, 1))))
+        maxs = np.maximum(maxs, np.maximum(
+            sp[:, :2].max(axis=0),
+            np.where(keep, pts, -np.inf).max(axis=(0, 1))))
     scale = 1.0 / resolution
     size = maxs - mins
     width = int(round_half_away_f32(size[0] * scale))
@@ -206,38 +259,41 @@ def compute_dimensions(scans, resolution: float):
 def _beam_cells(group, offset, scale):
     """Host-side beam prep shared by both routes: per-beam (start_cell,
     end_cell, beam_valid, end_valid) with the range-threshold endpoint
-    clamp (AddScan, Karto.h:6146-6189)."""
-    starts, ends, bvalid, evalid = [], [], [], []
-    for s in group:
-        laser = s.laser
-        r = s.ranges
-        pts = s.points_world(filtered=False).copy()
-        spos = s.sensor_pose[:2]
-        with np.errstate(invalid="ignore"):
-            use = (
-                np.isfinite(r)
-                & (r > laser.min_range)
-                & (r < laser.max_range)
-            )
-            clamp = use & (r >= laser.range_threshold)
-        ratio = np.where(
-            clamp, laser.range_threshold / np.where(r > 0, r, 1.0), 1.0
+    clamp (AddScan, Karto.h:6146-6189). Each block of one laser
+    (_laser_blocks) is prepared in one NumPy computation, element for
+    element the per-scan one."""
+    parts = [_laser_beam_cells(g, offset, scale)
+             for g in _laser_blocks(group)]
+    if len(parts) == 1:
+        return parts[0]
+    return tuple(np.concatenate(p) for p in zip(*parts))
+
+
+def _laser_beam_cells(group, offset, scale):
+    laser = group[0].laser
+    r, lp, _ = _local(group)
+    sp, pts = _world_points(group, lp)
+    spos = sp[:, None, :2]
+    with np.errstate(invalid="ignore"):
+        use = (
+            np.isfinite(r)
+            & (r > laser.min_range)
+            & (r < laser.max_range)
         )
-        pts = spos[None, :] + ratio[:, None] * (pts - spos[None, :])
-        end_ok = use & (r < laser.range_threshold - 1e-6)
-        sc = round_half_away_f32((spos - offset) * scale).astype(np.int32)
-        with np.errstate(invalid="ignore", over="ignore"):
-            ec = round_half_away_f32(
-                (np.nan_to_num(pts, nan=-1e6) - offset[None, :]) * scale
-            ).astype(np.int32)
-        starts.append(np.broadcast_to(sc, (len(r), 2)))
-        ends.append(ec)
-        bvalid.append(use)
-        evalid.append(end_ok)
-    return (
-        np.concatenate(starts), np.concatenate(ends),
-        np.concatenate(bvalid), np.concatenate(evalid),
+        clamp = use & (r >= laser.range_threshold)
+    ratio = np.where(
+        clamp, laser.range_threshold / np.where(r > 0, r, 1.0), 1.0
     )
+    pts = spos + ratio[..., None] * (pts - spos)
+    end_ok = use & (r < laser.range_threshold - 1e-6)
+    sc = round_half_away_f32((sp[:, :2] - offset) * scale).astype(np.int32)
+    with np.errstate(invalid="ignore", over="ignore"):
+        ec = round_half_away_f32(
+            (np.nan_to_num(pts, nan=-1e6) - offset) * scale
+        ).astype(np.int32)
+    n, b = r.shape
+    return (np.repeat(sc, b, axis=0), ec.reshape(n * b, 2),
+            use.reshape(-1), end_ok.reshape(-1))
 
 
 def _use_native(device, native) -> bool:

@@ -89,9 +89,10 @@ def test_default_device_entry_points_raise_without_cuda():
                        device="cpu").device.type == "cpu"
     import configs_torch
 
-    for command in ("config2", "config3", "config4"):
+    for command in (["config2"], ["config3"], ["config4"], ["config5"],
+                    ["config5", "--variant", "sessions"]):
         with pytest.raises(RuntimeError):
-            configs_torch.main([command])
+            configs_torch.main(command)
 
 
 def test_unported_modes_raise():

@@ -159,6 +159,71 @@ def test_native_and_tensor_routes_agree_with_several_chunks():
     _assert_grid_equal(grids[False], grids[True])
 
 
+def _scan_cells(s, offset, scale):
+    """One scan's beams as the per-scan loop prepares them (points_world,
+    the range-threshold clamp, the cell rounding): the reference of the
+    blocked _beam_cells."""
+    laser, r = s.laser, s.ranges
+    spos = s.sensor_pose[:2]
+    with np.errstate(invalid="ignore"):
+        use = np.isfinite(r) & (r > laser.min_range) & (r < laser.max_range)
+        clamp = use & (r >= laser.range_threshold)
+    ratio = np.where(clamp, laser.range_threshold / np.where(r > 0, r, 1.0),
+                     1.0)
+    pts = s.points_world(filtered=False)
+    pts = spos[None, :] + ratio[:, None] * (pts - spos[None, :])
+    sc = occ.round_half_away_f32((spos - offset) * scale).astype(np.int32)
+    with np.errstate(invalid="ignore", over="ignore"):
+        ec = occ.round_half_away_f32(
+            (np.nan_to_num(pts, nan=-1e6) - offset[None, :]) * scale
+        ).astype(np.int32)
+    return (np.broadcast_to(sc, (len(r), 2)), ec, use,
+            use & (r < laser.range_threshold - 1e-6))
+
+
+def test_blocked_scan_geometry_equals_the_per_scan_loop(monkeypatch):
+    """compute_dimensions and _beam_cells take scans of one laser a block
+    at a time: equal to the per-scan loop (each scan's bounding_box, its
+    points_world and clamp) on scans of one laser, on scans of two lasers
+    interleaved and with a point scan among them, NaN and over-threshold
+    ranges, in blocks of 5."""
+    from slam_toolbox_tpu_torch.core.scan import LocalizedPointScan
+
+    _, scans = _posed_scans(n=12, seed=3)
+    rng = np.random.default_rng(4)
+    other = dataclasses.replace(scans[0].laser, name="laser1",
+                                range_threshold=3.0)
+    for k in range(4):
+        r = rng.uniform(0.0, 7.0, other.n_beams)
+        r[::9] = np.nan
+        scans.insert(3 * k + 1, LocalizedScan(
+            other, r, rng.normal(0, [3, 3, 2])))
+    laser = scans[0].laser
+    pts = rng.uniform(-3, 3, (laser.n_beams, 2))
+    pts[::11] = np.nan
+    point_scan = LocalizedPointScan(laser, np.hypot(*pts.T), pts,
+                                    np.array([0.5, -1.0, 0.3]))
+    scans.insert(6, point_scan)
+    monkeypatch.setattr(occ, "POINTS_BLOCK", 5)
+    same = [s for s in scans if s.laser is laser]
+    plain = [s for s in same if type(s) is LocalizedScan]
+    for resolution, every in ((0.05, scans), (0.1, scans), (0.1, plain)):
+        mins = np.min([s.bounding_box[0] for s in every], axis=0)
+        maxs = np.max([s.bounding_box[1] for s in every], axis=0)
+        width, height, offset = occ.compute_dimensions(every, resolution)
+        np.testing.assert_array_equal(offset, mins)
+        size = (maxs - mins) / resolution
+        assert (width, height) == tuple(
+            int(occ.round_half_away_f32(v)) for v in size)
+        for group in (scans[:6], scans[9:], same, plain):
+            want = [np.concatenate(p) for p in zip(
+                *(_scan_cells(s, offset, 1.0 / resolution) for s in group))]
+            got = occ._beam_cells(group, offset, 1.0 / resolution)
+            for g, w in zip(got, want):
+                assert g.dtype == w.dtype
+                np.testing.assert_array_equal(g, w)
+
+
 @pytest.mark.parametrize("device,native,loads,want", [
     ("cpu", None, True, True), ("cpu", None, False, False),
     ("cuda", None, True, False), ("cpu", False, True, False),

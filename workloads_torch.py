@@ -1,17 +1,22 @@
 """Workloads of the PyTorch port (slam_toolbox_tpu_torch) and the runs
 that drive them through the port's entry points.
 
-The builders give bench.py's workload and scripts/bench_suite.py's
-configurations 2-4 (BASELINE.md) in the port's own dataclasses, from the
-same seeds, so each scan sequence equals the script's bit for bit
-(tests/test_torch_workloads.py holds them to it):
+The builders give bench.py's workload and the configurations 2-5 of
+BASELINE.md (scripts/bench_suite.py, scripts/bench_merge500k.py) in the
+port's own dataclasses, from the same seeds, so each scan sequence equals
+the script's bit for bit (tests/test_torch_workloads.py and
+tests/test_torch_config5.py hold them to it):
   - bench_workload: bench.py make_workload's 16-lap rooms world (config 1);
   - apartment_workload: config 2, the apartment's 40 laps (5,080 raw scans);
   - warehouse_workload: config 3, the serpentine warehouse (40 laps,
     19,241 raw scans, as CONFIG3.json ran it);
   - build_prior_snapshot, loc_circuit and repeat_circuit: config 4, the
     rows warehouse's prior (100,010 nodes) and the localization circuit
-    tiled with fresh odometry.
+    tiled with fresh odometry;
+  - build_merge_snapshots and joint_graph: config 5 as
+    scripts/bench_merge500k.py builds it (8 sessions of 62,500 nodes and
+    their joint pose graph); band_sessions: scripts/bench_suite.py
+    config5's three mapped sessions.
 The runs (run_mapping, lifelong_run, localization_run) feed a session,
 check what every run must show and return a record; `resources` reads
 the device memory, the pack pool's growths and the program captures of a
@@ -21,6 +26,7 @@ nothing of the JAX package, and the port only inside its functions."""
 from __future__ import annotations
 
 import collections
+import contextlib
 import json
 import os
 import time
@@ -303,6 +309,47 @@ def graph_pool_bytes():
                if tuple(seg["segment_pool_id"]) != (0, 0))
 
 
+def grid_summary(grid) -> dict:
+    """An occupancy grid's shape and its free, occupied and unknown
+    cells."""
+    import numpy as np
+
+    from slam_toolbox_tpu_torch.kernels import occupancy as occ
+
+    c = np.bincount(grid.cells.ravel(), minlength=256)
+    return dict(shape=list(grid.cells.shape), free=int(c[occ.FREE]),
+                occupied=int(c[occ.OCCUPIED]), unknown=int(c[occ.UNKNOWN]))
+
+
+def same_grid(tag: str, a, b) -> None:
+    """Bit-equal counters, cells and offset, or fail."""
+    import numpy as np
+
+    for key in ("pass_cnt", "hit_cnt", "cells", "offset"):
+        if not np.array_equal(getattr(a, key), getattr(b, key)):
+            raise AssertionError(f"{tag}: the grids' {key} differ")
+
+
+@contextlib.contextmanager
+def occupancy_route(native: bool):
+    """Send every render inside the block through one route: the native
+    host Bresenham (native=True) or trace_beams (native=False: a CUDA
+    session's own choice, on the CPU its plain version)."""
+    import functools
+
+    from slam_toolbox_tpu_torch.kernels import occupancy as occ
+
+    names = ("create_from_scans", "add_scans_incremental")
+    old = {n: getattr(occ, n) for n in names}
+    for n in names:
+        setattr(occ, n, functools.partial(old[n], native=native))
+    try:
+        yield
+    finally:
+        for n in names:
+            setattr(occ, n, old[n])
+
+
 def warehouse(aisles: int = 4, length: float = 30.0, pitch: float = 4.0):
     """bench_suite._warehouse: aisles of racks with a mid-aisle gap and
     rack clutter every ~7 m, outer walls (no freestanding clutter, its
@@ -504,7 +551,6 @@ def build_prior_snapshot(path, n_nodes, laser, seed=7, dev="cpu"):
 
     from slam_toolbox_tpu_torch.core.params import MapperConfig
     from slam_toolbox_tpu_torch.core.scan import LocalizedScan
-    from slam_toolbox_tpu_torch.io.serialization import save_snapshot
     from slam_toolbox_tpu_torch.mapper import Mapper
 
     per_row = PRIOR_PER_ROW
@@ -553,15 +599,7 @@ def build_prior_snapshot(path, n_nodes, laser, seed=7, dev="cpu"):
     for s in scans[-8:]:
         sm.add_running_scan(s)
     t1 = time.perf_counter()
-    # written beside `path` and renamed onto it, so a killed build leaves
-    # no half-written snapshot under its name (np.savez keeps a .npz name)
-    part = f"{path}.{os.getpid()}.part.npz"
-    try:
-        save_snapshot(m, part)
-        os.replace(part, path)
-    finally:
-        if os.path.exists(part):
-            os.remove(part)
+    save_atomic(m, path)
     return world, t1 - t0, time.perf_counter() - t1
 
 
@@ -627,6 +665,330 @@ def repeat_circuit(data, repeats: int):
         out.append((types.SimpleNamespace(ranges=rr, odom_pose=odom.copy()),
                     np.array(tp)))
     return out
+
+
+# config 5 (scripts/bench_merge500k.py; MERGE500K.json ran 8 sessions of
+# 62,500 nodes at 61 beams): serpentine sessions over shelving rows, one
+# aisle of 200 nodes 0.3 m apart per row, each session started on the
+# previous one's last aisle
+MERGE_SESSIONS = 8
+MERGE_NODES_PER = 62500
+MERGE_BEAMS = 61
+MERGE_STEP = 0.3
+MERGE_PER_AISLE = int(60.0 / MERGE_STEP)   # 200 nodes an aisle
+MERGE_WIDTH = 62.0
+# a node's noise from the one generator (seed 7): its corrected pose's
+# (x, y, heading), then its odometry's; after every session's nodes, each
+# chain edge's relative pose, then each cross-session edge's
+MERGE_NODE_NOISE = (0.02, 0.02, 0.005, 0.05, 0.05, 0.01)
+MERGE_CHAIN_NOISE = (0.002, 0.002, 0.0005)
+MERGE_CROSS_NOISE = 0.004
+# every 64th node of a session is tried against the nearest node of the
+# session before it, and linked when that node is closer than 1 m
+MERGE_CROSS_EVERY = 64
+MERGE_COV_ODOM = (1e-3, 1e-3, 1e-4)
+MERGE_COV_CROSS = (4e-3, 4e-3, 4e-4)
+
+
+def merge_laser(beams: int = MERGE_BEAMS):
+    """bench_merge500k's laser: `beams` beams from -90 degrees, range
+    threshold 10 m, max range 12 m, not a 360-degree laser."""
+    import numpy as np
+
+    from slam_toolbox_tpu_torch.core.scan import LaserConfig
+
+    return LaserConfig(
+        beam_count=beams, min_angle=-np.pi / 2, max_angle=np.pi / 2,
+        min_range=0.05, max_range=12.0, range_threshold=10.0, is_360=False)
+
+
+def merge_world(sessions: int, nodes_per: int):
+    """bench_merge500k's warehouse: rows every 2 m of broken 5.5 m
+    shelving walls spanning every session, walls at both x ends."""
+    import numpy as np
+
+    from slam_toolbox_tpu_torch.io.dataset import SegmentWorld
+
+    n_rows = sessions * (nodes_per // MERGE_PER_AISLE + 2) + 4
+    segs = []
+    for row in range(n_rows):
+        y = row * 2.0 - 1.0
+        for x0 in np.arange(-1.0, MERGE_WIDTH, 7.0):
+            segs.append((x0, y, min(x0 + 5.5, MERGE_WIDTH), y))
+    segs.append((-1.0, -1.0, -1.0, n_rows * 2.0))
+    segs.append((MERGE_WIDTH, -1.0, MERGE_WIDTH, n_rows * 2.0))
+    return SegmentWorld(np.array(segs, dtype=np.float64))
+
+
+def merge_origins(sessions: int, nodes_per: int):
+    """Each session's first aisle's y: sessions overlap by an even number
+    of aisles (the serpentine alternates its direction an aisle, and
+    FindValidPoints culls opposing scans, so the shared aisle is driven
+    the same way in both sessions)."""
+    n_aisles = (nodes_per + MERGE_PER_AISLE - 1) // MERGE_PER_AISLE
+    off_aisles = n_aisles - 1
+    if off_aisles % 2:
+        off_aisles -= 1
+    return [s * off_aisles * 2.0 for s in range(sessions)]
+
+
+def merge_pose(i: int, y0: float):
+    """The true pose of a session's node i: east on even aisles, west on
+    odd ones, 2 m apart from y0."""
+    import numpy as np
+
+    aisle, k = divmod(i, MERGE_PER_AISLE)
+    y = y0 + aisle * 2.0
+    x = (k * MERGE_STEP if aisle % 2 == 0
+         else (MERGE_PER_AISLE - 1 - k) * MERGE_STEP)
+    return np.array([x, y, 0.0 if aisle % 2 == 0 else np.pi])
+
+
+CAST_BLOCK = 32
+
+
+def cast_poses(world, laser, poses, rng):
+    """LidarSimulator.scan_at (range noise 0.01) at each of `poses` in
+    turn: SegmentWorld.cast for CAST_BLOCK poses at a time, against the
+    segments within the block's reach (a ray hits nothing else within
+    max_range), and the range noise drawn from `rng` scan by scan, so the
+    ranges equal the simulator's bit for bit. Returns (n, beams)."""
+    import numpy as np
+
+    from slam_toolbox_tpu_torch.core import geometry
+
+    offset = np.array(laser.offset_pose)
+    sensor = np.stack([np.asarray(geometry.sensor_at(p, offset))
+                       for p in poses])
+    r = np.empty((len(poses), laser.n_beams))
+    for b0 in range(0, len(poses), CAST_BLOCK):
+        sb = sensor[b0:b0 + CAST_BLOCK]
+        near = window(world, sb[:, :2].min(axis=0), sb[:, :2].max(axis=0),
+                      laser.max_range + 0.5)
+        r[b0:b0 + CAST_BLOCK] = near.cast(
+            sb[:, :2], laser.beam_angles[None, :] + sb[:, 2:3],
+            laser.max_range)
+    return r + rng.normal(0, 0.01, r.shape)
+
+
+def merge_aisle_ranges(job):
+    """The ranges of one aisle of a session, (world, laser, session, y0,
+    aisle, first node, nodes): cast_poses at the aisle's poses with a
+    generator of the session's seed (100 + session) against the segments
+    within 13 m of the aisle's row, as bench_merge500k's sim_for makes a
+    simulator for each aisle. A task of build_merge_snapshots' threads
+    (aisles are independent, and the casts' NumPy releases the
+    interpreter lock)."""
+    import numpy as np
+
+    from slam_toolbox_tpu_torch.io.dataset import SegmentWorld
+
+    world, laser, sess_idx, y0, aisle, i0, n = job
+    segs = world.segments
+    y = y0 + aisle * 2.0
+    keep = ((np.maximum(segs[:, 1], segs[:, 3]) >= y - 13.0)
+            & (np.minimum(segs[:, 1], segs[:, 3]) <= y + 13.0))
+    return cast_poses(SegmentWorld(segs[keep]), laser,
+                      [merge_pose(i, y0) for i in range(i0, i0 + n)],
+                      np.random.default_rng(100 + sess_idx))
+
+
+def merge_aisle_jobs(world, laser, sess_idx: int, nodes: int, y0: float):
+    """One session's merge_aisle_ranges tasks, aisle by aisle."""
+    return [(world, laser, sess_idx, y0, a, i0,
+             min(MERGE_PER_AISLE, nodes - i0))
+            for a, i0 in enumerate(range(0, nodes, MERGE_PER_AISLE))]
+
+
+def build_merge_session(sess_idx: int, nodes: int, laser, y0: float, rng,
+                        aisles):
+    """bench_merge500k.build_session: one serpentine session as a skeleton
+    Mapper (use_scan_matching off): each node's scan, its corrected pose
+    (the true pose with residual noise) and odometry, linked along the
+    chain with covariance diag(1e-3, 1e-3, 1e-4). The session's node noise
+    is drawn from `rng` first, in the script's order; `aisles` yields
+    each aisle's ranges (merge_aisle_ranges of merge_aisle_jobs)."""
+    import numpy as np
+
+    from slam_toolbox_tpu_torch.core.params import MapperConfig
+    from slam_toolbox_tpu_torch.core.scan import LocalizedScan
+    from slam_toolbox_tpu_torch.mapper import Mapper
+
+    noise = rng.normal(0.0, MERGE_NODE_NOISE, size=(nodes, 6))
+    m = Mapper(MapperConfig(use_scan_matching=False), device="cpu")
+    m.initialize(laser.range_threshold)
+    sm = m.sensor_manager
+    cov = np.diag(MERGE_COV_ODOM)
+    prev, i = None, 0
+    for ranges in aisles:
+        for r in ranges:
+            gt = merge_pose(i, y0)
+            s = LocalizedScan(laser, r, gt + noise[i, 3:], time=float(i))
+            s.set_corrected_pose(gt + noise[i, :3])
+            sm.add_scan(s)
+            m.graph.add_vertex(s)
+            if prev is not None:
+                m.graph.link_scans(prev, s, s.sensor_pose, cov)
+            prev = s
+            i += 1
+    if i != nodes:
+        raise AssertionError(f"session {sess_idx}: {i} of {nodes} nodes")
+    return m
+
+
+def skip_merge_noise(rng, sessions: int, nodes_per: int) -> None:
+    """Advance `rng` past the sessions' node noise, as a build would (for
+    snapshots found in a cache)."""
+    for _ in range(sessions):
+        rng.normal(0.0, MERGE_NODE_NOISE, size=(nodes_per, 6))
+
+
+def build_merge_snapshots(paths, nodes_per: int, laser, rng):
+    """bench_merge500k's sessions, one a path: each built
+    (build_merge_session), saved with the port's save_snapshot and freed
+    before the next. Every session's aisles are raycast in as many
+    threads as the process may use cores, ahead of the session being
+    built (the same ranges for any count: each aisle has its own
+    simulator). Returns (world, build s, save s)."""
+    import concurrent.futures
+
+    sessions = len(paths)
+    world = merge_world(sessions, nodes_per)
+    origins = merge_origins(sessions, nodes_per)
+    build_s = save_s = 0.0
+    jobs = [merge_aisle_jobs(world, laser, s, nodes_per, origins[s])
+            for s in range(sessions)]
+    pool = concurrent.futures.ThreadPoolExecutor(
+        min(len(os.sched_getaffinity(0)), sum(map(len, jobs))))
+    futures = [[pool.submit(merge_aisle_ranges, j) for j in js]
+               for js in jobs]
+    try:
+        for s, path in enumerate(paths):
+            t0 = time.perf_counter()
+            m = build_merge_session(
+                s, nodes_per, laser, origins[s], rng,
+                (f.result() for f in futures[s]))
+            futures[s] = None
+            t1 = time.perf_counter()
+            save_atomic(m, path)
+            build_s += t1 - t0
+            save_s += time.perf_counter() - t1
+            print(f"# config5 session {s}: {m.solver.n_nodes} nodes built in "
+                  f"{t1 - t0} s, saved in {time.perf_counter() - t1} s",
+                  flush=True)
+            del m
+    finally:
+        pool.shutdown(cancel_futures=True)
+    return world, build_s, save_s
+
+
+def save_atomic(mapper, path) -> None:
+    """save_snapshot written beside `path` and renamed onto it, so a
+    killed build leaves no half-written snapshot under its name (np.savez
+    keeps a .npz name)."""
+    from slam_toolbox_tpu_torch.io.serialization import save_snapshot
+
+    part = f"{path}.{os.getpid()}.part.npz"
+    try:
+        save_snapshot(mapper, part)
+        os.replace(part, path)
+    finally:
+        if os.path.exists(part):
+            os.remove(part)
+
+
+def joint_graph(merger, rng) -> dict:
+    """bench_merge500k's joint pose graph of the merger's sessions, on
+    their own corrected poses (the alignment's corrections are the
+    merge's, not the graph's): every session's chain with relative-pose
+    noise N(0, MERGE_CHAIN_NOISE) and covariance MERGE_COV_ODOM, then
+    every 64th node of session s linked to its nearest node of session
+    s - 1 where that one is closer than 1 m, with noise N(0, 0.004) and
+    covariance MERGE_COV_CROSS; the noise drawn from `rng` in the
+    script's order. Nodes are padded to the next power of two; node 0 and
+    the padding are fixed. Returns the solve's arrays (poses f32 (n_pad,
+    3), src, dst, rel, sqrt_info, emask, free) and the counts."""
+    import numpy as np
+
+    from slam_toolbox_tpu_torch.core import geometry
+
+    n = sum(len(s) for s in merger.submaps)
+    n_pad = 1
+    while n_pad < n:
+        n_pad <<= 1
+    poses = np.zeros((n_pad, 3), np.float32)
+    bases, srcs, dsts, rels = [], [], [], []
+    base = 0
+    for scans in merger.submaps:
+        bases.append(base)
+        c = np.stack([s.corrected_pose for s in scans])
+        poses[base:base + len(scans)] = c
+        srcs.append(np.arange(base, base + len(scans) - 1))
+        rels += [geometry.relative_pose(c[i], c[i + 1])
+                 for i in range(len(scans) - 1)]
+        base += len(scans)
+    n_chain = len(rels)
+    rel = (np.array(rels).reshape(n_chain, 3)
+           + rng.normal(0.0, MERGE_CHAIN_NOISE, size=(n_chain, 3)))
+    src = np.concatenate(srcs) if srcs else np.zeros(0, np.int64)
+    dst = src + 1
+    cross = []
+    for s in range(1, len(merger.submaps)):
+        a, b = merger.submaps[s - 1], merger.submaps[s]
+        axy = np.stack([sc.corrected_pose[:2] for sc in a])
+        for i in range(0, len(b), MERGE_CROSS_EVERY):
+            bxy = b[i].corrected_pose[:2]
+            j = int(np.argmin(np.sum((axy - bxy) ** 2, axis=1)))
+            if np.hypot(*(axy[j] - bxy)) < 1.0:
+                cross.append((bases[s - 1] + j, bases[s] + i, geometry.
+                              relative_pose(a[j].corrected_pose,
+                                            b[i].corrected_pose)))
+    n_cross = len(cross)
+    if n_cross:
+        x_rel = (np.array([c[2] for c in cross])
+                 + rng.normal(0.0, MERGE_CROSS_NOISE, size=(n_cross, 3)))
+        src = np.concatenate([src, [c[0] for c in cross]])
+        dst = np.concatenate([dst, [c[1] for c in cross]])
+        rel = np.concatenate([rel, x_rel])
+
+    def sqrt_info(cov):
+        return np.linalg.cholesky(np.linalg.inv(np.diag(cov))).T
+
+    si = np.concatenate([
+        np.broadcast_to(sqrt_info(MERGE_COV_ODOM), (n_chain, 3, 3)),
+        np.broadcast_to(sqrt_info(MERGE_COV_CROSS), (n_cross, 3, 3))])
+    free = np.ones(n_pad, np.float32)
+    free[n:] = 0
+    free[0] = 0
+    e = n_chain + n_cross
+    return dict(poses=poses, src=src.astype(np.int64),
+                dst=dst.astype(np.int64), rel=rel, sqrt_info=si,
+                emask=np.ones(e, bool), free=free, n=n, n_pad=n_pad,
+                n_chain=n_chain, n_cross=n_cross)
+
+
+def band_sessions(sessions: int = 3, beam_deg: float = 1.0 / 3):
+    """scripts/bench_suite.py cmd_config5's sessions: session s drives the
+    serpentine over a band of `per` aisles of the warehouse from aisle a0
+    (the bands overlap by one aisle), its simulator seeded 31 + s with
+    odometry noise (0.012, 0.005). Returns (laser, [(a0, per, simulator,
+    waypoints)]); each session's scans are simulator.simulate(waypoints,
+    step=0.3)."""
+    import numpy as np
+
+    from slam_toolbox_tpu_torch.io.dataset import LidarSimulator
+
+    laser = suite_laser(beam_deg)
+    world, aisles, length, pitch = warehouse()
+    per = max(2, aisles // sessions + 1)
+    out = []
+    for s in range(sessions):
+        a0 = min(s * (per - 1), aisles - per)
+        wps = serpentine(per, length, pitch) + np.array([a0 * pitch, 0.0])
+        out.append((a0, per, LidarSimulator(
+            world, laser, range_noise=0.01, odom_noise=(0.012, 0.005),
+            seed=31 + s), wps))
+    return laser, out
 
 
 def timed_host(fn):
