@@ -1,0 +1,1 @@
+"""Part of the benchmark of slam_toolbox_tpu_torch."""
