@@ -39,6 +39,7 @@ from slam_toolbox_tpu_torch.core.scan import LaserConfig, LocalizedScan
 from slam_toolbox_tpu_torch.dist.submap import maybe_sharded_create_from_scans
 from slam_toolbox_tpu_torch.kernels import occupancy
 from slam_toolbox_tpu_torch.mapper import Mapper
+from slam_toolbox_tpu_torch.utils.metrics import stage_timer
 
 
 class ProcessType(enum.Enum):
@@ -171,7 +172,12 @@ class SlamSession:
         self, ranges, odom_pose, time: float = 0.0
     ) -> Optional[Tuple[np.ndarray, np.ndarray]]:
         """Feed one scan. Returns (corrected_robot_pose, covariance) if the
-        scan was processed, else None."""
+        scan was processed, else None. A root span of the session's Stats,
+        as flush() and close() are."""
+        with stage_timer(self.mapper.stats, "process_scan"):
+            return self._process_scan(ranges, odom_pose, time)
+
+    def _process_scan(self, ranges, odom_pose, time):
         if self.laser is None:
             raise ValueError("SlamSession requires a LaserConfig")
         scan = LocalizedScan(self.laser, ranges, odom_pose, time=time)
@@ -306,8 +312,9 @@ class SlamSession:
         complete any deferred loop closure, so every accessor behind
         flush() sees fully settled poses."""
         if self._pipe is not None:
-            self._pipe.drain()
-            self._pipe.settle()
+            with stage_timer(self.mapper.stats, "flush"):
+                self._pipe.drain()
+                self._pipe.settle()
 
     @property
     def stats(self):
@@ -689,11 +696,12 @@ class SlamSession:
         session is empty afterwards, as after cleanup(). The solver's loop
         programs (se2_solver.lm_loop) belong to the process, which shares
         them among its sessions, and stay."""
-        if self._warm_thread is not None:
-            self._warm_thread.join()
-        self.flush()
-        self.reset()
-        gc.collect()
+        with stage_timer(self.mapper.stats, "close"):
+            if self._warm_thread is not None:
+                self._warm_thread.join()
+            self.flush()
+            self.reset()
+            gc.collect()
 
     def reset(self) -> None:
         self._pipe = None

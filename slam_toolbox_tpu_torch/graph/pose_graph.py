@@ -22,6 +22,7 @@ import numpy as np
 
 from slam_toolbox_tpu_torch.core import geometry
 from slam_toolbox_tpu_torch.device import world_size
+from slam_toolbox_tpu_torch.utils.metrics import stage_timer
 
 
 class Edge:
@@ -116,7 +117,6 @@ class PoseGraph:
         ib = self._q_uid_to_idx.get(b_uid)
         if ia is None or ib is None:
             self._q_dirty = True
-            self._q_dirty_why = f"edge_uid_missing({a_uid},{b_uid})"
             return
         if self._q_ne >= len(self._q_esrc):
             self._q_esrc = np.resize(self._q_esrc, 2 * len(self._q_esrc))
@@ -129,9 +129,6 @@ class PoseGraph:
         stats = getattr(self.mapper, "stats", None)
         if stats is not None:
             stats.count("q_rebuild")
-            stats.note("q_rebuild_why", getattr(self, "_q_dirty_why", "?"),
-                       len(self._q_scans))
-        self._q_dirty_why = None
         self._q_scans = []
         self._q_uid_to_idx = {}
         self._q_by_name = {}
@@ -390,7 +387,6 @@ class PoseGraph:
         slot = self._q_uid_to_idx.pop(uid, None)
         if slot is None:
             self._q_dirty = True
-            self._q_dirty_why = f"remove_unknown_uid({uid})"
         elif not self._q_dirty:
             self._q_present[slot] = 0
             self._q_tombstones += 1
@@ -558,7 +554,6 @@ class PoseGraph:
             return
         chains, packs, means, covariances = pending
         cfg = self.mapper.config
-        from slam_toolbox_tpu_torch.utils.metrics import stage_timer
 
         if results is None:
             with stage_timer(self.mapper.stats, "near_chain_match"):
@@ -601,21 +596,26 @@ class PoseGraph:
         """LinkChainToScan (Mapper.cpp:1663-1681)."""
         cfg = self.mapper.config
         use_bc = cfg.use_scan_barycenter
-        pose = scan.reference_pose(use_bc)
-        closest = self.get_closest_scan_to_pose(chain, pose)
-        if closest is None:
-            return
-        cp = closest.reference_pose(use_bc)[:2]
-        d = pose[:2] - cp
-        if d[0] * d[0] + d[1] * d[1] < (
-            cfg.link_scan_maximum_distance**2 + 1e-6
-        ):
-            self.link_scans(closest, scan, mean, covariance)
+        with stage_timer(self.mapper.stats, "link_chain_to_scan"):
+            pose = scan.reference_pose(use_bc)
+            closest = self.get_closest_scan_to_pose(chain, pose)
+            if closest is None:
+                return
+            cp = closest.reference_pose(use_bc)[:2]
+            d = pose[:2] - cp
+            if d[0] * d[0] + d[1] * d[1] < (
+                cfg.link_scan_maximum_distance**2 + 1e-6
+            ):
+                self.link_scans(closest, scan, mean, covariance)
 
     def find_near_chains(self, scan):
         """FindNearChains (Mapper.cpp:1683-1793): for each near linked scan,
         walk state ids outward while within link range; chains containing
         the query scan are invalid."""
+        with stage_timer(self.mapper.stats, "find_near_chains"):
+            return self._near_chains(scan)
+
+    def _near_chains(self, scan):
         cfg = self.mapper.config
         sm = self.mapper.sensor_manager
         use_bc = cfg.use_scan_barycenter
@@ -972,7 +972,6 @@ class PoseGraph:
     def _sweep_chains(self, scan, sensor_name, start_id):
         """Enumerate every remaining candidate chain from start_id (the
         sweep half of TryCloseLoop)."""
-        from slam_toolbox_tpu_torch.utils.metrics import stage_timer
 
         chains = []
         with stage_timer(self.mapper.stats, "loop_candidates"):
@@ -983,11 +982,6 @@ class PoseGraph:
                 if not chain:
                     break
                 chains.append(chain)
-        if chains:
-            self.mapper.stats.note(
-                "loop_chains", len(chains),
-                sum(len(c) for c in chains),
-            )
         return chains, start_id
 
     def _use_fused_loop(self) -> bool:
@@ -1015,7 +1009,6 @@ class PoseGraph:
         members at the same f32 poses reuses its row, and only the others
         are launched: the rows are those of the non-speculative call."""
         from slam_toolbox_tpu_torch.kernels import loop_verify as lv
-        from slam_toolbox_tpu_torch.utils.metrics import stage_timer
 
         if not self._use_fused_loop():
             return self.try_close_loop(scan, sensor_name)
@@ -1053,28 +1046,9 @@ class PoseGraph:
                 return (scan, sensor_name, chains,
                         (spec_rows, assign, miss_rows), start_id)
             stats.count("spec_loop_miss")
-            if stats.enabled:
-                self._diagnose_spec_miss(chains, pred_chains)
         with stage_timer(stats, "loop_verify_dispatch"):
             dev_rows = self._dispatch_fused(scan, chains)
         return (scan, sensor_name, chains, dev_rows, start_id)
-
-    def _diagnose_spec_miss(self, chains, pred_chains) -> None:
-        """Count, for a speculative verify that missed every chain, whether
-        each swept chain was nearly predicted (a boundary member off: pose
-        prediction), partly, or not at all (the candidate set)."""
-        stats = self.mapper.stats
-        for chain in chains:
-            ids = {s.unique_id for s in chain}
-            best = max((len(ids & {s.unique_id for s in pc})
-                        / max(len(ids | {s.unique_id for s in pc}), 1)
-                        for pc in pred_chains), default=0.0)
-            if best >= 0.7:
-                stats.count("spec_loop_near_miss")
-            elif best > 0.0:
-                stats.count("spec_loop_far_miss")
-            else:
-                stats.count("spec_loop_disjoint")
 
     def _dispatch_fused(self, scan, chains):
         """Launch the fused verify of `chains` without waiting: one block
@@ -1117,7 +1091,6 @@ class PoseGraph:
         front and coarse-matched in one batched dispatch; after a closure
         the sweep restarts from the following id with the corrected poses
         (the reference interleaves sweep and match — same chain set)."""
-        from slam_toolbox_tpu_torch.utils.metrics import stage_timer
 
         cfg = self.mapper.config
         closed = False
@@ -1273,7 +1246,6 @@ class PoseGraph:
         """Blocking fused verify of one round of candidate chains: coarse
         match, gates and fine verification on the device, one fetch. Gate
         values and acceptance order are those of the staged path."""
-        from slam_toolbox_tpu_torch.utils.metrics import stage_timer
 
         with stage_timer(self.mapper.stats, "loop_verify"):
             dev_rows = self._dispatch_fused(scan, chains)
@@ -1287,7 +1259,6 @@ class PoseGraph:
         discards post-acceptance candidates and re-sweeps. A tuple
         (speculative rows, assign, rows of the unassigned chains) is put
         together in chain order (try_close_loop_begin's reuse)."""
-        from slam_toolbox_tpu_torch.utils.metrics import stage_timer
 
         seq = self.mapper.sequential_matcher
         if isinstance(dev_rows, tuple):
@@ -1380,7 +1351,6 @@ class PoseGraph:
         localization real-time while staying elastic where it matters
         (equivalence bounds tested in tests/test_windowed_solve.py;
         radius 0 = exact reference behavior, PARITY.md §Known)."""
-        from slam_toolbox_tpu_torch.utils.metrics import stage_timer
 
         solver = self.mapper.solver
         if solver is None:

@@ -70,6 +70,7 @@ from slam_toolbox_tpu_torch.kernels.rasterize import (
     occupancy_words, scatter_occupancy_plain, smear_quantize_plain,
 )
 from slam_toolbox_tpu_torch.native import BUILD_DIR
+from slam_toolbox_tpu_torch.utils.metrics import stage_timer
 
 _CSRC = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "csrc")
@@ -155,8 +156,9 @@ def capture_graph(fn, device, warm=None, steps: int = 1,
     session thread may be copying through pinned memory meanwhile, and
     emptying that cache under it fails. A capture that fails raises.
     With `keep_graph` the graph is kept uninstantiated for
-    raw_cuda_graph() (WhileProgram)."""
-    with capture_lock:
+    raw_cuda_graph() (WhileProgram). Timed as the `capture` stage of the
+    innermost open span's Stats."""
+    with capture_lock, stage_timer(None, "capture"):
         cur = torch.cuda.current_stream(device)
         side = torch.cuda.Stream(device)
         side.wait_stream(cur)

@@ -61,7 +61,6 @@ from __future__ import annotations
 import contextlib
 import math
 import os
-import time
 import weakref
 from typing import Dict, List
 
@@ -502,7 +501,6 @@ class StreamingPipeline:
         # True while closures move ring poses beyond RESYNC_EPS
         self._closure_hot = True
         self._scans_since_loop = 0
-        self._t_drain_end = None  # accum-window stage timing
         self.pipelined = PIPELINED
         # called with each scan after its bookkeeping in a drain
         # (localization appends to its elastic buffer there); True means
@@ -716,9 +714,6 @@ class StreamingPipeline:
         if not self.pending:
             return
         stats0 = self.mapper.stats
-        if stats0.enabled and self._t_drain_end is not None:
-            stats0.add("accum_window", time.perf_counter() - self._t_drain_end)
-
         scans = self.pending
         n = len(scans)
         self.pending = []
@@ -740,8 +735,7 @@ class StreamingPipeline:
                 and self._closure_hot)
         )
         if settle_first:
-            with stage_timer(stats0, "commit_total"):
-                self._commit()  # previous batch: fetch+bookkeep+verify
+            self._commit()  # previous batch: fetch+bookkeep+verify
             self._settle_deferred()  # wait the verify it just dispatched
             if self._needs_resync:
                 self.refresh_state()
@@ -757,8 +751,7 @@ class StreamingPipeline:
         self._last_gate_scan = scans[-1]
         if not settle_first:
             epoch0 = self._state_epoch
-            with stage_timer(stats0, "commit_total"):
-                self._commit()  # previous batch's bookkeeping; overlaps
+            self._commit()  # previous batch's bookkeeping; overlaps
             if self._needs_resync:
                 self.refresh_state()
                 self._needs_resync = False
@@ -772,8 +765,6 @@ class StreamingPipeline:
             self._dispatch_spec(pd)
         pd.prefetch()
         self._pending_drain = pd
-        if stats0.enabled:
-            self._t_drain_end = time.perf_counter()
 
     def _dispatch_spec(self, pd, loop: bool = True) -> None:
         """Speculative launches for a dispatched batch, with no host
@@ -867,7 +858,12 @@ class StreamingPipeline:
         previous commit's deferred loop closure, re-run the batch if that
         closure (or an earlier flagged change) moved host poses after the
         batch ran, then fetch its results and replay the standard graph
-        bookkeeping."""
+        bookkeeping. Timed as `commit_total`, from drain() and from
+        settle() alike."""
+        with stage_timer(self.mapper.stats, "commit_total"):
+            self._commit_impl()
+
+    def _commit_impl(self) -> None:
         self._settle_deferred()
         pd = self._pending_drain
         self._pending_drain = None
@@ -1085,8 +1081,9 @@ class StreamingPipeline:
                 rows = lv.dispatch_chain_matches(
                     self.matcher, miss_pairs, self.pack_pool
                 )
-                fetched_miss = Matcher.results_from_packed(
-                    rows.cpu().numpy())
+                with stage_timer(stats, "near_chain_wait"):
+                    rows = rows.cpu().numpy()
+                fetched_miss = Matcher.results_from_packed(rows)
         # loop closure once per batch on the newest scan (candidate chains
         # persist across consecutive scans, so closures fire a few scans
         # later at most); loop_attempt_interval_scans > 0 rate-limits it

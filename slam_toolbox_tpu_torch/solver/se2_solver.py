@@ -39,6 +39,7 @@ import torch
 from slam_toolbox_tpu_torch.device import resolve_device, world_size
 from slam_toolbox_tpu_torch.kernels import match_cuda as mc
 from slam_toolbox_tpu_torch.solver import chain_precond as cp
+from slam_toolbox_tpu_torch.utils.metrics import stage_timer
 
 _F32 = torch.float32
 
@@ -1216,22 +1217,24 @@ class PoseGraphSolver:
         import time as _time
 
         t0 = _time.perf_counter()
-        poses = np.stack(self._poses)
-        src = np.zeros(e, np.int64)
-        dst = np.zeros(e, np.int64)
-        rel = np.zeros((e, 3))
-        sqrt_info = np.zeros((e, 3, 3))
-        for k, ((i1, i2), (rp, si)) in enumerate(self._edges.items()):
-            src[k] = self._id_to_idx[i1]
-            dst[k] = self._id_to_idx[i2]
-            rel[k] = rp
-            sqrt_info[k] = si
-        free = np.ones(n, np.float64)
-        if self._first_id in self._id_to_idx:
-            free[self._id_to_idx[self._first_id]] = 0.0
-        res = host_sparse_lm(
-            poses, src, dst, rel, sqrt_info, free, self.config
-        )
+        with stage_timer(None, "solve_pack"):
+            poses = np.stack(self._poses)
+            src = np.zeros(e, np.int64)
+            dst = np.zeros(e, np.int64)
+            rel = np.zeros((e, 3))
+            sqrt_info = np.zeros((e, 3, 3))
+            for k, ((i1, i2), (rp, si)) in enumerate(self._edges.items()):
+                src[k] = self._id_to_idx[i1]
+                dst[k] = self._id_to_idx[i2]
+                rel[k] = rp
+                sqrt_info[k] = si
+            free = np.ones(n, np.float64)
+            if self._first_id in self._id_to_idx:
+                free[self._id_to_idx[self._first_id]] = 0.0
+        with stage_timer(None, "solve_lm"):
+            res = host_sparse_lm(
+                poses, src, dst, rel, sqrt_info, free, self.config
+            )
         if res is None:
             return None
         poses_out, chi2, iters = res

@@ -1,0 +1,269 @@
+"""The port's span recorder (slam_toolbox_tpu_torch/utils/metrics.py) on
+the CPU: spans nest under the innermost open span of their thread, self
+seconds add up to the roots' durations, the inclusive per-stage seconds
+are the log's durations, a disabled Stats touches nothing, an exception
+unwinds the stack, the ring counts what it overwrote, and a streaming
+session's spans (one lap and back of the rooms world, 0.05 m grid, 361
+beams, drains of 16 scans) nest as the drain's commit runs them, with
+settle()'s commits under commit_total."""
+import collections
+
+import numpy as np
+import pytest
+import torch
+
+from slam_toolbox_tpu_torch.api import SlamSession
+from slam_toolbox_tpu_torch.core.params import MapperConfig
+from slam_toolbox_tpu_torch.core.scan import LaserConfig
+from slam_toolbox_tpu_torch.io.dataset import LidarSimulator, SegmentWorld
+from slam_toolbox_tpu_torch.mapper import streaming
+from slam_toolbox_tpu_torch.utils import metrics
+from slam_toolbox_tpu_torch.utils.metrics import SpanLog, Stats, stage_timer
+
+LAP = [(-6.0, -3.5), (1.5, -3.5), (5.5, -3.5), (5.5, 0.5), (5.5, 3.5),
+       (1.0, 3.5), (-3.0, 3.5), (-6.0, 3.0), (-6.5, -1.0), (-6.0, -3.5),
+       (-1.0, -3.5)]
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+class Clock:
+    """A perf_counter stand-in that advances by `step` a reading."""
+
+    def __init__(self, step=1.0):
+        self.t, self.step = 0.0, step
+
+    def __call__(self):
+        self.t += self.step
+        return self.t
+
+
+@pytest.fixture
+def log(monkeypatch):
+    """A fresh span log of 64 slots and a scripted clock."""
+    lg = SpanLog(64)
+    monkeypatch.setattr(metrics, "SPANS", lg)
+    monkeypatch.setattr(metrics, "_clock", Clock())
+    return lg
+
+
+def _by_index(w):
+    return {int(i): k for k, i in enumerate(w["index"])}
+
+
+def _name(w, k):
+    return w["names"][w["name"][k]]
+
+
+@pytest.fixture(scope="module")
+def session_spans():
+    """A streaming session over 85 scans with its Stats on, flushed and
+    closed; its spans from the process's log, its Stats and the number
+    of times the pipeline ran its commit."""
+    laser = LaserConfig(min_range=0.05, max_range=12.0, range_threshold=10.0,
+                        angular_resolution=np.deg2rad(1.0))
+    cfg = MapperConfig(
+        minimum_travel_distance=0.2, minimum_time_interval=3600.0,
+        scan_buffer_size=10, link_match_minimum_response_fine=0.1,
+        link_scan_maximum_distance=1.5, loop_search_maximum_distance=3.0,
+        loop_match_minimum_response_coarse=0.35,
+        loop_match_minimum_response_fine=0.45,
+        loop_match_maximum_variance_coarse=3.0,
+        correlation_search_space_dimension=0.5,
+        correlation_search_space_resolution=0.05,
+        correlation_search_space_smear_deviation=0.1,
+        distance_variance_penalty=0.5, angle_variance_penalty=1.0)
+    sim = LidarSimulator(SegmentWorld.rooms(16.0, 10.0), laser,
+                         range_noise=0.01, odom_noise=(0.015, 0.006),
+                         seed=42)
+    data = sim.simulate(np.array(LAP), step=0.55)
+    commits = []
+    mp = pytest.MonkeyPatch()
+    plain = streaming.StreamingPipeline._commit_impl
+
+    def counted(self):
+        commits.append(1)
+        return plain(self)
+
+    mp.setattr(streaming.StreamingPipeline, "_commit_impl", counted)
+    try:
+        sess = SlamSession(cfg, laser, device="cpu", streaming=True,
+                           drain_every=16)
+        sess.stats.enabled = True
+        t0 = metrics._clock()
+        for i, (scan, _) in enumerate(data):
+            sess.process_scan(scan.ranges, scan.odom_pose, time=i * 0.1)
+        sess.flush()
+        stats = sess.stats
+        sess.close()
+        t1 = metrics._clock()
+    finally:
+        mp.undo()
+    return dict(w=metrics.SPANS.window(t0, t1), stats=stats,
+                commits=len(commits), scans=len(data))
+
+
+def test_session_spans_nest_as_the_commit_runs_them(session_spans):
+    w = session_spans["w"]
+    assert w is not None and len(w["index"]) > session_spans["scans"]
+    at = _by_index(w)
+    chains = collections.Counter()
+    for k in range(len(w["index"])):
+        chain, j = [], k
+        while j is not None:
+            chain.append(_name(w, j))
+            p = int(w["parent"][j])
+            j = at[p] if p >= 0 else None
+        chains[tuple(chain)] += 1
+    assert chains[("find_near_chains", "graph_edges", "commit_bookkeep",
+                   "commit_total", "process_scan")] > 0
+    assert chains[("find_near_chains", "graph_edges", "commit_bookkeep",
+                   "commit_total", "flush")] > 0
+    assert chains[("link_chain_to_scan", "graph_edges", "commit_bookkeep",
+                   "commit_total", "process_scan")] > 0
+    assert chains[("drain_fetch", "commit_total", "process_scan")] > 0
+    # every root is a call into the session, and one a process_scan call
+    roots = collections.Counter(chain[-1] for chain in chains.elements())
+    assert set(roots) <= {"process_scan", "flush", "close"}
+    assert sum(1 for k in range(len(w["index"]))
+               if w["parent"][k] < 0 and _name(w, k) == "process_scan") \
+        == session_spans["scans"]
+    # a span's root is its outermost ancestor
+    for k in range(len(w["index"])):
+        j = k
+        while w["parent"][j] >= 0:
+            j = at[int(w["parent"][j])]
+        assert w["root"][k] == w["index"][j]
+    # the closures' solves: solve_pack and solve_lm under solve
+    assert session_spans["stats"].counts["solve"] > 0
+    for k in range(len(w["index"])):
+        if _name(w, k) in ("solve_pack", "solve_lm"):
+            assert _name(w, at[int(w["parent"][k])]) == "solve"
+
+
+def test_self_seconds_sum_to_the_roots_durations(session_spans):
+    w = session_spans["w"]
+    dur = w["t1"] - w["t0"]
+    roots = w["parent"] < 0
+    n = len(dur)
+    assert abs(w["self"].sum() - dur[roots].sum()) <= 1e-9 * n
+    assert (w["self"] >= -1e-9).all()
+    st = session_spans["stats"]
+    assert abs(sum(st.self_seconds.values()) - dur[roots].sum()) <= 1e-9 * n
+    # solve's self time is what solve_pack and solve_lm leave
+    assert st.self_seconds["solve"] == pytest.approx(
+        st.seconds["solve"] - st.seconds["solve_pack"]
+        - st.seconds["solve_lm"], abs=1e-9 * n)
+
+
+@pytest.mark.parametrize("stage", ["commit_bookkeep", "graph_edges", "solve",
+                                   "find_near_chains", "link_chain_to_scan",
+                                   "solve_pack"])
+def test_inclusive_seconds_are_the_logs_durations(session_spans, stage):
+    w = session_spans["w"]
+    st = session_spans["stats"]
+    nid = w["names"].index(stage)
+    mine = w["name"] == nid
+    assert st.counts[stage] == int(mine.sum()) > 0
+    assert st.seconds[stage] == pytest.approx(
+        float((w["t1"] - w["t0"])[mine].sum()), abs=1e-9 * int(mine.sum()))
+    assert st.self_seconds[stage] == pytest.approx(
+        float(w["self"][mine].sum()), abs=1e-9 * int(mine.sum()))
+
+
+def test_settles_commits_fall_under_commit_total(session_spans):
+    """Every commit, drain()'s and settle()'s (under flush), is one
+    commit_total span, so commit_bookkeep never reads above it."""
+    w = session_spans["w"]
+    st = session_spans["stats"]
+    assert st.counts["commit_total"] == session_spans["commits"]
+    at = _by_index(w)
+    parents = collections.Counter(
+        _name(w, at[int(w["parent"][k])]) for k in range(len(w["index"]))
+        if _name(w, k) == "commit_total")
+    assert parents["flush"] >= 1 and parents["process_scan"] >= 1
+    assert st.seconds["commit_bookkeep"] <= st.seconds["commit_total"]
+
+
+def test_a_disabled_stats_touches_neither_log_nor_stack(log):
+    off = Stats(enabled=False)
+    with stage_timer(off, "a"):
+        assert metrics._STACK.open == []
+        with stage_timer(None, "b"):
+            assert metrics._STACK.open == []
+    assert metrics._clock.t == 0.0          # no clock read
+    assert log._written == 0 and log.window(-1.0, 1e9)["index"].size == 0
+    assert not off.counts and not off.seconds and not off.self_seconds
+
+
+def test_a_span_without_stats_charges_the_enclosing_ones(log):
+    outer, inner = Stats(), Stats()
+    with stage_timer(None, "lost"):         # nothing open: nothing kept
+        pass
+    assert log._written == 0 and metrics._clock.t == 0.0
+    with stage_timer(outer, "a"):           # clock 1
+        with stage_timer(inner, "b"):       # clock 2
+            with stage_timer(None, "c"):    # clock 3, 4
+                pass
+        # clock 5 closes b
+    # clock 6 closes a
+    assert dict(inner.seconds) == {"b": 3.0, "c": 1.0}
+    assert dict(inner.self_seconds) == {"b": 2.0, "c": 1.0}
+    assert dict(outer.seconds) == {"a": 5.0}
+    assert dict(outer.self_seconds) == {"a": 2.0}
+    w = log.window(0.0, 10.0)
+    assert [_name(w, k) for k in range(3)] == ["a", "b", "c"]
+    assert list(w["parent"]) == [-1, w["index"][0], w["index"][1]]
+    assert list(w["root"]) == [w["index"][0]] * 3
+    assert list(w["t0"]) == [1.0, 2.0, 3.0]
+    assert list(w["t1"]) == [6.0, 5.0, 4.0]
+
+
+def test_an_exception_closes_the_span_and_unwinds_the_stack(log):
+    st = Stats()
+    with pytest.raises(KeyError):
+        with stage_timer(st, "a"):
+            with stage_timer(st, "b"):
+                raise KeyError("x")
+    assert metrics._STACK.open == []
+    assert st.counts == {"a": 1, "b": 1}
+    # a span whose inner span was never closed unwinds past it
+    a = stage_timer(st, "a")
+    a.__enter__()
+    stage_timer(st, "b").__enter__()
+    a.__exit__(None, None, None)
+    assert metrics._STACK.open == []
+    with stage_timer(st, "c"):
+        assert [s.stage for s in metrics._STACK.open] == ["c"]
+    w = log.window(0.0, 100.0)
+    assert w["parent"][-1] == -1            # c is a root again
+
+
+def test_the_ring_overwrites_its_oldest_and_says_so(monkeypatch):
+    lg = SpanLog(8)
+    monkeypatch.setattr(metrics, "SPANS", lg)
+    monkeypatch.setattr(metrics, "_clock", Clock())
+    st = Stats()
+    for _ in range(5):
+        with stage_timer(st, "a"):
+            pass
+    assert lg.lost() == 0
+    w = lg.window(0.0, 100.0)
+    assert len(w["index"]) == 5 and list(w["t0"]) == [1, 3, 5, 7, 9]
+    for _ in range(7):
+        with stage_timer(st, "a"):
+            pass
+    assert lg.lost() == 4 and lg._written == 12
+    w = lg.window(9.0, 100.0)               # the oldest held opened at 9
+    assert len(w["index"]) == 8
+    assert list(np.diff(w["index"])) == [1] * 7
+    assert list(w["t0"]) == [float(t) for t in range(9, 25, 2)]
+    assert lg.window(8.5, 100.0) is None    # the span opened at 7 is gone
+    with pytest.raises(ValueError):
+        SpanLog(6)
