@@ -32,7 +32,8 @@ def _build() -> bool:
         # workers may build at once, and a reader never sees a partial file
         tmp = f"{_LIB_PATH}.{os.getpid()}.tmp"
         subprocess.run(
-            ["g++", "-O3", "-shared", "-fPIC", "-std=c++17",
+            ["g++", "-O3", "-ffp-contract=off", "-shared", "-fPIC",
+             "-std=c++17",
              _SRC, "-o", tmp],
             check=True, capture_output=True,
         )
@@ -87,6 +88,10 @@ def get_lib():
     lib.sparse_chol_factor_solve.argtypes = [ptr, ptr, ptr, ptr, ptr]
     lib.sparse_chol_free.restype = None
     lib.sparse_chol_free.argtypes = [ptr]
+    lib.se2_normal_blocks.restype = f64
+    lib.se2_normal_blocks.argtypes = [i64, i64] + [ptr] * 11
+    lib.se2_chi2.restype = f64
+    lib.se2_chi2.argtypes = [i64] + [ptr] * 8
     lib.occupancy_raster.restype = None
     lib.occupancy_raster.argtypes = [
         ptr, ptr, ptr, ptr, i64, i64, i64, ptr, ptr,
@@ -181,6 +186,54 @@ class SparseCholesky:
             self.close()
         except Exception:
             pass
+
+
+def _edge_arrays(poses, src, dst, rel, sqrt_info, trig):
+    """The arrays as the native assembly reads them (contiguous, int64 and
+    f64), their shapes and node indices checked."""
+    arrs = ([np.ascontiguousarray(src, np.int64),
+             np.ascontiguousarray(dst, np.int64)]
+            + [np.ascontiguousarray(a, np.float64)
+               for a in (poses, rel, sqrt_info, *trig)])
+    n, e = len(arrs[2]), len(arrs[0])
+    want = [(e,), (e,), (n, 3), (e, 3), (e, 3, 3), (e,), (e,), (e,)]
+    if [a.shape for a in arrs] != want:
+        raise ValueError(f"edge arrays of shapes {[a.shape for a in arrs]}")
+    if e and not (0 <= min(arrs[0].min(), arrs[1].min())
+                  and max(arrs[0].max(), arrs[1].max()) < n):
+        raise ValueError("an edge names a node outside the poses")
+    return arrs
+
+
+def normal_blocks(poses, src, dst, rel, sqrt_info, trig):
+    """The SE(2) normal equations of edges (src, dst, rel, sqrt_info) at
+    `poses` (n, 3) in one native pass: (diag (n, 3, 3), hab (e, 3, 3),
+    grad (n, 3), chi2), bit-identical to se2_solver._np_normal_blocks.
+    `trig` is NumPy's (cos and sin of each edge's source heading, its
+    wrapped heading residual), se2_solver._edge_trig. None if no lib."""
+    lib = get_lib()
+    if lib is None:
+        return None
+    arrs = _edge_arrays(poses, src, dst, rel, sqrt_info, trig)
+    n, e = len(arrs[2]), len(arrs[0])
+    diag = np.empty((n, 3, 3))
+    hab = np.empty((e, 3, 3))
+    grad = np.empty((n, 3))
+    total = lib.se2_normal_blocks(
+        n, e, *(a.ctypes.data for a in arrs), diag.ctypes.data,
+        hab.ctypes.data, grad.ctypes.data,
+    )
+    return diag, hab, grad, total
+
+
+def chi2(poses, src, dst, rel, sqrt_info, trig):
+    """normal_blocks' chi2 alone, bit-identical to se2_solver._np_chi2;
+    None if no lib."""
+    lib = get_lib()
+    if lib is None:
+        return None
+    arrs = _edge_arrays(poses, src, dst, rel, sqrt_info, trig)
+    return lib.se2_chi2(len(arrs[0]), *(a.ctypes.data for a in arrs))
 
 
 def sparse_block_solve(src, dst, diag, off, b):

@@ -8,7 +8,7 @@
 // loop-closure candidate sweep (FindPossibleLoopClosure,
 // Mapper.cpp:1960-2010).
 //
-// Build: g++ -O3 -shared -fPIC graph_ops.cpp -o libgraph_ops.so
+// Build: g++ -O3 -ffp-contract=off -shared -fPIC graph_ops.cpp -o libgraph_ops.so
 // Bound via ctypes (no pybind11 in this image).
 
 #include <algorithm>
@@ -16,6 +16,7 @@
 #include <cstdint>
 #include <cstdlib>
 #include <cstring>
+#include <memory>
 #include <queue>
 #include <vector>
 
@@ -606,6 +607,93 @@ int64_t chol_factor_solve_impl(
     return nnz;
 }
 
+// -- SE(2) normal-equation assembly ------------------------------------------
+// The host LM's assembly (solver/se2_solver.py host_sparse_lm) in one pass
+// over the edges. Every value takes the IEEE operations of the NumPy twin
+// (_np_normal_blocks, _np_chi2) in the same order, so the results are
+// bit-identical: the element-wise terms as written there; np.einsum's
+// contractions over j = 0, 1, 2 from a zero start, except its dot product
+// of a sqrt_info row with the residual, which its two-lane loop sums as
+// (t0 + t2) + t1; np.add.at's scatter, every src contribution in edge
+// order before every dst one; np.sum's pairwise sum for chi2. The
+// transcendental parts (cos and sin of the source heading, the wrapped
+// heading residual) are NumPy's, passed in. Build without FMA contraction.
+
+// numpy's pairwise summation (blocks of 128 with 8 accumulators)
+double pairwise_sum(const double* a, int64_t n) {
+    if (n < 8) {
+        double res = 0.0;
+        for (int64_t i = 0; i < n; ++i) res += a[i];
+        return res;
+    }
+    if (n <= 128) {
+        double r[8];
+        for (int j = 0; j < 8; ++j) r[j] = a[j];
+        int64_t i = 8;
+        for (; i < n - (n % 8); i += 8)
+            for (int j = 0; j < 8; ++j) r[j] += a[i + j];
+        double res = ((r[0] + r[1]) + (r[2] + r[3])) +
+                     ((r[4] + r[5]) + (r[6] + r[7]));
+        for (; i < n; ++i) res += a[i];
+        return res;
+    }
+    int64_t n2 = n / 2;
+    n2 -= n2 % 8;
+    return pairwise_sum(a, n2) + pairwise_sum(a + n2, n - n2);
+}
+
+// Edge k's whitened residual r (3) and, with ja/jb non-null, its whitened
+// Jacobians (row-major 3x3) with respect to the source and the target.
+inline void edge_terms(
+    int64_t k, const int64_t* src, const int64_t* dst, const double* poses,
+    const double* rel, const double* sqrt_info, const double* ca,
+    const double* sa, const double* rth, double* r, double* ja,
+    double* jb) {
+    const double* pa = poses + 3 * src[k];
+    const double* pb = poses + 3 * dst[k];
+    const double* rl = rel + 3 * k;
+    const double* S = sqrt_info + 9 * k;
+    const double c = ca[k], s = sa[k];
+    const double dx = pb[0] - pa[0];
+    const double dy = pb[1] - pa[1];
+    const double v[3] = {(c * dx + s * dy) - rl[0],
+                         (-s * dx + c * dy) - rl[1], rth[k]};
+    for (int i = 0; i < 3; ++i) {
+        const double* si = S + 3 * i;
+        const double lane0 = (si[0] * v[0] + 0.0) + si[2] * v[2];
+        const double lane1 = (si[1] * v[1] + 0.0) + 0.0;
+        r[i] = 0.0 + (lane0 + lane1);
+    }
+    if (ja == nullptr) return;
+    const double ra[9] = {-c, -s, -s * dx + c * dy,
+                          s, -c, -c * dx - s * dy,
+                          0.0, 0.0, -1.0};
+    const double rb[9] = {c, s, 0.0, -s, c, 0.0, 0.0, 0.0, 1.0};
+    for (int i = 0; i < 3; ++i) {
+        const double* si = S + 3 * i;
+        for (int m = 0; m < 3; ++m) {
+            ja[3 * i + m] = ((0.0 + si[0] * ra[m]) + si[1] * ra[3 + m]) +
+                            si[2] * ra[6 + m];
+            jb[3 * i + m] = ((0.0 + si[0] * rb[m]) + si[1] * rb[3 + m]) +
+                            si[2] * rb[6 + m];
+        }
+    }
+}
+
+// out (3x3) = a^T b, summed over rows 0, 1, 2 from a zero start
+inline void at_b(const double* a, const double* b, double* out) {
+    for (int i = 0; i < 3; ++i)
+        for (int m = 0; m < 3; ++m)
+            out[3 * i + m] = ((0.0 + a[i] * b[m]) + a[3 + i] * b[3 + m]) +
+                             a[6 + i] * b[6 + m];
+}
+
+// out (3) = -(a^T r)
+inline void neg_at_r(const double* a, const double* r, double* out) {
+    for (int i = 0; i < 3; ++i)
+        out[i] = -(((0.0 + a[i] * r[0]) + a[3 + i] * r[1]) + a[6 + i] * r[2]);
+}
+
 }  // namespace
 
 extern "C" {
@@ -643,6 +731,59 @@ int64_t sparse_block_solve(
     int64_t nnz = chol_factor_solve_impl(S, diag, off, b, x);
     delete S;
     return nnz;
+}
+
+// The normal equations' blocks of e edges over n poses: diag (n, 9) and
+// grad (n, 3) overwritten, hab (e, 9) the H[src[k], dst[k]] blocks.
+// Returns chi2, the sum of the squared whitened residuals.
+double se2_normal_blocks(
+    int64_t n, int64_t e, const int64_t* src, const int64_t* dst,
+    const double* poses, const double* rel, const double* sqrt_info,
+    const double* ca, const double* sa, const double* rth,
+    double* diag, double* hab, double* grad) {
+    std::fill(diag, diag + 9 * n, 0.0);
+    std::fill(grad, grad + 3 * n, 0.0);
+    // the dst contributions, added after every src one
+    std::unique_ptr<double[]> rr(new double[3 * e]);
+    std::unique_ptr<double[]> hbb(new double[9 * e]);
+    std::unique_ptr<double[]> gb(new double[3 * e]);
+    double r[3], ja[9], jb[9], blk[9], g[3];
+    for (int64_t k = 0; k < e; ++k) {
+        edge_terms(k, src, dst, poses, rel, sqrt_info, ca, sa, rth, r, ja,
+                   jb);
+        for (int i = 0; i < 3; ++i) rr[3 * k + i] = r[i] * r[i];
+        at_b(ja, ja, blk);
+        double* d = diag + 9 * src[k];
+        for (int m = 0; m < 9; ++m) d[m] += blk[m];
+        at_b(ja, jb, hab + 9 * k);
+        at_b(jb, jb, hbb.get() + 9 * k);
+        neg_at_r(ja, r, g);
+        double* gs = grad + 3 * src[k];
+        for (int i = 0; i < 3; ++i) gs[i] += g[i];
+        neg_at_r(jb, r, gb.get() + 3 * k);
+    }
+    for (int64_t k = 0; k < e; ++k) {
+        double* d = diag + 9 * dst[k];
+        for (int m = 0; m < 9; ++m) d[m] += hbb[9 * k + m];
+        double* gd = grad + 3 * dst[k];
+        for (int i = 0; i < 3; ++i) gd[i] += gb[3 * k + i];
+    }
+    return 0.0 + pairwise_sum(rr.get(), 3 * e);
+}
+
+// chi2 alone: se2_normal_blocks' return value without the blocks.
+double se2_chi2(
+    int64_t e, const int64_t* src, const int64_t* dst, const double* poses,
+    const double* rel, const double* sqrt_info, const double* ca,
+    const double* sa, const double* rth) {
+    std::unique_ptr<double[]> rr(new double[3 * e]);
+    double r[3];
+    for (int64_t k = 0; k < e; ++k) {
+        edge_terms(k, src, dst, poses, rel, sqrt_info, ca, sa, rth, r,
+                   nullptr, nullptr);
+        for (int i = 0; i < 3; ++i) rr[3 * k + i] = r[i] * r[i];
+    }
+    return 0.0 + pairwise_sum(rr.get(), 3 * e);
 }
 
 // Occupancy ray accumulation for BULK map rebuilds (the 500k-node merge),

@@ -15,7 +15,7 @@ ScanSolver interface (Mapper.h:954-1066): AddNode / AddConstraint /
 RemoveNode / RemoveConstraint / Compute / GetCorrections / ModifyNode /
 Clear / Reset / GetGraph.
 
-Tiers: the native host block-sparse Cholesky (host_sparse_lm, numpy +
+Tiers: the native host block-sparse Cholesky (host_sparse_lm,
 native/graph_ops.cpp; the default, since host_sparse_min_nodes = 0); the
 LM loop (lm_solve) in f32 on the solver's device, with a dense Cholesky
 step up to DENSE_MAX_NODES and past it a PCG step preconditioned by the
@@ -767,16 +767,19 @@ def lm_solve(
 # ---------------------------------------------------------------------------
 # Host sparse path (the default tier; mandatory past the dense ceiling).
 #
-# NumPy normal-equation assembly + the native block-sparse Cholesky
-# (native/graph_ops.cpp sparse_block_solve — min-degree ordering, 3x3
-# block up-looking factorization). This is the Ceres
+# The native normal-equation assembly (native/graph_ops.cpp
+# se2_normal_blocks, se2_chi2: one pass over the edges, bit-identical to
+# the NumPy twins _np_normal_blocks and _np_chi2, which the tests hold it
+# against) + the native block-sparse Cholesky (sparse_chol_* — min-degree
+# ordering, 3x3 block up-looking factorization). This is the Ceres
 # SPARSE_NORMAL_CHOLESKY analog (README.md:164 recommended config): at
 # n > ~2k the dense factorization is O(n^3), while the sparse factor of a
 # SLAM graph stays near-linear. Entirely host-side.
 
 
 def _np_normal_blocks(poses, src, dst, rel, sqrt_info):
-    """f64 NumPy twin of build_normal_blocks (unpadded)."""
+    """f64 NumPy twin of build_normal_blocks (unpadded); the plain version
+    native.normal_blocks is held bit-equal to."""
     pa, pb = poses[src], poses[dst]
     ca, sa = np.cos(pa[:, 2]), np.sin(pa[:, 2])
     dx = pb[:, 0] - pa[:, 0]
@@ -830,9 +833,20 @@ def _np_chi2(poses, src, dst, rel, sqrt_info):
     return float(np.sum(r * r))
 
 
+def _edge_trig(poses, src, dst, rel):
+    """NumPy's cos and sin of each edge's source heading and its wrapped
+    heading residual, the values _np_normal_blocks computes, for the
+    native assembly (native.normal_blocks, native.chi2)."""
+    th = poses[:, 2]
+    ta, tb = th[src], th[dst]
+    dth = tb - ta - rel[:, 2]
+    return np.cos(ta), np.sin(ta), np.arctan2(np.sin(dth), np.cos(dth))
+
+
 def host_sparse_lm(poses, src, dst, rel, sqrt_info, free, cfg):
-    """Levenberg-Marquardt on the host with the native sparse Cholesky.
-    Same acceptance/termination logic as lm_solve. Returns (poses, chi2,
+    """Levenberg-Marquardt on the host with the native sparse Cholesky and
+    the native assembly, bit-identical to the NumPy twins. Same
+    acceptance/termination logic as lm_solve. Returns (poses, chi2,
     iters) or None if the native lib is unavailable."""
     from slam_toolbox_tpu_torch import native
 
@@ -845,15 +859,21 @@ def host_sparse_lm(poses, src, dst, rel, sqrt_info, free, cfg):
     keep = free_b[src] & free_b[dst]
     # symbolic analysis (ordering + etree + pattern) once; only the
     # damped values change across LM iterations
-    chol = native.SparseCholesky(len(poses), src[keep], dst[keep])
+    with stage_timer(None, "solve_analyze"):
+        chol = native.SparseCholesky(len(poses), src[keep], dst[keep])
     lam = cfg.initial_lm_lambda
-    chi2 = _np_chi2(poses, src, dst, rel, sqrt_info)
+    # each pose set's trig serves its chi2 and, once accepted, the next
+    # step's assembly
+    with stage_timer(None, "solve_assemble"):
+        trig = _edge_trig(poses, src, dst, rel)
+        chi2 = native.chi2(poses, src, dst, rel, sqrt_info, trig)
     iters = 0
     eye = np.eye(3)
     for _ in range(cfg.max_iterations):
-        diag, hab, grad, _ = _np_normal_blocks(
-            poses, src, dst, rel, sqrt_info
-        )
+        with stage_timer(None, "solve_assemble"):
+            diag, hab, grad, _ = native.normal_blocks(
+                poses, src, dst, rel, sqrt_info, trig
+            )
         grad[~free_b] = 0.0
         gnorm = np.max(np.abs(grad)) if len(grad) else 0.0
         if gnorm < cfg.gradient_tolerance:
@@ -861,7 +881,8 @@ def host_sparse_lm(poses, src, dst, rel, sqrt_info, free, cfg):
         damp = lam * np.einsum("nii->n", diag)[:, None, None] * eye / 3.0
         diag_d = diag + damp + 1e-8 * eye
         diag_d[~free_b] = eye
-        x = chol.factor_solve(diag_d, hab[keep], grad)
+        with stage_timer(None, "solve_factor"):
+            x = chol.factor_solve(diag_d, hab[keep], grad)
         if x is None:
             return None
         step = x * free_b[:, None]
@@ -869,13 +890,17 @@ def host_sparse_lm(poses, src, dst, rel, sqrt_info, free, cfg):
         new_poses[:, 2] = np.arctan2(
             np.sin(new_poses[:, 2]), np.cos(new_poses[:, 2])
         )
-        new_chi2 = _np_chi2(new_poses, src, dst, rel, sqrt_info)
+        with stage_timer(None, "solve_assemble"):
+            new_trig = _edge_trig(new_poses, src, dst, rel)
+            new_chi2 = native.chi2(
+                new_poses, src, dst, rel, sqrt_info, new_trig
+            )
         iters += 1
         accept = new_chi2 <= chi2
         if accept:
             rel_dec = (chi2 - new_chi2) / max(chi2, 1e-30)
             step_norm = float(np.max(np.abs(step)))
-            poses, chi2 = new_poses, new_chi2
+            poses, chi2, trig = new_poses, new_chi2, new_trig
             lam = max(lam * 0.3, 1e-9)
             if (
                 rel_dec < cfg.function_tolerance
@@ -944,8 +969,29 @@ def _sqrt_info_3x3(cov):
     return np.linalg.cholesky(info).T
 
 
+def _grow(a: np.ndarray, need: int) -> np.ndarray:
+    """`a`, or a copy with twice the rows (or `need`), its rows kept."""
+    if need <= len(a):
+        return a
+    out = np.zeros((max(need, 2 * len(a)),) + a.shape[1:], a.dtype)
+    out[:len(a)] = a
+    return out
+
+
 class PoseGraphSolver:
-    """Incremental SE(2) pose-graph solver (ScanSolver-equivalent)."""
+    """Incremental SE(2) pose-graph solver (ScanSolver-equivalent).
+
+    The problem lives in flat arrays across solves. Node row i holds node
+    `_ids[i]` at `_poses[i]`. Edge row k holds the constraint from node
+    row `_src[k]` to `_dst[k]`, its relative pose `_rel[k]` and whitening
+    `_sqrt_info[k]`, while `_alive[k]`. `_edge_row` maps each live
+    (id1, id2) key to its row, in the order a dict of the edges would
+    hold them: a new key appends a row, an existing one is overwritten in
+    place, a removed one leaves a dead row. An order-preserving compaction
+    takes the dead rows out when they are more than half, or before a
+    full solve, so solves read slices and sum in the edges' order.
+    `_node_edges[i]` lists the live keys at node row i, which remove_node
+    rewrites when it moves the last row into a freed one."""
 
     def __init__(self, config=None, device=None):
         from slam_toolbox_tpu_torch.core.params import SolverConfig
@@ -954,8 +1000,16 @@ class PoseGraphSolver:
         self.device = resolve_device(device)
         self._ids: List[int] = []
         self._id_to_idx: Dict[int, int] = {}
-        self._poses: List[np.ndarray] = []
-        self._edges: Dict[Tuple[int, int], Tuple[np.ndarray, np.ndarray]] = {}
+        self._node_edges: List[List[Tuple[int, int]]] = []
+        self._poses = np.zeros((64, 3))
+        self._edge_row: Dict[Tuple[int, int], int] = {}
+        self._ne = 0  # edge rows in use, dead ones included
+        self._n_dead = 0
+        self._src = np.zeros(128, np.int64)
+        self._dst = np.zeros(128, np.int64)
+        self._rel = np.zeros((128, 3))
+        self._sqrt_info = np.zeros((128, 3, 3))
+        self._alive = np.zeros(128, bool)
         self._first_id: Optional[int] = None
         self.corrections: List[Tuple[int, np.ndarray]] = []
 
@@ -965,9 +1019,12 @@ class PoseGraphSolver:
             return
         if self._first_id is None:
             self._first_id = node_id  # gauge (ceres_solver.cpp:317-336)
-        self._id_to_idx[node_id] = len(self._ids)
+        i = len(self._ids)
+        self._poses = _grow(self._poses, i + 1)
+        self._poses[i] = pose
+        self._id_to_idx[node_id] = i
         self._ids.append(node_id)
-        self._poses.append(np.asarray(pose, dtype=np.float64).copy())
+        self._node_edges.append([])
 
     def add_constraint(
         self, id1: int, id2: int, rel_pose, covariance
@@ -980,40 +1037,84 @@ class PoseGraphSolver:
         # the graph layer dedupes on the normal path, but merge /
         # deserialize feed the solver directly: a reversed duplicate
         # (id2,id1) would silently double-count the constraint
-        if (id2, id1) in self._edges:
+        if (id2, id1) in self._edge_row:
             return False
         sqrt_info = _sqrt_info_3x3(np.asarray(covariance, np.float64))
-        self._edges[(id1, id2)] = (
-            np.asarray(rel_pose, dtype=np.float64).copy(),
-            sqrt_info,
-        )
+        key = (id1, id2)
+        k = self._edge_row.get(key)
+        if k is None:
+            k = self._ne
+            if k == len(self._alive):
+                for name in ("_src", "_dst", "_rel", "_sqrt_info", "_alive"):
+                    setattr(self, name, _grow(getattr(self, name), k + 1))
+            self._ne = k + 1
+            self._edge_row[key] = k
+            a, b = self._id_to_idx[id1], self._id_to_idx[id2]
+            self._src[k], self._dst[k], self._alive[k] = a, b, True
+            for i in {a, b}:
+                self._node_edges[i].append(key)
+        self._rel[k] = rel_pose
+        self._sqrt_info[k] = sqrt_info
         return True
 
     def remove_node(self, node_id: int) -> None:
         """O(1) swap-with-last removal (the reference keeps Ceres
         enable_fast_removal for the same reason, ceres_solver.cpp:183-186;
         localization evicts one node per scan, so an O(n) reindex here is
-        quadratic against BASELINE config-4's 100k-node graphs). Index
+        quadratic against BASELINE config-4's 100k-node graphs): the last
+        row moves into the freed one, and its edges' rows follow it. Index
         order is not semantic: compute() maps ids through _id_to_idx and
         the host-sparse path reorders internally (the device chain
         preconditioner merely catches fewer consecutive-index edges after
-        removals, costing CG iterations, never correctness)."""
+        removals, costing CG iterations, never correctness). Constraints
+        still at the node go with it (the graph removes them first)."""
         idx = self._id_to_idx.pop(node_id, None)
         if idx is None:
             return
+        for key in list(self._node_edges[idx]):
+            self._drop_edge(key)
         last = len(self._ids) - 1
         if idx != last:
-            self._ids[idx] = self._ids[last]
+            moved = self._ids[last]
+            self._ids[idx] = moved
             self._poses[idx] = self._poses[last]
-            self._id_to_idx[self._ids[idx]] = idx
+            self._id_to_idx[moved] = idx
+            for key in self._node_edges[last]:
+                k = self._edge_row[key]
+                if self._src[k] == last:
+                    self._src[k] = idx
+                if self._dst[k] == last:
+                    self._dst[k] = idx
+            self._node_edges[idx] = self._node_edges[last]
         self._ids.pop()
-        self._poses.pop()
+        self._node_edges.pop()
         if node_id == self._first_id:
             self._first_id = self._ids[0] if self._ids else None
 
     def remove_constraint(self, id1: int, id2: int) -> None:
-        self._edges.pop((id1, id2), None)
-        self._edges.pop((id2, id1), None)
+        for key in ((id1, id2), (id2, id1)):
+            if key in self._edge_row:
+                self._drop_edge(key)
+
+    def _drop_edge(self, key) -> None:
+        k = self._edge_row.pop(key)
+        self._alive[k] = False
+        for i in {int(self._src[k]), int(self._dst[k])}:
+            self._node_edges[i].remove(key)
+        self._n_dead += 1
+        if 2 * self._n_dead > self._ne:
+            self._compact()
+
+    def _compact(self) -> None:
+        """Take the dead edge rows out, the live ones kept in order."""
+        live = self._alive[:self._ne]
+        m = len(self._edge_row)
+        for a in (self._src, self._dst, self._rel, self._sqrt_info):
+            a[:m] = a[:self._ne][live]
+        self._alive[:m] = True
+        self._alive[m:self._ne] = False
+        self._ne, self._n_dead = m, 0
+        self._edge_row = dict(zip(self._edge_row, range(m)))
 
     def modify_node(self, node_id: int, pose) -> None:
         """Manually move a node (loop_closure_assistant manual closure);
@@ -1023,22 +1124,18 @@ class PoseGraphSolver:
             return
         cur = self._poses[self._id_to_idx[node_id]]
         pose = np.asarray(pose, dtype=np.float64)
-        self._poses[self._id_to_idx[node_id]] = np.array(
-            [pose[0], pose[1], cur[2] + pose[2]]
-        )
+        cur[:] = [pose[0], pose[1], cur[2] + pose[2]]
 
     def get_node_pose(self, node_id: int) -> np.ndarray:
-        return self._poses[self._id_to_idx[node_id]]
+        return self._poses[self._id_to_idx[node_id]].copy()
 
     def set_node_pose(self, node_id: int, pose) -> None:
-        self._poses[self._id_to_idx[node_id]] = np.asarray(
-            pose, dtype=np.float64
-        ).copy()
+        self._poses[self._id_to_idx[node_id]] = pose
 
     def get_graph(self):
         """(nodes dict id->pose, edge list) for visualization."""
-        nodes = {i: p.copy() for i, p in zip(self._ids, self._poses)}
-        return nodes, list(self._edges.keys())
+        nodes = dict(zip(self._ids, self._poses[:len(self._ids)].copy()))
+        return nodes, list(self._edge_row)
 
     def clear(self) -> None:
         self.corrections = []
@@ -1052,16 +1149,57 @@ class PoseGraphSolver:
 
     @property
     def n_edges(self) -> int:
-        return len(self._edges)
+        return len(self._edge_row)
+
+    # -- the arrays a solve reads ---------------------------------------------
+    def _edge_slices(self):
+        """The live edges' (src, dst, rel, sqrt_info), slices of the
+        resident arrays once the dead rows are compacted away."""
+        if self._n_dead:
+            self._compact()
+        e = self._ne
+        return (self._src[:e], self._dst[:e], self._rel[:e],
+                self._sqrt_info[:e])
+
+    def _free(self, n_pad: int, dtype) -> np.ndarray:
+        """1 on each node row that moves: not the gauge, not padding."""
+        free = np.zeros(n_pad, dtype)
+        free[:len(self._ids)] = 1.0
+        g = self._id_to_idx.get(self._first_id)
+        if g is not None:
+            free[g] = 0.0
+        return free
+
+    def _padded(self, n_pad: int, e_pad: int, dtype):
+        """The problem padded for the device routes: f32 poses, src and
+        dst (padding edges on the last padded node), rel and sqrt_info in
+        `dtype` (padding zero, so weightless)."""
+        n = len(self._ids)
+        src, dst, rel, sqrt_info = self._edge_slices()
+        e = len(src)
+        poses = np.zeros((n_pad, 3), np.float32)
+        poses[:n] = self._poses[:n]
+        src_p = np.full(e_pad, n_pad - 1, np.int64)
+        dst_p = np.full(e_pad, n_pad - 1, np.int64)
+        src_p[:e], dst_p[:e] = src, dst
+        rel_p = np.zeros((e_pad, 3), dtype)
+        si_p = np.zeros((e_pad, 3, 3), dtype)
+        rel_p[:e], si_p[:e] = rel, sqrt_info
+        return poses, src_p, dst_p, rel_p, si_p
+
+    def _commit(self, result: np.ndarray):
+        """A full solve's poses (n, 3), an array of the solve's own, written
+        back in one assignment; corrections are rows of `result`, never of
+        the resident arrays the next solve overwrites."""
+        self._poses[:len(self._ids)] = result
+        self.corrections = list(zip(self._ids, result))
+        return self.corrections
 
     # -- Compute (ceres_solver.cpp:214-269 analog) --------------------------
     def compute(self) -> List[Tuple[int, np.ndarray]]:
-        n, e = len(self._ids), len(self._edges)
+        n, e = self.n_nodes, self.n_edges
         if n == 0 or e == 0:
-            self.corrections = [
-                (i, p.copy()) for i, p in zip(self._ids, self._poses)
-            ]
-            return self.corrections
+            return self._commit(self._poses[:n].copy())
 
         # large graphs under a process group of several ranks take the
         # edge-sharded distributed solve (dist/solver_dist.py); a fault
@@ -1089,21 +1227,9 @@ class PoseGraphSolver:
         # PCR chain preconditioner). Padding nodes are not free and padding
         # edges have zero weight
         n_pad, e_pad = _pad_pow2(n, 256), _pad_pow2(e, 512)
-        poses = np.zeros((n_pad, 3), np.float32)
-        poses[:n] = np.stack(self._poses)
-        src = np.full(e_pad, n_pad - 1, np.int64)
-        dst = np.full(e_pad, n_pad - 1, np.int64)
-        rel = np.zeros((e_pad, 3), np.float32)
-        sqrt_info = np.zeros((e_pad, 3, 3), np.float32)
-        for k, ((i1, i2), (rp, si)) in enumerate(self._edges.items()):
-            src[k] = self._id_to_idx[i1]
-            dst[k] = self._id_to_idx[i2]
-            rel[k] = rp
-            sqrt_info[k] = si
-        free = np.ones(n_pad, np.float32)
-        free[n:] = 0.0
-        if self._first_id in self._id_to_idx:
-            free[self._id_to_idx[self._first_id]] = 0.0
+        poses, src, dst, rel, sqrt_info = self._padded(
+            n_pad, e_pad, np.float32)
+        free = self._free(n_pad, np.float32)
 
         def t(a):
             return torch.from_numpy(a).to(dev)
@@ -1126,12 +1252,7 @@ class PoseGraphSolver:
             "loop": lm_solve.last_stats,
             "host_reads": lm_solve.last_stats["host_reads"],
         }
-        self.corrections = [
-            (node_id, result[i].copy()) for i, node_id in enumerate(self._ids)
-        ]
-        for i in range(n):
-            self._poses[i] = result[i].copy()
-        return self.corrections
+        return self._commit(result)
 
     def compute_window(self, active_ids):
         """Windowed elastic solve: only `active_ids` move; every node
@@ -1150,62 +1271,47 @@ class PoseGraphSolver:
         approximation of the full solve; tests/test_windowed_solve.py
         bounds the in-window disagreement. No reference counterpart
         (Ceres always solves the whole problem, ceres_solver.cpp:214) —
-        documented in PARITY.md §Known; radius 0 disables."""
+        documented in PARITY.md §Known; radius 0 disables.
+
+        The subproblem's edges are one mask over the edge rows (live and
+        touching the window), so dead rows need no compaction here."""
         import time as _time
 
         t0 = _time.perf_counter()
         n_all = len(self._ids)
-        act_idx = [
-            self._id_to_idx[i] for i in active_ids
-            if i in self._id_to_idx
-        ]
+        act_ids = [i for i in active_ids if i in self._id_to_idx]
+        act_idx = [self._id_to_idx[i] for i in act_ids]
         if not act_idx or n_all == 0:
             return []
-        in_act = np.zeros(n_all, bool)
+        # a dead row may still name a freed node row, within capacity
+        in_act = np.zeros(len(self._poses), bool)
         in_act[act_idx] = True
-        sub_edges = []
-        sub_nodes = set(act_idx)
-        for (i1, i2), (rp, si) in self._edges.items():
-            a, b = self._id_to_idx[i1], self._id_to_idx[i2]
-            if in_act[a] or in_act[b]:
-                sub_edges.append((a, b, rp, si))
-                sub_nodes.add(a)
-                sub_nodes.add(b)
-        if not sub_edges:
+        ne = self._ne
+        src, dst = self._src[:ne], self._dst[:ne]
+        sel = self._alive[:ne] & (in_act[src] | in_act[dst])
+        if not sel.any():
             return []
-        order = sorted(sub_nodes)
-        l_of = {g: k for k, g in enumerate(order)}
+        es, ed = src[sel], dst[sel]
+        order = np.unique(np.concatenate([act_idx, es, ed]))
         m = len(order)
-        poses = np.stack([self._poses[g] for g in order])
-        e = len(sub_edges)
-        src = np.fromiter((l_of[a] for a, _, _, _ in sub_edges),
-                          np.int64, e)
-        dst = np.fromiter((l_of[b] for _, b, _, _ in sub_edges),
-                          np.int64, e)
-        rel = np.stack([rp for _, _, rp, _ in sub_edges])
-        si = np.stack([s for _, _, _, s in sub_edges])
-        free = np.fromiter((in_act[g] for g in order), np.float64, m)
+        l_of = np.full(n_all, -1, np.int64)
+        l_of[order] = np.arange(m)
+        free = in_act[order].astype(np.float64)
         if free.min() > 0.0:
             # window swallowed its whole component: gauge-fix one node
-            gk = (l_of[self._id_to_idx[self._first_id]]
-                  if self._first_id in self._id_to_idx
-                  and self._id_to_idx[self._first_id] in l_of
-                  else 0)
-            free[gk] = 0.0
-        res = host_sparse_lm(poses, src, dst, rel, si, free, self.config)
+            g = self._id_to_idx.get(self._first_id)
+            free[l_of[g] if g is not None and l_of[g] >= 0 else 0] = 0.0
+        res = host_sparse_lm(
+            self._poses[order], l_of[es], l_of[ed], self._rel[:ne][sel],
+            self._sqrt_info[:ne][sel], free, self.config)
         if res is None:
             return None
         poses_out, chi2, iters = res
-        free_b = free.astype(bool)
-        for k, g in enumerate(order):
-            if free_b[k]:
-                self._poses[g] = poses_out[k].copy()
-        self.corrections = [
-            (self._ids[g], poses_out[l_of[g]].copy())
-            for g in act_idx
-        ]
+        moved = free.astype(bool)
+        self._poses[order[moved]] = poses_out[moved]
+        self.corrections = list(zip(act_ids, poses_out[l_of[act_idx]]))
         self.last_stats = {
-            "n": m, "n_active": len(act_idx), "e": e,
+            "n": m, "n_active": len(act_idx), "e": len(es),
             "lm_iters": iters, "chi2": chi2, "window": True,
             "host_sparse_ms": round(
                 1e3 * (_time.perf_counter() - t0), 2),
@@ -1218,19 +1324,9 @@ class PoseGraphSolver:
 
         t0 = _time.perf_counter()
         with stage_timer(None, "solve_pack"):
-            poses = np.stack(self._poses)
-            src = np.zeros(e, np.int64)
-            dst = np.zeros(e, np.int64)
-            rel = np.zeros((e, 3))
-            sqrt_info = np.zeros((e, 3, 3))
-            for k, ((i1, i2), (rp, si)) in enumerate(self._edges.items()):
-                src[k] = self._id_to_idx[i1]
-                dst[k] = self._id_to_idx[i2]
-                rel[k] = rp
-                sqrt_info[k] = si
-            free = np.ones(n, np.float64)
-            if self._first_id in self._id_to_idx:
-                free[self._id_to_idx[self._first_id]] = 0.0
+            src, dst, rel, sqrt_info = self._edge_slices()
+            poses = self._poses[:n].copy()
+            free = self._free(n, np.float64)
         with stage_timer(None, "solve_lm"):
             res = host_sparse_lm(
                 poses, src, dst, rel, sqrt_info, free, self.config
@@ -1242,12 +1338,7 @@ class PoseGraphSolver:
             "n": n, "e": e, "lm_iters": iters, "chi2": chi2,
             "host_sparse_ms": round(1e3 * (_time.perf_counter() - t0), 2),
         }
-        self.corrections = [
-            (nid, poses_out[i].copy()) for i, nid in enumerate(self._ids)
-        ]
-        for i in range(n):
-            self._poses[i] = poses_out[i].copy()
-        return self.corrections
+        return self._commit(poses_out)
 
     def _compute_distributed(self, n: int, e: int):
         """Edge-sharded solve over the process group's ranks; every rank
@@ -1265,25 +1356,13 @@ class PoseGraphSolver:
         # rank count; on a power-of-two group past 16 nodes, _pad_pow2(n)
         n_pad = _pad_pow2(-(-n // n_dev), 1) * n_dev
         e_pad = ((_pad_pow2(e) + n_dev - 1) // n_dev) * n_dev
-        poses = np.zeros((n_pad, 3), np.float32)
-        poses[:n] = np.stack(self._poses)
-        src = np.full(e_pad, n_pad - 1, np.int64)
-        dst = np.full(e_pad, n_pad - 1, np.int64)
-        rel = np.zeros((e_pad, 3), np.float64)
-        sqrt_info = np.zeros((e_pad, 3, 3), np.float64)
+        poses, src, dst, rel, sqrt_info = self._padded(
+            n_pad, e_pad, np.float64)
         emask = np.zeros(e_pad, bool)
-        for k, ((i1, i2), (rp, si)) in enumerate(self._edges.items()):
-            src[k] = self._id_to_idx[i1]
-            dst[k] = self._id_to_idx[i2]
-            rel[k] = rp
-            sqrt_info[k] = si
-            emask[k] = True
-        free = np.ones(n_pad, np.float32)
-        free[n:] = 0.0
-        if self._first_id in self._id_to_idx:
-            free[self._id_to_idx[self._first_id]] = 0.0
+        emask[:e] = True
         out, chi2 = distributed_lm_solve(
-            mesh, poses, src, dst, rel, sqrt_info, emask, free,
+            mesh, poses, src, dst, rel, sqrt_info, emask,
+            self._free(n_pad, np.float32),
             max_iterations=cfg.max_iterations,
             initial_lambda=cfg.initial_lm_lambda,
             function_tolerance=cfg.function_tolerance,
@@ -1293,10 +1372,4 @@ class PoseGraphSolver:
             "n": n, "e": e, "chi2": chi2, "ranks": n_dev,
             "cg_iters": list(distributed_lm_solve.last_cg_iters),
         }
-        result = np.asarray(out[:n], dtype=np.float64)
-        self.corrections = [
-            (nid, result[i].copy()) for i, nid in enumerate(self._ids)
-        ]
-        for i in range(n):
-            self._poses[i] = result[i].copy()
-        return self.corrections
+        return self._commit(np.array(out[:n], dtype=np.float64))

@@ -164,7 +164,8 @@ def test_self_seconds_sum_to_the_roots_durations(session_spans):
 
 @pytest.mark.parametrize("stage", ["commit_bookkeep", "graph_edges", "solve",
                                    "find_near_chains", "link_chain_to_scan",
-                                   "solve_pack"])
+                                   "solve_pack", "solve_analyze",
+                                   "solve_assemble", "solve_factor"])
 def test_inclusive_seconds_are_the_logs_durations(session_spans, stage):
     w = session_spans["w"]
     st = session_spans["stats"]
@@ -175,6 +176,30 @@ def test_inclusive_seconds_are_the_logs_durations(session_spans, stage):
         float((w["t1"] - w["t0"])[mine].sum()), abs=1e-9 * int(mine.sum()))
     assert st.self_seconds[stage] == pytest.approx(
         float(w["self"][mine].sum()), abs=1e-9 * int(mine.sum()))
+
+
+def test_the_host_solve_splits_solve_lm(session_spans):
+    """host_sparse_lm's analysis, native assembly passes and factor-solves
+    are spans under solve_lm: one analysis a solve, an assembly for the
+    first chi2 and one more for each step's blocks and for its chi2, a
+    factor-solve a step."""
+    w = session_spans["w"]
+    at = _by_index(w)
+    kids = collections.defaultdict(collections.Counter)
+    for k in range(len(w["index"])):
+        name = _name(w, k)
+        if name in ("solve_analyze", "solve_assemble", "solve_factor"):
+            p = at[int(w["parent"][k])]
+            assert _name(w, p) == "solve_lm"
+            kids[p][name] += 1
+    lms = [k for k in range(len(w["index"])) if _name(w, k) == "solve_lm"]
+    assert lms and set(kids) == set(lms)
+    for k in lms:
+        c = kids[k]
+        assert c["solve_analyze"] == 1
+        assert c["solve_assemble"] >= 2
+        assert c["solve_assemble"] in (2 * c["solve_factor"] + 1,
+                                       2 * c["solve_factor"] + 2)
 
 
 def test_settles_commits_fall_under_commit_total(session_spans):
