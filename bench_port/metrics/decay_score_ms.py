@@ -1,0 +1,11 @@
+"""decay_score_ms: the host ms of the decay's objective scores (span
+decay_score's self time: the removals it makes are decay_remove_ms), per
+accepted scan of the window (the self seconds of the program's
+utils.metrics Stats). Nothing where the program has no such span."""
+
+
+def read(rec):
+    s = rec.get("stats_self_s")
+    if s is None or not rec.get("scans") or "decay_score" not in s:
+        return None
+    return s["decay_score"] * 1e3 / rec["scans"]

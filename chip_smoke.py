@@ -163,7 +163,7 @@ Phases, in order; any failure exits non-zero and nothing is caught:
  11. modes    — config 3's lifelong deployment (scripts/bench_suite.py's
                 warehouse, 1081 beams, seed 11, cut to its first 6,400
                 raw scans) through SlamSession(streaming=True,
-                drain_every=96) with LifelongMapper.stream_hook and
+                drain_every=96, lifelong=...) with
                 marginalize_on_removal: survivors-ATE below half of their
                 odometry's, a closure, second-half growth below 0.02
                 nodes/scan, a marginalized removal; then on that map 200

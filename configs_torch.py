@@ -25,8 +25,8 @@ writes no file into the repo.
            SlamSession(streaming=True, drain_every=96), a warm pass then
            a timed pass in new sessions; bars: ATE below 0.15 m, a
            closure.
-  config3  the warehouse's 40 serpentine laps (19,241 raw scans) with
-           LifelongMapper.stream_hook, drains of 96, chains of at least
+  config3  the warehouse's 40 serpentine laps (19,241 raw scans) through
+           SlamSession(lifelong=...), drains of 96, chains of at least
            5 scans. `marginalized`: steady_state_min_candidates 20,
            marginalize_on_removal; bars: survivors-ATE below half of
            their odometry's, second-half growth below 0.02 nodes/scan, a

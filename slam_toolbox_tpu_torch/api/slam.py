@@ -14,7 +14,9 @@ propagated prior at once and corrected poses land at drains (every
 `drain_every` scans, or on flush() and the accessors). Localization
 keeps a rolling buffer of its newest scans in the graph (the oldest is
 removed as each new one lands), through the pipeline's post_finish hook
-when streaming.
+when streaming. A lifelong session (lifelong=LifelongConfig(...)) runs
+the scan decay (mapper/lifelong.py) on every scan it maps: after each
+drained scan through the same hook, or after each classic process.
 
 The services: get_occupancy_grid (cached, folding new scans
 incrementally), serialize, deserialize with every match type
@@ -39,6 +41,7 @@ from slam_toolbox_tpu_torch.core.scan import LaserConfig, LocalizedScan
 from slam_toolbox_tpu_torch.dist.submap import maybe_sharded_create_from_scans
 from slam_toolbox_tpu_torch.kernels import occupancy
 from slam_toolbox_tpu_torch.mapper import Mapper
+from slam_toolbox_tpu_torch.mapper.lifelong import LifelongMapper
 from slam_toolbox_tpu_torch.utils.metrics import stage_timer
 
 
@@ -101,15 +104,21 @@ class SlamSession:
         streaming: bool = False,
         drain_every: int = 8,
         device=None,
+        lifelong=None,
     ):
         """`device` defaults to "cuda" and raises RuntimeError when no GPU
         is present; pass device="cpu" to run the plain versions on the
         CPU. streaming=True routes scans through the device-resident
-        pipeline, drained every `drain_every` scans."""
+        pipeline, drained every `drain_every` scans. `lifelong`, a
+        LifelongConfig, makes a lifelong session: `self.lifelong` is a
+        LifelongMapper over the session's mapper whose decay runs on every
+        scan mapped (None: no decay)."""
         self.config = config or MapperConfig()
         self.laser = laser
         self.mapper = Mapper(self.config, device=device)
         self.device = self.mapper.device
+        self._lifelong_cfg = lifelong
+        self.lifelong = self._new_lifelong()
         self.streaming = bool(streaming)
         self.drain_every = drain_every
         self._pipe = None
@@ -206,7 +215,10 @@ class SlamSession:
             self.last_scan_odom = np.array(scan.odom_pose)
             return self._streaming_online_pose(scan), cov
         elif pt == ProcessType.PROCESS:
-            ok = self.mapper.process(scan, covariance_out=cov)
+            if self.lifelong is not None:
+                ok = self.lifelong.process(scan, covariance_out=cov)
+            else:
+                ok = self.mapper.process(scan, covariance_out=cov)
         elif pt == ProcessType.PROCESS_FIRST_NODE:
             ok = self.mapper.process_at_dock(scan, covariance_out=cov)
             self.processor_type = ProcessType.PROCESS
@@ -254,10 +266,28 @@ class SlamSession:
         return (ProcessType.PROCESS_LOCALIZATION
                 if self.mode == "localization" else ProcessType.PROCESS)
 
+    def _new_lifelong(self):
+        """A LifelongMapper of the session's config over its mapper, or
+        None for a session that is not lifelong."""
+        if self._lifelong_cfg is None:
+            return None
+        return LifelongMapper(self.mapper, self._lifelong_cfg)
+
+    def _post_finish(self):
+        """The pipeline's post_finish hook for the session's mode: the
+        localization buffer's, the decay's while a lifelong session maps,
+        else none."""
+        if self.mode == "localization":
+            return self._loc_post_finish
+        if self.lifelong is not None:
+            return self.lifelong.stream_hook
+        return None
+
     def _ensure_pipe(self):
         """The streaming pipeline, built once (warm_async's thread may ask
-        for it at the same time as process_scan); in localization its
-        post_finish hook keeps the rolling buffer."""
+        for it at the same time as process_scan); its post_finish hook
+        keeps the rolling buffer in localization and runs the decay while
+        a lifelong session maps."""
         with self._pipe_lock:
             if self._pipe is None:
                 from slam_toolbox_tpu_torch.mapper.streaming import (
@@ -267,8 +297,7 @@ class SlamSession:
                 self._pipe = StreamingPipeline(
                     self.mapper, self.laser, drain_every=self.drain_every
                 )
-                if self.mode == "localization":
-                    self._pipe.post_finish = self._loc_post_finish
+                self._pipe.post_finish = self._post_finish()
                 self._pipe.watchdog = self._watchdog
             return self._pipe
 
@@ -440,7 +469,8 @@ class SlamSession:
         node's toggle service, slam_toolbox_map_and_localization.cpp:82-115).
         Entering localization starts the elastic buffer from the next
         scan; returning to mapping folds the buffered scans into the
-        permanent graph (they simply stop being evicted)."""
+        permanent graph (they simply stop being evicted), and a lifelong
+        session's decay runs again from the next scan mapped."""
         if mode not in ("mapping", "localization"):
             raise ValueError(mode)
         if mode == self.mode:
@@ -452,9 +482,7 @@ class SlamSession:
         self.mode = mode
         self.processor_type = self._steady_processor()
         if self._pipe is not None:
-            self._pipe.post_finish = (
-                self._loc_post_finish if mode == "localization" else None
-            )
+            self._pipe.post_finish = self._post_finish()
 
     def set_initial_pose(self, pose) -> None:
         """/initialpose (localizePoseCallback,
@@ -704,9 +732,14 @@ class SlamSession:
             gc.collect()
 
     def reset(self) -> None:
+        """Empty the session. A lifelong session's decay state (its
+        anchors and the vertex scores) goes with the map: the decay starts
+        afresh on the next scan mapped."""
         self._pipe = None
         self._grid_cache = None
         self.mapper.reset()
+        self.mapper.vertex_scores.clear()
+        self.lifelong = self._new_lifelong()
         self.processor_type = self._steady_processor()
         self.scan_count = 0
         self.first_measurement = True

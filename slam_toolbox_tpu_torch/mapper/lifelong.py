@@ -9,6 +9,16 @@ computeReadingOverlapRatio :455), the objective score
 :294-330) and node removal (:332-344). Metrics are vectorized NumPy —
 they operate on scan bounding boxes/barycenters, not rasters.
 
+Each evaluation is a span `decay` of the mapper's Stats (under the commit
+that calls it), with the parts `decay_query` (the candidate query),
+`decay_filter` (the IOU and constraint filter), `decay_score` (the
+objective scores), `decay_topup` (the steady-state top-up) and
+`decay_remove` (each removal, marginalized or plain; it nests under
+decay_score or decay_topup, whose self time leaves it out). Counters:
+decay_evals, decay_candidates (filtered candidates scored),
+decay_removed, decay_forced (top-up removals) and decay_resync
+(stream_hook asked the device ring to resync).
+
 The port's copy of slam_toolbox_tpu/mapper/lifelong.py (host code; the
 matches it rides on run on the mapper's device).
 """
@@ -18,6 +28,8 @@ from dataclasses import dataclass
 from typing import List
 
 import numpy as np
+
+from slam_toolbox_tpu_torch.utils.metrics import stage_timer
 
 
 @dataclass
@@ -153,6 +165,9 @@ class LifelongMapper:
     def __init__(self, mapper, config: LifelongConfig = None):
         self.mapper = mapper
         self.cfg = config or LifelongConfig()
+        # the steady-state top-up's immortal anchors: unique_id -> the xy
+        # of its corrected pose when it was promoted
+        self.anchors = {}
 
     @property
     def scores(self):
@@ -167,50 +182,65 @@ class LifelongMapper:
         return ok
 
     def evaluate_node_depreciation(self, scan) -> List[int]:
+        stats = self.mapper.stats
+        with stage_timer(stats, "decay"):
+            removed = self._evaluate(scan, stats)
+        stats.count("decay_evals")
+        stats.count("decay_removed", len(removed))
+        return removed
+
+    def _evaluate(self, scan, stats) -> List[int]:
         mapper = self.mapper
         bb = scan.bounding_box
         size = bb[1] - bb[0]
         radius = float(np.hypot(*size) / 2.0)
-        if self.cfg.use_tree:
-            candidates = mapper.graph.find_nearby_vertices(
-                scan.laser.name, scan.barycenter, radius
-            )
-        else:
-            candidates = mapper.graph.find_near_linked_scans(scan, radius)
+        with stage_timer(stats, "decay_query"):
+            if self.cfg.use_tree:
+                candidates = mapper.graph.find_nearby_vertices(
+                    scan.laser.name, scan.barycenter, radius
+                )
+            else:
+                candidates = mapper.graph.find_near_linked_scans(scan,
+                                                                 radius)
 
         # filter: minimum IOU + at least 2 constraints (computeScores)
-        filtered = []
-        for c in candidates:
-            if c is scan:
-                continue
-            n_con = len(mapper.graph.adjacency.get(c.unique_id, []))
-            if iou(scan, c) >= self.cfg.iou_thresh and n_con >= 2:
-                filtered.append(c)
+        with stage_timer(stats, "decay_filter"):
+            filtered = []
+            for c in candidates:
+                if c is scan:
+                    continue
+                n_con = len(mapper.graph.adjacency.get(c.unique_id, []))
+                if iou(scan, c) >= self.cfg.iou_thresh and n_con >= 2:
+                    filtered.append(c)
+        stats.count("decay_candidates", len(filtered))
 
         removed = []
-        anchors = self._anchor_xy()
-        for c in filtered:
-            score, protected = self._score(scan, c, len(filtered))
-            protected = protected or c.unique_id in anchors
-            if not protected and score < self.cfg.removal_score:
-                mapper.remove_node_from_graph(c)
-                self.scores.pop(c.unique_id, None)
-                removed.append(c.unique_id)
-            else:
-                self.scores[c.unique_id] = score
+        anchors = self.anchors
+        with stage_timer(stats, "decay_score"):
+            for c in filtered:
+                score, protected = self._score(scan, c, len(filtered))
+                protected = protected or c.unique_id in anchors
+                if not protected and score < self.cfg.removal_score:
+                    self._remove(c, stats)
+                    removed.append(c.unique_id)
+                else:
+                    self.scores[c.unique_id] = score
 
         # steady-state top-up: in a well-covered area every added scan
         # must be paid for by a removal or the graph grows without bound
         if self.cfg.steady_state_min_candidates > 0:
-            removed.extend(self._steady_state_topup(scan, len(removed)))
+            with stage_timer(stats, "decay_topup"):
+                forced = self._steady_state_topup(scan, len(removed), stats)
+            stats.count("decay_forced", len(forced))
+            removed.extend(forced)
         return removed
 
-    def _anchor_xy(self):
-        if not hasattr(self, "_anchors"):
-            self._anchors = {}  # uid -> xy
-        return self._anchors
+    def _remove(self, c, stats) -> None:
+        with stage_timer(stats, "decay_remove"):
+            self.mapper.remove_node_from_graph(c)
+        self.scores.pop(c.unique_id, None)
 
-    def _steady_state_topup(self, scan, already_removed: int):
+    def _steady_state_topup(self, scan, already_removed: int, stats):
         """Force-remove the most redundant node(s) when the scan's area
         is demonstrably over-covered (PARITY.md §Known).
 
@@ -263,7 +293,7 @@ class LifelongMapper:
         if want <= 0:
             return []
         cands.sort(key=lambda t: (t[0], t[1]))
-        anchors = self._anchor_xy()
+        anchors = self.anchors
         spacing = self.cfg.steady_state_anchor_spacing
         a_xy = (np.stack(list(anchors.values()))
                 if anchors else np.zeros((0, 2)))
@@ -309,18 +339,16 @@ class LifelongMapper:
                     axis=0,
                 )
                 continue
-            mapper.remove_node_from_graph(c)
-            self.scores.pop(uid, None)
+            self._remove(c, stats)
             out.append(uid)
         return out
 
     def stream_hook(self, scan) -> bool:
         """post_finish hook for the streaming pipeline: run decay after
         each drained scan; True when nodes were removed (device ring must
-        resync). Usage:
-            sess = SlamSession(cfg, laser, streaming=True)
-            ll = LifelongMapper(sess.mapper)
-            sess._ensure_pipe().post_finish = ll.stream_hook
+        resync). A session made with SlamSession(...,
+        lifelong=LifelongConfig(...)) installs it on its pipeline and
+        keeps it there while mapping; sess.lifelong is this mapper.
 
         The device ring mirrors only the RUNNING buffer; decay removals
         are protected out of the recent window (id_diff >=
@@ -336,7 +364,10 @@ class LifelongMapper:
         last = sm.get_last_scan(name)
         if last is not None:
             running.add(last.unique_id)
-        return bool(set(removed) & running)
+        resync = bool(set(removed) & running)
+        if resync:
+            self.mapper.stats.count("decay_resync")
+        return resync
 
     def _score(self, ref_scan, candidate, num_candidates):
         """computeScore (:255-292): recent scans and the first two nodes

@@ -39,7 +39,7 @@ import torch
 from slam_toolbox_tpu_torch.device import resolve_device, world_size
 from slam_toolbox_tpu_torch.kernels import match_cuda as mc
 from slam_toolbox_tpu_torch.solver import chain_precond as cp
-from slam_toolbox_tpu_torch.utils.metrics import stage_timer
+from slam_toolbox_tpu_torch.utils.metrics import count, stage_timer
 
 _F32 = torch.float32
 
@@ -1106,7 +1106,9 @@ class PoseGraphSolver:
             self._compact()
 
     def _compact(self) -> None:
-        """Take the dead edge rows out, the live ones kept in order."""
+        """Take the dead edge rows out, the live ones kept in order
+        (counted as solve_compact)."""
+        count(None, "solve_compact")
         live = self._alive[:self._ne]
         m = len(self._edge_row)
         for a in (self._src, self._dst, self._rel, self._sqrt_info):

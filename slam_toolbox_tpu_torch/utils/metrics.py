@@ -194,6 +194,19 @@ LAUNCH_CALLS = ("cudaLaunchKernel", "cuLaunchKernel", "cudaLaunchKernelExC",
 GRAPH_CALLS = ("cudaGraphLaunch", "cuGraphLaunch")
 
 
+def count(stats, name: str, n: int = 1) -> None:
+    """Add `n` to the counter `name` of `stats`; with `stats` None, of the
+    Stats of this thread's innermost open span (nothing where none is
+    open), as stage_timer charges a span."""
+    if stats is None:
+        stack = _STACK.open
+        if not stack:
+            return
+        stats = stack[-1].stats
+    if stats.enabled:
+        stats.counts[name] += n
+
+
 def stage_timer(stats, stage: str):
     """A span named `stage` charged to `stats`; with `stats` None, to the
     Stats of this thread's innermost open span (nothing where none is

@@ -3,9 +3,10 @@
 The overlap metrics and the objective score on seeded scans (the same
 NumPy in f64 in both: equal to 1e-12), then the decay end to end: two
 laps of the rooms world through each package's streaming session with
-LifelongMapper.stream_hook as the pipeline's post_finish hook (config 3's
-wiring, at test_torch_slam.py's reduced geometry: 0.05 m grid, 361
-beams), with delete-only and with marginalized removal. Every call of
+the decay after each drained scan (config 3's wiring: the port's
+SlamSession(lifelong=...), LifelongMapper.stream_hook set by hand on the
+JAX session's pipeline; at test_torch_slam.py's reduced geometry: 0.05 m
+grid, 361 beams), with delete-only and with marginalized removal. Every call of
 evaluate_node_depreciation is logged as (scan, removed unique ids) in
 both packages and compared decision for decision; the survivors' poses
 must be within PARITY.md's 4 cm. The JAX session runs the fused loop
@@ -106,21 +107,24 @@ def test_objective_score_matches_jax():
 
 
 def _decay_run(pkg, cfg, laser, data, ll_cfg, monkeypatch):
-    """One streaming session of package `pkg` with LifelongMapper's
-    stream_hook on the pipeline; returns the decisions (scan unique id,
+    """One lifelong streaming session of package `pkg`; returns the decisions (scan unique id,
     removed unique ids), the survivors' poses and the stage counts."""
     mod = PKGS[pkg]
     if pkg == "jax":
         # the fused loop verify, as the port's streaming session runs it
         monkeypatch.setenv("SLAM_FUSED_LOOP", "1")
         sess = JaxSession(cfg, laser, streaming=True, drain_every=16)
+        ll = mod.LifelongMapper(
+            sess.mapper, mod.LifelongConfig(**dataclasses.asdict(ll_cfg)))
+        sess._ensure_pipe().post_finish = ll.stream_hook
     else:
-        sess = TorchSession(config_from_dict(dataclasses.asdict(cfg)),
-                            laser_from_dict(dataclasses.asdict(laser)),
-                            device="cpu", streaming=True, drain_every=16)
+        sess = TorchSession(
+            config_from_dict(dataclasses.asdict(cfg)),
+            laser_from_dict(dataclasses.asdict(laser)), device="cpu",
+            streaming=True, drain_every=16,
+            lifelong=mod.LifelongConfig(**dataclasses.asdict(ll_cfg)))
+        ll = sess.lifelong
     sess.stats.enabled = True
-    ll = mod.LifelongMapper(
-        sess.mapper, mod.LifelongConfig(**dataclasses.asdict(ll_cfg)))
     log = []
     evaluate = ll.evaluate_node_depreciation
 
@@ -130,7 +134,6 @@ def _decay_run(pkg, cfg, laser, data, ll_cfg, monkeypatch):
         return removed
 
     ll.evaluate_node_depreciation = logged
-    sess._ensure_pipe().post_finish = ll.stream_hook
     for i, (scan, _) in enumerate(data):
         sess.process_scan(scan.ranges, scan.odom_pose, time=i * 0.1)
     sess.flush()

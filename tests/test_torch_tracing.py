@@ -5,7 +5,10 @@ are the log's durations, a disabled Stats touches nothing, an exception
 unwinds the stack, the ring counts what it overwrote, and a streaming
 session's spans (one lap and back of the rooms world, 0.05 m grid, 361
 beams, drains of 16 scans) nest as the drain's commit runs them, with
-settle()'s commits under commit_total."""
+settle()'s commits under commit_total; a lifelong session's decay spans
+nest under the commit, its parts under the decay and each removal under
+the part that made it, each span's self seconds and its children's
+seconds summing to its own."""
 import collections
 
 import numpy as np
@@ -17,6 +20,7 @@ from slam_toolbox_tpu_torch.core.params import MapperConfig
 from slam_toolbox_tpu_torch.core.scan import LaserConfig
 from slam_toolbox_tpu_torch.io.dataset import LidarSimulator, SegmentWorld
 from slam_toolbox_tpu_torch.mapper import streaming
+from slam_toolbox_tpu_torch.mapper.lifelong import LifelongConfig
 from slam_toolbox_tpu_torch.utils import metrics
 from slam_toolbox_tpu_torch.utils.metrics import SpanLog, Stats, stage_timer
 
@@ -61,11 +65,8 @@ def _name(w, k):
     return w["names"][w["name"][k]]
 
 
-@pytest.fixture(scope="module")
-def session_spans():
-    """A streaming session over 85 scans with its Stats on, flushed and
-    closed; its spans from the process's log, its Stats and the number
-    of times the pipeline ran its commit."""
+def _cfg_laser(**kw):
+    """The sessions' mapper config (`kw` changed) and laser."""
     laser = LaserConfig(min_range=0.05, max_range=12.0, range_threshold=10.0,
                         angular_resolution=np.deg2rad(1.0))
     cfg = MapperConfig(
@@ -78,7 +79,16 @@ def session_spans():
         correlation_search_space_dimension=0.5,
         correlation_search_space_resolution=0.05,
         correlation_search_space_smear_deviation=0.1,
-        distance_variance_penalty=0.5, angle_variance_penalty=1.0)
+        distance_variance_penalty=0.5, angle_variance_penalty=1.0, **kw)
+    return cfg, laser
+
+
+@pytest.fixture(scope="module")
+def session_spans():
+    """A streaming session over 85 scans with its Stats on, flushed and
+    closed; its spans from the process's log, its Stats and the number
+    of times the pipeline ran its commit."""
+    cfg, laser = _cfg_laser()
     sim = LidarSimulator(SegmentWorld.rooms(16.0, 10.0), laser,
                          range_noise=0.01, odom_noise=(0.015, 0.006),
                          seed=42)
@@ -292,3 +302,83 @@ def test_the_ring_overwrites_its_oldest_and_says_so(monkeypatch):
     assert lg.window(8.5, 100.0) is None    # the span opened at 7 is gone
     with pytest.raises(ValueError):
         SpanLog(6)
+
+
+@pytest.fixture(scope="module")
+def lifelong_spans():
+    """A lifelong streaming session over two laps and back (the top-up
+    at 12 candidates, removals marginalized, chains of 6: the setting of
+    test_torch_lifelong.py), Stats on; its spans and its Stats."""
+    cfg, laser = _cfg_laser(loop_match_minimum_chain_size=6,
+                            marginalize_on_removal=True)
+    sim = LidarSimulator(SegmentWorld.rooms(16.0, 10.0), laser,
+                         range_noise=0.01, odom_noise=(0.015, 0.006),
+                         seed=42)
+    data = sim.simulate(np.array(LAP * 2), step=0.5)
+    sess = SlamSession(cfg, laser, device="cpu", streaming=True,
+                       drain_every=16,
+                       lifelong=LifelongConfig(steady_state_min_candidates=12))
+    sess.stats.enabled = True
+    t0 = metrics._clock()
+    for i, (scan, _) in enumerate(data):
+        sess.process_scan(scan.ranges, scan.odom_pose, time=i * 0.1)
+    sess.flush()
+    stats = sess.stats
+    t1 = metrics._clock()
+    sess.close()
+    return dict(w=metrics.SPANS.window(t0, t1), stats=stats)
+
+
+DECAY_PARTS = ("decay_query", "decay_filter", "decay_score", "decay_topup")
+
+
+def test_the_decay_nests_under_the_commit(lifelong_spans):
+    w = lifelong_spans["w"]
+    st = lifelong_spans["stats"]
+    at = _by_index(w)
+    parent = {}
+    for k in range(len(w["index"])):
+        p = int(w["parent"][k])
+        parent[k] = _name(w, at[p]) if p >= 0 else None
+    names = collections.Counter(_name(w, k) for k in parent)
+    assert names["decay"] == st.counts["decay_evals"] > 0
+    assert st.counts["decay_removed"] == names["decay_remove"] >= 20
+    assert 0 < st.counts["decay_forced"] <= st.counts["decay_removed"]
+    assert st.counts["decay_candidates"] > 0
+    for k, p in parent.items():
+        name = _name(w, k)
+        if name == "decay":
+            assert p == "commit_bookkeep"
+        elif name in DECAY_PARTS:
+            assert p == "decay"
+        elif name == "decay_remove":
+            assert p in ("decay_score", "decay_topup")
+    assert names["decay_query"] == names["decay_filter"] == names["decay"]
+    assert names["decay_score"] == names["decay_topup"] == names["decay"]
+
+
+def test_a_decay_spans_self_and_children_sum_to_it(lifelong_spans):
+    w = lifelong_spans["w"]
+    at = _by_index(w)
+    dur = w["t1"] - w["t0"]
+    kids = collections.defaultdict(float)
+    for k in range(len(w["index"])):
+        p = int(w["parent"][k])
+        if p >= 0:
+            kids[at[p]] += dur[k]
+    seen = 0
+    for k in range(len(w["index"])):
+        if _name(w, k).startswith("decay"):
+            assert w["self"][k] == pytest.approx(dur[k] - kids[k],
+                                                 abs=1e-12)
+            assert w["self"][k] >= -1e-12
+            seen += 1
+    assert seen > 0
+    st = lifelong_spans["stats"]
+    n = st.counts["decay_remove"] + 5 * st.counts["decay"]
+    assert st.seconds["decay"] == pytest.approx(
+        st.self_seconds["decay"] + sum(st.seconds[p] for p in DECAY_PARTS),
+        abs=1e-9 * n)
+    assert (st.seconds["decay_score"] - st.self_seconds["decay_score"]
+            + st.seconds["decay_topup"] - st.self_seconds["decay_topup"]
+            ) == pytest.approx(st.seconds["decay_remove"], abs=1e-9 * n)

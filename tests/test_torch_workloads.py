@@ -334,7 +334,9 @@ def test_configs_config3_at_a_cut(capsys, variant):
     assert rec["variant"] == variant and rec["raw_scans"] == 90
     assert rec["accepted"] == 90 and rec["curve"][-1] == [90, rec["nodes"]]
     assert np.isfinite(rec["ate"]) and rec["reference"]["final_nodes"]
-    assert set(rec["decay_ms"]) >= {"decay", "candidates", "score"}
+    assert set(rec["decay_ms"]) >= {"decay", "decay_query", "decay_score"}
+    # the decay ran once on every accepted scan, through the session
+    assert rec["decay_ms"]["decay_evals"] == rec["accepted"]
 
 
 def test_configs_config4_at_a_cut(capsys, tmp_path):
@@ -369,14 +371,18 @@ def _reference_decay(pkg, n_scans=2400):
         same_cfg(cfg, jcfg)
         sess = jax_api.SlamSession(jcfg, bs._laser(1.0), streaming=True,
                                    drain_every=96)
+        # the JAX session has no lifelong mode: its hook is set by hand
+        ll = mod.LifelongMapper(
+            sess.mapper, mod.LifelongConfig(steady_state_min_candidates=0))
+        sess._ensure_pipe().post_finish = ll.stream_hook
     else:
         from slam_toolbox_tpu_torch.api import SlamSession
         from slam_toolbox_tpu_torch.mapper import lifelong as mod
 
-        sess = SlamSession(cfg, laser, streaming=True, drain_every=96,
-                           device="cpu")
-    ll = mod.LifelongMapper(
-        sess.mapper, mod.LifelongConfig(steady_state_min_candidates=0))
+        sess = SlamSession(
+            cfg, laser, streaming=True, drain_every=96, device="cpu",
+            lifelong=mod.LifelongConfig(steady_state_min_candidates=0))
+        ll = sess.lifelong
     log, curve, gts = [], [], []
     evaluate = ll.evaluate_node_depreciation
 
@@ -386,7 +392,6 @@ def _reference_decay(pkg, n_scans=2400):
         return removed
 
     ll.evaluate_node_depreciation = logged
-    sess._ensure_pipe().post_finish = ll.stream_hook
     for i, (scan, tp) in enumerate(data[:n_scans]):
         if sess.process_scan(scan.ranges, scan.odom_pose,
                              time=i * 0.1) is not None:

@@ -10,9 +10,10 @@ CPU, or the port on a card and on the CPU.
 
 `trace` runs the warehouse's first N raw scans (workloads_torch's
 config 3) through a streaming session (drains of 96; the JAX one with
-its fused verify, as the port runs it) whose pipeline calls
-LifelongMapper(steady_state_min_candidates=0).stream_hook, the
-reference's decay alone, and pickles each scan's match (response, pose)
+its fused verify, as the port runs it) that runs
+LifelongMapper(steady_state_min_candidates=0)'s decay, the reference's
+alone, after each drained scan (the port's SlamSession(lifelong=...); the
+hook set by hand on the JAX session's pipeline), and pickles each scan's match (response, pose)
 as the drain fetched it, each decay decision (scan, removed ids, the
 candidates' scores) and the node count every 100 raw scans. `compare`
 prints where two traces part: the first scan whose match pose differs by
@@ -52,14 +53,18 @@ def trace(pkg: str, n_scans: int, device: str = "cpu") -> dict:
                       marginalize_on_removal=False)
         sess = api.SlamSession(cfg, bs._laser(), streaming=True,
                                drain_every=96)
+        ll = mod.LifelongMapper(
+            sess.mapper, mod.LifelongConfig(steady_state_min_candidates=0))
+        sess._ensure_pipe().post_finish = ll.stream_hook
     else:
         from slam_toolbox_tpu_torch.api import SlamSession
         from slam_toolbox_tpu_torch.mapper import lifelong as mod
 
-        sess = SlamSession(wl.lifelong_cfg(False), laser, streaming=True,
-                           drain_every=96, device=device)
-    ll = mod.LifelongMapper(
-        sess.mapper, mod.LifelongConfig(steady_state_min_candidates=0))
+        sess = SlamSession(
+            wl.lifelong_cfg(False), laser, streaming=True, drain_every=96,
+            device=device,
+            lifelong=mod.LifelongConfig(steady_state_min_candidates=0))
+        ll = sess.lifelong
     rows, log, curve, scores = [], [], [], {}
     score, evaluate = ll._score, ll.evaluate_node_depreciation
 
@@ -76,7 +81,6 @@ def trace(pkg: str, n_scans: int, device: str = "cpu") -> dict:
 
     ll._score, ll.evaluate_node_depreciation = scored, logged
     pipe = sess._ensure_pipe()
-    pipe.post_finish = ll.stream_hook
     bookkeep = pipe._bookkeep
 
     def fetched(res_np, start, n):

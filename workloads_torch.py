@@ -1024,70 +1024,46 @@ def counted(fn, box: dict, key: str, when=lambda out: True):
         return out
     return wrapped
 
-def time_decay(ll):
-    """Host timers around the decay's parts on LifelongMapper `ll` and its
-    mapper, read while the hook runs: `candidates` (the linked
-    neighbourhood query), `score` (the objective per candidate),
-    `topup` (the steady-state removals, its own removals included) and
-    `remove` (every node removal, the marginalization included). Returns
-    (ll.stream_hook timed as `decay`, the whole; the seconds by part)."""
-    secs = collections.Counter()
-    inside = [False]
+# the decay's spans (mapper/lifelong.py): the whole evaluation and its
+# parts; decay_remove nests under decay_score and decay_topup
+DECAY_SPANS = ("decay", "decay_query", "decay_filter", "decay_score",
+               "decay_topup", "decay_remove")
 
-    def timed(name, fn):
-        def wrapped(*a, **kw):
-            if not inside[0] and name != "decay":
-                return fn(*a, **kw)
-            t = time.perf_counter()
-            inside[0] = True
-            try:
-                return fn(*a, **kw)
-            finally:
-                secs[name] += time.perf_counter() - t
-                if name == "decay":
-                    inside[0] = False
-        return wrapped
 
-    graph, mapper = ll.mapper.graph, ll.mapper
-    graph.find_near_linked_scans = timed("candidates",
-                                         graph.find_near_linked_scans)
-    mapper.remove_node_from_graph = timed("remove",
-                                          mapper.remove_node_from_graph)
-    ll._score = timed("score", ll._score)
-    ll._steady_state_topup = timed("topup", ll._steady_state_topup)
-    return timed("decay", ll.stream_hook), secs
+def time_decay(stats) -> dict:
+    """The decay's host ms by span (inclusive) from a session's Stats,
+    with the evaluations, removals and top-up removals counted."""
+    ms = {k: 1e3 * stats.seconds.get(k, 0.0) for k in DECAY_SPANS}
+    for k in ("decay_evals", "decay_removed", "decay_forced",
+              "decay_resync"):
+        ms[k] = stats.counts.get(k, 0)
+    return ms
 
 
 def lifelong_run(dev, data, cfg, laser, n_scans=None, ss_min=SS_MIN,
                  check_grids=None, tag="lifelong"):
     """Config 3: the first n_scans (all by default) of the lapped
-    warehouse through SlamSession(streaming=True, drain_every=96) with
-    LifelongMapper.stream_hook as the pipeline's post_finish
-    (LifelongConfig(steady_state_min_candidates=ss_min); the removals
-    marginalized where cfg says so). Prints the node curve (every 800
-    raw scans, as CONFIG3.json records it), the bars' numbers, the host stages and the
-    decay's parts; returns a record (lifelong_bars checks the bounded
-    variants' bars). Every pose must be finite, and on a card every path
-    kernel must have launched, at grids `check_grids(tag, by_grid)`
-    accepts."""
+    warehouse through SlamSession(streaming=True, drain_every=96,
+    lifelong=LifelongConfig(steady_state_min_candidates=ss_min)) (the
+    removals marginalized where cfg says so). Prints the node curve
+    (every 800 raw scans, as CONFIG3.json records it), the bars' numbers,
+    the host stages and the decay's spans (time_decay); returns a record
+    (lifelong_bars checks the bounded variants' bars). Every pose must be
+    finite, and on a card every path kernel must have launched, at grids
+    `check_grids(tag, by_grid)` accepts."""
     import numpy as np
 
     from slam_toolbox_tpu_torch.api import SlamSession
     from slam_toolbox_tpu_torch.kernels import match_cuda as mc
-    from slam_toolbox_tpu_torch.mapper.lifelong import (
-        LifelongConfig, LifelongMapper,
-    )
+    from slam_toolbox_tpu_torch.mapper.lifelong import LifelongConfig
 
     n_scans = len(data) if n_scans is None else n_scans
-    sess = SlamSession(cfg, laser, streaming=True, drain_every=96,
-                       device=dev)
+    sess = SlamSession(
+        cfg, laser, streaming=True, drain_every=96, device=dev,
+        lifelong=LifelongConfig(steady_state_min_candidates=ss_min))
     sess.stats.enabled = True
     closures = []
     sess.mapper.listeners.append(closures.append)
-    ll = LifelongMapper(
-        sess.mapper, LifelongConfig(steady_state_min_candidates=ss_min))
-    pipe = sess._ensure_pipe()    # the mapper's graph is made here
-    pipe.post_finish, decay = time_decay(ll)
     curve, gts, odos, errs = [], [], [], []
     half_nodes = None
     sync(dev)
@@ -1118,7 +1094,7 @@ def lifelong_run(dev, data, cfg, laser, n_scans=None, ss_min=SS_MIN,
     marg = {k: counts[k] for k in ("marginal_factor_added",
                                    "marginal_factor_dup_skipped")}
     stages = stage_times(sess)
-    decay_ms = {k: 1e3 * v for k, v in sorted(decay.items())}
+    decay_ms = time_decay(sess.stats)
     print(f"# {tag}: {n_scans} of the warehouse's {len(data)} raw scans, "
           f"{len(gts)} accepted, {wall} s, {len(gts) / wall} scans/s; nodes "
           f"every 800 scans {json.dumps(curve)}, final {nodes}, "
@@ -1129,8 +1105,8 @@ def lifelong_run(dev, data, cfg, laser, n_scans=None, ss_min=SS_MIN,
           f"{e.max()} m, {len(closures)} loop closures, {json.dumps(marg)}, "
           f"launches by grid {by_grid}", flush=True)
     print(f"# {tag} stages (calls, host ms): {json.dumps(stages)}; the "
-          f"decay (stream_hook) {decay_ms.get('decay', 0.0)} ms, its parts "
-          f"(ms) {json.dumps(decay_ms)}", flush=True)
+          f"decay {decay_ms['decay']} ms, its spans (ms) and counts "
+          f"{json.dumps(decay_ms)}", flush=True)
     poses = np.stack([s.corrected_pose
                       for s in sess.mapper.all_processed_scans()])
     if not (np.all(np.isfinite(poses)) and np.all(np.isfinite(e))):
