@@ -9,6 +9,16 @@ computeReadingOverlapRatio :455), the objective score
 :294-330) and node removal (:332-344). Metrics are vectorized NumPy —
 they operate on scan bounding boxes/barycenters, not rasters.
 
+The scalar metrics take two scans; the decay itself runs their row forms
+(`box_rows`, `overlap_rows`): each phase gathers its candidates' boxes
+and barycenters once and gets every IOU and area overlap from a few
+array operations, and the scores' reading overlaps from one native pass
+(native.decay_reading_overlap, or its twin `_np_decay_reading_overlap`
+where the library is absent) over sensor-frame points the decay packs
+once per node; the boxes of nodes a correction moved come from one
+native pass over the same points (native.decay_boxes). Equal to the scalar forms bit for bit; the decisions stay
+a sequential loop over the numbers, in the scalar decay's order.
+
 Each evaluation is a span `decay` of the mapper's Stats (under the commit
 that calls it), with the parts `decay_query` (the candidate query),
 `decay_filter` (the IOU and constraint filter), `decay_score` (the
@@ -16,8 +26,13 @@ objective scores), `decay_topup` (the steady-state top-up) and
 `decay_remove` (each removal, marginalized or plain; it nests under
 decay_score or decay_topup, whose self time leaves it out). Counters:
 decay_evals, decay_candidates (filtered candidates scored),
-decay_removed, decay_forced (top-up removals) and decay_resync
-(stream_hook asked the device ring to resync).
+decay_removed, decay_forced (top-up removals), decay_resync
+(stream_hook asked the device ring to resync), decay_batch_rows (rows
+through the batched IOU pass, filter and top-up), decay_overlap_rows
+(rows through the reading-overlap pass: the filtered candidates that
+reach objective_score), decay_points_packed (nodes whose points entered
+the decay's store) and decay_box_refresh (moved nodes' boxes recomputed
+by the native box pass).
 
 The port's copy of slam_toolbox_tpu/mapper/lifelong.py (host code; the
 matches it rides on run on the mapper's device).
@@ -133,6 +148,130 @@ def reading_overlap_ratio(ref_scan, candidate) -> float:
     return float(inner.sum()) / float(len(pts))
 
 
+def box_rows(scans):
+    """(lo, hi, bc) of `scans`: each one's bounding-box corners and
+    barycenter xy, (n, 2) float64 each, read from the scans' caches."""
+    if not scans:
+        z = np.zeros((0, 2))
+        return z, z, z
+    bb = np.array([s.bounding_box for s in scans])
+    bc = np.array([s.barycenter for s in scans])
+    return bb[:, 0], bb[:, 1], bc[:, :2]
+
+
+def overlap_rows(ref, rows):
+    """The overlap metrics of one scan `ref` against each scan of `rows`,
+    both as box_rows gives them: (bounds (n, 4) of intersect_bounds'
+    (x_l, x_u, y_l, y_u), iou (n,), area_overlap_ratio (n,)), each row
+    equal to the scalar function of (ref, row) bit for bit."""
+    (rlo, rhi, rbc), (lo, hi, bc) = ref, rows
+    rh = (rhi - rlo) / 2.0
+    h = (hi - lo) / 2.0
+    upper = np.minimum(rbc + rh, bc + h)
+    lower = np.maximum(rbc - rh, bc - h)
+    bounds = np.stack([lower[:, 0], upper[:, 0], lower[:, 1],
+                       upper[:, 1]], axis=1)
+    area = (upper[:, 1] - lower[:, 1]) * (upper[:, 0] - lower[:, 0])
+    inter = np.where(area > 0.0, area, 0.0)
+    rb = rh * 2.0
+    b = h * 2.0
+    own = b[:, 0] * b[:, 1]
+    union = rb[:, 0] * rb[:, 1] + own - inter
+    iou_ = np.zeros(len(inter))
+    np.divide(inter, union, out=iou_, where=union > 0)
+    area_ov = np.zeros(len(inter))
+    np.divide(inter, own, out=area_ov, where=own > 0)
+    return bounds, iou_, area_ov
+
+
+def _sensor_rows(scans) -> np.ndarray:
+    """(n, 4) of each scan's sensor pose as (x, y, cos, sin), the cos and
+    sin the same scalar NumPy calls as LocalizedScan.points_world's."""
+    pose = np.empty((len(scans), 4))
+    for k, c in enumerate(scans):
+        sp = c.sensor_pose
+        pose[k] = (sp[0], sp[1], np.cos(sp[2]), np.sin(sp[2]))
+    return pose
+
+
+def _np_decay_reading_overlap(start, count, points, pose, bounds):
+    """native.decay_reading_overlap in NumPy, equal to it bit for bit:
+    of each candidate i, its points rows start[i] .. start[i] + count[i]
+    strictly inside bounds[i] once moved to pose[i] = (x, y, cos, sin),
+    as LocalizedScan.points_world moves them."""
+    n = len(start)
+    row = np.repeat(np.arange(n), count)
+    first = np.cumsum(count) - count
+    at = np.arange(len(row)) - first[row] + np.asarray(start)[row]
+    lp = points[at]
+    p = pose[row]
+    wx = p[:, 0] + p[:, 2] * lp[:, 0] - p[:, 3] * lp[:, 1]
+    wy = p[:, 1] + p[:, 3] * lp[:, 0] + p[:, 2] * lp[:, 1]
+    b = bounds[row]
+    inner = ((wx > b[:, 0]) & (wx < b[:, 1])
+             & (wy > b[:, 2]) & (wy < b[:, 3]))
+    return np.bincount(row[inner], minlength=n).astype(np.int64)
+
+
+class _PointStore:
+    """The decay's nodes' filtered sensor-frame points (LocalizedScan's
+    local points under its filtered mask), packed once: they do not move
+    with the pose. Node uid owns rows [start, start + count) of
+    `points`; removed nodes' rows are reclaimed once they outnumber the
+    live ones."""
+
+    def __init__(self):
+        self.points = np.empty((4096, 2))
+        self.size = 0
+        self.rows = {}   # unique_id -> (scan, start, count)
+        self.dead = 0
+
+    def locate(self, scans, stats):
+        """(start, count) int64 arrays of `scans`, packing the new ones
+        (after reclaiming the dead rows where they outnumber the live)."""
+        if self.dead > max(self.size - self.dead, 1 << 16):
+            self._compact()
+        start = np.empty(len(scans), np.int64)
+        count = np.empty(len(scans), np.int64)
+        for k, c in enumerate(scans):
+            ent = self.rows.get(c.unique_id)
+            if ent is None or ent[0] is not c:
+                ent = self._pack(c)
+                stats.count("decay_points_packed")
+            start[k], count[k] = ent[1], ent[2]
+        return start, count
+
+    def drop(self, uid) -> None:
+        ent = self.rows.pop(uid, None)
+        if ent is not None:
+            self.dead += ent[2]
+
+    def _pack(self, scan):
+        # a snapshot loaded into the mapper gives old ids to new scans
+        self.drop(scan.unique_id)
+        pts = scan.local_points[scan.filtered_mask]
+        need = self.size + len(pts)
+        if need > len(self.points):
+            grown = np.empty((max(need, 2 * len(self.points)), 2))
+            grown[:self.size] = self.points[:self.size]
+            self.points = grown
+        self.points[self.size:need] = pts
+        ent = (scan, self.size, len(pts))
+        self.rows[scan.unique_id] = ent
+        self.size = need
+        return ent
+
+    def _compact(self) -> None:
+        live = sorted(self.rows.items(), key=lambda kv: kv[1][1])
+        out = np.empty((max(4096, 2 * (self.size - self.dead)), 2))
+        at = 0
+        for uid, (scan, start, count) in live:
+            out[at:at + count] = self.points[start:start + count]
+            self.rows[uid] = (scan, at, count)
+            at += count
+        self.points, self.size, self.dead = out, at, 0
+
+
 def objective_score(
     cfg: LifelongConfig,
     intersect_over_union: float,
@@ -168,6 +307,7 @@ class LifelongMapper:
         # the steady-state top-up's immortal anchors: unique_id -> the xy
         # of its corrected pose when it was promoted
         self.anchors = {}
+        self._points = _PointStore()
 
     @property
     def scores(self):
@@ -191,6 +331,7 @@ class LifelongMapper:
 
     def _evaluate(self, scan, stats) -> List[int]:
         mapper = self.mapper
+        self._box_rows([scan], stats)   # the scan's own box, natively
         bb = scan.bounding_box
         size = bb[1] - bb[0]
         radius = float(np.hypot(*size) / 2.0)
@@ -205,40 +346,123 @@ class LifelongMapper:
 
         # filter: minimum IOU + at least 2 constraints (computeScores)
         with stage_timer(stats, "decay_filter"):
-            filtered = []
-            for c in candidates:
-                if c is scan:
-                    continue
-                n_con = len(mapper.graph.adjacency.get(c.unique_id, []))
-                if iou(scan, c) >= self.cfg.iou_thresh and n_con >= 2:
-                    filtered.append(c)
+            adjacency = mapper.graph.adjacency
+            cands = [c for c in candidates if c is not scan]
+            bounds, iou_, area_ov = self._overlaps(scan, cands, stats)
+            keep = [k for k, c in enumerate(cands)
+                    if len(adjacency.get(c.unique_id, ())) >= 2]
+            keep = np.asarray(keep, np.int64)
+            keep = keep[iou_[keep] >= self.cfg.iou_thresh]
+            filtered = [cands[k] for k in keep]
         stats.count("decay_candidates", len(filtered))
 
-        removed = []
-        anchors = self.anchors
         with stage_timer(stats, "decay_score"):
-            for c in filtered:
-                score, protected = self._score(scan, c, len(filtered))
-                protected = protected or c.unique_id in anchors
-                if not protected and score < self.cfg.removal_score:
-                    self._remove(c, stats)
-                    removed.append(c.unique_id)
-                else:
-                    self.scores[c.unique_id] = score
+            removed = self._score_all(scan, filtered, bounds[keep],
+                                      iou_[keep], area_ov[keep], stats)
 
         # steady-state top-up: in a well-covered area every added scan
         # must be paid for by a removal or the graph grows without bound
         if self.cfg.steady_state_min_candidates > 0:
             with stage_timer(stats, "decay_topup"):
-                forced = self._steady_state_topup(scan, len(removed), stats)
+                forced = self._steady_state_topup(scan, len(removed),
+                                                  stats)
             stats.count("decay_forced", len(forced))
             removed.extend(forced)
         return removed
+
+    def _score_all(self, ref_scan, filtered, bounds, iou_, area_ov,
+                   stats) -> List[int]:
+        """computeScore (:255-292) of each filtered candidate in the
+        query's order, removing or storing as it goes; returns the
+        removed ids in order. Recent scans and the first two nodes are
+        protected (they keep their score), and so are the anchors (scored
+        all the same). A removal moves no pose, so the geometry is
+        computed before the loop; a constraint count is read from the
+        live graph at its candidate, since an earlier removal in the loop
+        may have changed it."""
+        adjacency = self.mapper.graph.adjacency
+        buf = self.mapper.config.scan_buffer_size
+        uid0 = ref_scan.unique_id
+        scored = [k for k, c in enumerate(filtered)
+                  if uid0 - c.unique_id >= buf
+                  and c.unique_id not in (0, 1)]
+        reading = self._reading_overlaps(
+            ref_scan, [filtered[k] for k in scored], bounds[scored], stats)
+        geometry = dict(zip(scored, zip(iou_[scored].tolist(),
+                                        area_ov[scored].tolist(),
+                                        reading)))
+        scores, anchors = self.scores, self.anchors
+        n = len(filtered)
+        removed = []
+        for k, c in enumerate(filtered):
+            uid = c.unique_id
+            initial = scores.get(uid, 1.0)
+            g = geometry.get(k)
+            if g is None:
+                score = initial
+            else:
+                score = objective_score(
+                    self.cfg, g[0], g[1], g[2],
+                    len(adjacency.get(uid, [])), initial, n,
+                )
+            if (g is not None and uid not in anchors
+                    and score < self.cfg.removal_score):
+                self._remove(c, stats)
+                removed.append(uid)
+            else:
+                scores[uid] = score
+        return removed
+
+    def _overlaps(self, scan, scans, stats):
+        """overlap_rows of `scan` against each of `scans`: (bounds, iou,
+        area overlap), one row each."""
+        stats.count("decay_batch_rows", len(scans))
+        return overlap_rows(box_rows([scan]), self._box_rows(scans, stats))
+
+    def _reading_overlaps(self, ref, scans, bounds, stats) -> List[float]:
+        """reading_overlap_ratio(ref, c) of each scan c of `scans`, with
+        bounds[k] = intersect_bounds(ref, c), from one pass over the
+        points the store holds for them."""
+        if not scans:
+            return []
+        from slam_toolbox_tpu_torch import native
+
+        start, count = self._points.locate(scans, stats)
+        pose = _sensor_rows(scans)
+        pts = self._points.points
+        inside = native.decay_reading_overlap(start, count, pts, pose,
+                                              bounds)
+        if inside is None:
+            inside = _np_decay_reading_overlap(start, count, pts, pose,
+                                               bounds)
+        stats.count("decay_overlap_rows", len(scans))
+        ratio = np.zeros(len(scans))
+        np.divide(inside, count, out=ratio, where=count > 0)
+        return ratio.tolist()
+
+    def _box_rows(self, scans, stats):
+        """box_rows(scans), the boxes of those whose pose moved since
+        their box was computed (the scan's cache is empty) first
+        recomputed in one native pass over the points the store holds
+        for them and put in their caches (where the library is absent,
+        the scans' own property recomputes them)."""
+        from slam_toolbox_tpu_torch import native
+
+        stale = [c for c in scans if c._bbox is None]
+        if stale and native.get_lib() is not None:
+            start, count = self._points.locate(stale, stats)
+            boxes = native.decay_boxes(start, count, self._points.points,
+                                       _sensor_rows(stale))
+            for c, box in zip(stale, boxes):
+                c._bbox = box
+            stats.count("decay_box_refresh", len(stale))
+        return box_rows(scans)
 
     def _remove(self, c, stats) -> None:
         with stage_timer(stats, "decay_remove"):
             self.mapper.remove_node_from_graph(c)
         self.scores.pop(c.unique_id, None)
+        self._points.drop(c.unique_id)
 
     def _steady_state_topup(self, scan, already_removed: int, stats):
         """Force-remove the most redundant node(s) when the scan's area
@@ -267,26 +491,27 @@ class LifelongMapper:
         d2 = np.sum((xy[:n] - center) ** 2, axis=1)
         near = np.flatnonzero((d2 <= radius * radius) & (present[:n] > 0))
         buf = cfg_m.scan_buffer_size
-        cands = []
-        for i in near:
-            c = scans_q[i]
-            if c is None or c is scan:
-                continue
-            if (c.unique_id in (0, 1)
-                    or scan.unique_id - c.unique_id < buf):
-                continue
-            v = iou(scan, c)
-            if v >= self.cfg.steady_state_min_iou:
-                # rank OLDEST-first (then score): lifelong replacement
-                # should converge to the recent laps' CONTIGUOUS chains.
-                # Age-agnostic max-IOU removal sprinkles holes across
-                # every lap, fragmenting the state-id runs the loop
-                # sweep needs (chains under the minimum size -> closures
-                # starve -> odometry drift never corrected; measured
-                # survivors-ATE 3.9 m on the 40-lap warehouse).
-                cands.append((self.scores.get(c.unique_id, 1.0),
-                              c.unique_id, c))
+        uid0 = scan.unique_id
         f_min = self.cfg.steady_state_min_candidates
+        near = [scans_q[i] for i in near.tolist()]
+        near = [c for c in near
+                if c is not None and c is not scan
+                and c.unique_id not in (0, 1)
+                and uid0 - c.unique_id >= buf]
+        if len(near) < f_min:
+            return []
+        _, iou_, _ = self._overlaps(scan, near, stats)
+        # rank OLDEST-first (then score): lifelong replacement should
+        # converge to the recent laps' CONTIGUOUS chains. Age-agnostic
+        # max-IOU removal sprinkles holes across every lap, fragmenting
+        # the state-id runs the loop sweep needs (chains under the
+        # minimum size -> closures starve -> odometry drift never
+        # corrected; measured survivors-ATE 3.9 m on the 40-lap
+        # warehouse).
+        over = np.flatnonzero(iou_ >= self.cfg.steady_state_min_iou)
+        scores = self.scores
+        cands = [(scores.get(c.unique_id, 1.0), c.unique_id, c)
+                 for c in (near[k] for k in over.tolist())]
         if len(cands) < f_min:
             return []
         want = 1 + (len(cands) >= 3 * f_min) - already_removed
@@ -368,23 +593,3 @@ class LifelongMapper:
         if resync:
             self.mapper.stats.count("decay_resync")
         return resync
-
-    def _score(self, ref_scan, candidate, num_candidates):
-        """computeScore (:255-292): recent scans and the first two nodes
-        are protected. Returns (score, protected)."""
-        mapper = self.mapper
-        initial = self.scores.get(candidate.unique_id, 1.0)
-        critical = candidate.unique_id in (0, 1)
-        id_diff = ref_scan.unique_id - candidate.unique_id
-        if id_diff < mapper.config.scan_buffer_size or critical:
-            return initial, True
-        n_con = len(mapper.graph.adjacency.get(candidate.unique_id, []))
-        return objective_score(
-            self.cfg,
-            iou(ref_scan, candidate),
-            area_overlap_ratio(ref_scan, candidate),
-            reading_overlap_ratio(ref_scan, candidate),
-            n_con,
-            initial,
-            num_candidates,
-        ), False

@@ -96,6 +96,10 @@ def get_lib():
     lib.occupancy_raster.argtypes = [
         ptr, ptr, ptr, ptr, i64, i64, i64, ptr, ptr,
     ]
+    lib.decay_reading_overlap.restype = None
+    lib.decay_reading_overlap.argtypes = [i64] + [ptr] * 6
+    lib.decay_boxes.restype = None
+    lib.decay_boxes.argtypes = [i64] + [ptr] * 5
     lib.augment_csr.restype = None
     lib.augment_csr.argtypes = [
         i64, i64, ptr, ptr, ptr, i64, ptr, ptr, ptr, ptr,
@@ -121,6 +125,60 @@ def augment_csr(indptr0, indices0, segend0, es, ed):
         out_indptr.ctypes.data, out_indices.ctypes.data,
     )
     return out_indptr, out_indices
+
+
+def _decay_arrays(start, count, points, pose, *rows):
+    """The decay's arrays as the native passes read them (contiguous,
+    int64 and f64), their shapes and rows checked: each of the n
+    candidates owns rows start .. start + count of points (r, 2), with
+    pose (n, 4) and each of `rows` (n, 4)."""
+    arrs = ([np.ascontiguousarray(start, np.int64),
+             np.ascontiguousarray(count, np.int64)]
+            + [np.ascontiguousarray(a, np.float64)
+               for a in (points, pose, *rows)])
+    start, count, points = arrs[:3]
+    n = len(start)
+    want = [(n,), (n,), (len(points), 2)] + [(n, 4)] * (1 + len(rows))
+    if [a.shape for a in arrs] != want:
+        raise ValueError(
+            f"decay arrays of shapes {[a.shape for a in arrs]}")
+    if n and (start.min() < 0 or count.min() < 0
+              or (start + count).max() > len(points)):
+        raise ValueError("a candidate's rows fall outside the points")
+    return arrs
+
+
+def decay_reading_overlap(start, count, points, pose, bounds):
+    """Of each candidate i, its points rows start[i] .. start[i] +
+    count[i] of `points` (sensor frame) strictly inside bounds[i] = (x_l,
+    x_u, y_l, y_u) once moved to pose[i] = (x, y, cos, sin): (n,) int64,
+    equal to mapper/lifelong._np_decay_reading_overlap's. None if no
+    lib."""
+    lib = get_lib()
+    if lib is None:
+        return None
+    arrs = _decay_arrays(start, count, points, pose, bounds)
+    n = len(arrs[0])
+    inside = np.empty(n, np.int64)
+    lib.decay_reading_overlap(
+        n, *(a.ctypes.data for a in arrs), inside.ctypes.data)
+    return inside
+
+
+def decay_boxes(start, count, points, pose):
+    """LocalizedScan.bounding_box of each candidate i at pose[i] = (x,
+    y, cos, sin) of its sensor, from its filtered sensor-frame points
+    rows start[i] .. start[i] + count[i] of `points`: (n, 2, 2) of [[min
+    x, min y], [max x, max y]], equal to the property's. None if no
+    lib."""
+    lib = get_lib()
+    if lib is None:
+        return None
+    arrs = _decay_arrays(start, count, points, pose)
+    n = len(arrs[0])
+    box = np.empty((n, 2, 2))
+    lib.decay_boxes(n, *(a.ctypes.data for a in arrs), box.ctypes.data)
+    return box
 
 
 def occupancy_raster(start_cells, end_cells, beam_valid, end_valid,

@@ -879,4 +879,72 @@ void augment_csr(
     }
 }
 
+// The lifelong decay's reading overlap (computeReadingOverlapRatio,
+// slam_toolbox_lifelong.cpp:455-478) of n candidates in one pass: row i
+// counts its sensor-frame points points[start[i] .. start[i] + count[i])
+// whose world position, at the sensor pose (x, y, cos, sin) pose[i],
+// lies strictly inside bounds[i] = (x_l, x_u, y_l, y_u). Each point is
+// moved as LocalizedScan.points_world moves it, x + c*lx - s*ly and
+// y + s*lx + c*ly left to right (no contraction: -ffp-contract=off), so
+// the counts equal NumPy's on the same doubles.
+void decay_reading_overlap(
+    int64_t n,
+    const int64_t* start,     // (n,) first row of each candidate's points
+    const int64_t* count,     // (n,) its number of points
+    const double* points,     // (rows, 2) filtered sensor-frame points
+    const double* pose,       // (n, 4) x, y, cos, sin of the sensor pose
+    const double* bounds,     // (n, 4) x_l, x_u, y_l, y_u
+    int64_t* inside           // (n,) out: points strictly inside
+) {
+    for (int64_t i = 0; i < n; ++i) {
+        const double x = pose[4 * i], y = pose[4 * i + 1];
+        const double c = pose[4 * i + 2], s = pose[4 * i + 3];
+        const double xl = bounds[4 * i], xu = bounds[4 * i + 1];
+        const double yl = bounds[4 * i + 2], yu = bounds[4 * i + 3];
+        const double* p = points + 2 * start[i];
+        int64_t k = 0;
+        for (int64_t j = 0; j < count[i]; ++j) {
+            const double lx = p[2 * j], ly = p[2 * j + 1];
+            const double wx = x + c * lx - s * ly;
+            const double wy = y + s * lx + c * ly;
+            k += (wx > xl) & (wx < xu) & (wy > yl) & (wy < yu);
+        }
+        inside[i] = k;
+    }
+}
+
+// LocalizedScan.bounding_box of n scans whose pose moved, in one pass:
+// row i's box over its sensor position (x, y) of pose[i] = (x, y, cos,
+// sin) and its points rows start[i] .. start[i] + count[i] moved as
+// decay_reading_overlap moves them, written as (min x, min y, max x,
+// max y) to box[i]. Min and max are exact, so the boxes equal NumPy's.
+void decay_boxes(
+    int64_t n,
+    const int64_t* start,     // (n,) first row of each scan's points
+    const int64_t* count,     // (n,) its number of points
+    const double* points,     // (rows, 2) filtered sensor-frame points
+    const double* pose,       // (n, 4) x, y, cos, sin of the sensor pose
+    double* box               // (n, 4) out
+) {
+    for (int64_t i = 0; i < n; ++i) {
+        const double x = pose[4 * i], y = pose[4 * i + 1];
+        const double c = pose[4 * i + 2], s = pose[4 * i + 3];
+        double x0 = x, y0 = y, x1 = x, y1 = y;
+        const double* p = points + 2 * start[i];
+        for (int64_t j = 0; j < count[i]; ++j) {
+            const double lx = p[2 * j], ly = p[2 * j + 1];
+            const double wx = x + c * lx - s * ly;
+            const double wy = y + s * lx + c * ly;
+            x0 = std::min(x0, wx);
+            x1 = std::max(x1, wx);
+            y0 = std::min(y0, wy);
+            y1 = std::max(y1, wy);
+        }
+        box[4 * i] = x0;
+        box[4 * i + 1] = y0;
+        box[4 * i + 2] = x1;
+        box[4 * i + 3] = y1;
+    }
+}
+
 }  // extern "C"

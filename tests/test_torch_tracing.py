@@ -8,7 +8,10 @@ beams, drains of 16 scans) nest as the drain's commit runs them, with
 settle()'s commits under commit_total; a lifelong session's decay spans
 nest under the commit, its parts under the decay and each removal under
 the part that made it, each span's self seconds and its children's
-seconds summing to its own."""
+seconds summing to its own; the decay counts the rows of its batched
+passes (its reading-overlap rows are the filtered candidates that reach
+the objective score, counted apart with the scalar metrics), and a
+session without the decay counts none."""
 import collections
 
 import numpy as np
@@ -19,7 +22,7 @@ from slam_toolbox_tpu_torch.api import SlamSession
 from slam_toolbox_tpu_torch.core.params import MapperConfig
 from slam_toolbox_tpu_torch.core.scan import LaserConfig
 from slam_toolbox_tpu_torch.io.dataset import LidarSimulator, SegmentWorld
-from slam_toolbox_tpu_torch.mapper import streaming
+from slam_toolbox_tpu_torch.mapper import lifelong, streaming
 from slam_toolbox_tpu_torch.mapper.lifelong import LifelongConfig
 from slam_toolbox_tpu_torch.utils import metrics
 from slam_toolbox_tpu_torch.utils.metrics import SpanLog, Stats, stage_timer
@@ -304,11 +307,30 @@ def test_the_ring_overwrites_its_oldest_and_says_so(monkeypatch):
         SpanLog(6)
 
 
+def _reaching_the_score(ll, scan) -> int:
+    """The candidates of the decay of `scan` that reach objective_score,
+    counted with the scalar metrics before the decay runs: linked within
+    half the scan's box diagonal, an IOU of iou_thresh or more, 2
+    constraints or more, outside the buffer's ids and ids 0 and 1."""
+    m = ll.mapper
+    bb = scan.bounding_box
+    radius = float(np.hypot(*(bb[1] - bb[0])) / 2.0)
+    buf = m.config.scan_buffer_size
+    n = 0
+    for c in m.graph.find_near_linked_scans(scan, radius):
+        if (c is scan or lifelong.iou(scan, c) < ll.cfg.iou_thresh
+                or len(m.graph.adjacency.get(c.unique_id, [])) < 2):
+            continue
+        n += scan.unique_id - c.unique_id >= buf and c.unique_id > 1
+    return n
+
+
 @pytest.fixture(scope="module")
 def lifelong_spans():
     """A lifelong streaming session over two laps and back (the top-up
     at 12 candidates, removals marginalized, chains of 6: the setting of
-    test_torch_lifelong.py), Stats on; its spans and its Stats."""
+    test_torch_lifelong.py), Stats on; its spans, its Stats and the
+    candidates that reached the objective score, counted apart."""
     cfg, laser = _cfg_laser(loop_match_minimum_chain_size=6,
                             marginalize_on_removal=True)
     sim = LidarSimulator(SegmentWorld.rooms(16.0, 10.0), laser,
@@ -319,6 +341,15 @@ def lifelong_spans():
                        drain_every=16,
                        lifelong=LifelongConfig(steady_state_min_candidates=12))
     sess.stats.enabled = True
+    ll = sess.lifelong
+    evaluate = ll.evaluate_node_depreciation
+    reach = []
+
+    def counted(scan):
+        reach.append(_reaching_the_score(ll, scan))
+        return evaluate(scan)
+
+    ll.evaluate_node_depreciation = counted
     t0 = metrics._clock()
     for i, (scan, _) in enumerate(data):
         sess.process_scan(scan.ranges, scan.odom_pose, time=i * 0.1)
@@ -326,7 +357,8 @@ def lifelong_spans():
     stats = sess.stats
     t1 = metrics._clock()
     sess.close()
-    return dict(w=metrics.SPANS.window(t0, t1), stats=stats)
+    return dict(w=metrics.SPANS.window(t0, t1), stats=stats,
+                reach=sum(reach), evals=len(reach))
 
 
 DECAY_PARTS = ("decay_query", "decay_filter", "decay_score", "decay_topup")
@@ -382,3 +414,28 @@ def test_a_decay_spans_self_and_children_sum_to_it(lifelong_spans):
     assert (st.seconds["decay_score"] - st.self_seconds["decay_score"]
             + st.seconds["decay_topup"] - st.self_seconds["decay_topup"]
             ) == pytest.approx(st.seconds["decay_remove"], abs=1e-9 * n)
+
+
+BATCH_COUNTERS = ("decay_batch_rows", "decay_overlap_rows",
+                  "decay_points_packed")
+
+
+def test_the_decay_counts_its_batched_rows(lifelong_spans):
+    """A lifelong session counts rows through the batched IOU pass (at
+    least the filtered candidates), through the reading-overlap pass
+    (exactly the filtered candidates that reach the objective score) and
+    nodes packed into the points store."""
+    st = lifelong_spans["stats"]
+    for k in BATCH_COUNTERS:
+        assert st.counts.get(k, 0) > 0, k
+    assert lifelong_spans["evals"] == st.counts["decay_evals"]
+    assert st.counts["decay_overlap_rows"] == lifelong_spans["reach"]
+    assert st.counts["decay_batch_rows"] >= st.counts["decay_candidates"]
+    # each node packed once at most, and every node was a decayed scan
+    assert st.counts["decay_points_packed"] <= st.counts["decay_evals"]
+
+
+def test_a_session_without_the_decay_counts_no_rows(session_spans):
+    counts = session_spans["stats"].counts
+    for k in BATCH_COUNTERS + ("decay_box_refresh",):
+        assert k not in counts, k
